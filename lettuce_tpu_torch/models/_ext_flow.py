@@ -1,0 +1,69 @@
+"""Base class and shared grid helpers for the concrete flow cases:
+subclasses supply ``make_resolution`` / ``make_units`` / ``initial_pu`` /
+``boundaries``."""
+
+from __future__ import annotations
+
+from abc import ABC, abstractmethod
+from typing import List, Optional, Union
+
+import torch
+
+from ..flow import Flow
+from ..ops.equilibrium import QuadraticEquilibrium
+from ..stencil import D1Q3, D2Q9, D3Q19
+
+__all__ = ["ExtFlow", "periodic_grid", "expand_resolution"]
+
+_DEFAULT_STENCILS = (D1Q3, D2Q9, D3Q19)
+
+
+def expand_resolution(resolution: Union[int, List[int]], d: int,
+                      allowed=None) -> List[int]:
+    """Normalise an int-or-list resolution to a d-long list."""
+    if isinstance(resolution, int):
+        return [resolution] * d
+    if allowed is not None and len(resolution) not in allowed:
+        raise ValueError(f"resolution must have {allowed} axes, "
+                         f"got {len(resolution)}")
+    return list(resolution)
+
+
+def periodic_grid(resolution, extent: float, dtype, device):
+    """Node coordinates of a periodic box [0, extent): the last node stops
+    one spacing short of the extent (it wraps onto node 0)."""
+    axes = [torch.arange(n, dtype=dtype, device=device) * (extent / n)
+            for n in resolution]
+    return torch.meshgrid(*axes, indexing="ij")
+
+
+class ExtFlow(Flow, ABC):
+    """Template-method flow base: normalises the resolution, picks the
+    default stencil for the dimension and the quadratic equilibrium, then
+    defers the physics to the subclass hooks."""
+
+    def __init__(self, context: "Context", resolution: Union[int, List[int]],
+                 reynolds_number, mach_number,
+                 stencil: Optional["Stencil"] = None,
+                 equilibrium: Optional["Equilibrium"] = None):
+        resolution = self.make_resolution(resolution, stencil)
+        d = len(resolution)
+        if not 1 <= d <= 3:
+            raise ValueError(f"flows support 1-3 dimensions, got {d}")
+        if stencil is None:
+            stencil = _DEFAULT_STENCILS[d - 1]()
+        elif callable(stencil):
+            stencil = stencil()
+        units = self.make_units(reynolds_number, mach_number, resolution)
+        Flow.__init__(self, context, resolution, units, stencil,
+                      equilibrium or QuadraticEquilibrium())
+
+    @abstractmethod
+    def make_resolution(self, resolution: Union[int, List[int]],
+                        stencil: Optional["Stencil"] = None) -> List[int]:
+        """Normalise the user-given resolution to a per-axis list."""
+
+    @abstractmethod
+    def make_units(self, reynolds_number, mach_number,
+                   resolution: List[int]) -> "UnitConversion":
+        """Build the unit system for this case's characteristic scales."""

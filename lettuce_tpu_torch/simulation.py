@@ -1,0 +1,213 @@
+"""Simulation driver: mask construction, step-path selection, step loop.
+
+Boundary masks are uint8 index-coded (``no_collision_mask``) plus a
+per-(q, node) ``no_streaming_mask``; collision and each boundary compose
+pointwise with ``where``; calling the simulation runs ``num_steps`` eager
+steps and returns MLUPS.
+
+Two step paths:
+  * ``"torch"``: the plain tensor step (collision, boundaries, per-q roll),
+    differentiable by ordinary autograd;
+  * ``"cuda"``: the fused CUDA stream-collide kernel, chosen on a CUDA
+    context with ``use_native`` when every component supports it. The
+    capability probe is on component types only, and prints its reason
+    when it keeps the torch step; a build or launch error is never caught.
+"""
+
+from __future__ import annotations
+
+from abc import ABC, abstractmethod
+from timeit import default_timer as timer
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from .ops.collision import Collision
+from .ops.cuda.stream_collide import (KERNEL_STENCILS, gate_fused_params,
+                                      load_library, stream_collide)
+from .ops.streaming import stream
+
+__all__ = ["Collision", "Reporter", "Simulation"]
+
+
+class Reporter(ABC):
+    """Interval callback protocol."""
+
+    interval: int
+
+    def __init__(self, interval: int):
+        self.interval = interval
+
+    @abstractmethod
+    def __call__(self, simulation: "Simulation"):
+        ...
+
+
+def _gcd_interval(reporters: List["Reporter"]) -> Optional[int]:
+    intervals = [max(1, int(r.interval)) for r in reporters]
+    if not intervals:
+        return None
+    g = intervals[0]
+    for i in intervals[1:]:
+        g = np.gcd(g, i)
+    return int(g)
+
+
+class Simulation:
+    """Orchestrates masks, step-path selection and the step loop."""
+
+    def __init__(self, flow: "Flow", collision: "Collision",
+                 reporter: List["Reporter"]):
+        self.flow = flow
+        self.flow.collision = collision
+        self.context = flow.context
+        self.collision = collision
+        self.reporter = reporter
+        # deterministic mask precedence: class name, then declaration order
+        self.boundaries = ([None]
+                           + sorted(flow.boundaries,
+                                    key=lambda b: type(b).__name__))
+
+        # ---------------- masks ----------------
+        self.no_collision_mask = None
+        self.no_streaming_mask = None
+        if len(self.boundaries) > 1:
+            ncm = np.zeros(tuple(flow.resolution), dtype=np.uint8)
+            nsm = np.zeros((flow.stencil.q, *flow.resolution), dtype=bool)
+            for i, boundary in enumerate(self.boundaries[1:], start=1):
+                m = boundary.make_no_collision_mask(
+                    list(flow.resolution), context=self.context)
+                if m is not None:
+                    ncm[self.context.convert_to_ndarray(m).astype(bool)] = i
+                s = boundary.make_no_streaming_mask(
+                    [flow.stencil.q, *flow.resolution], context=self.context)
+                if s is not None:
+                    nsm |= self.context.convert_to_ndarray(s).astype(bool)
+            self.no_collision_mask = self.context.convert_to_tensor(ncm)
+            self.no_streaming_mask = self.context.convert_to_tensor(nsm)
+
+        # ---------------- step-path selection ----------------
+        self._step = self._torch_step
+        self._step_kind = "torch"
+        if self.context.use_native and self._native_supported():
+            self._kernel_params = gate_fused_params(self)
+            load_library()  # a build error surfaces here, never later
+            # the kernel steps out of place: the simulation keeps a second
+            # state buffer and swaps the two each step, so the tensor a
+            # step consumed is overwritten by the step after it
+            self._spare = None
+            self._step = self._cuda_step
+            self._step_kind = "cuda"
+
+    # ------------------------------------------------------------------
+    # step construction
+    # ------------------------------------------------------------------
+    def _native_supported(self) -> bool:
+        """Capability probe on component types. The CUDA kernel needs a
+        CUDA device, a quadratic equilibrium, BGK collision and no
+        boundaries; prints the reason for each component that keeps the
+        torch step."""
+        if self.context.device.type != "cuda":
+            return False  # a CPU context runs the torch step
+        ok = True
+        if not isinstance(self.flow.stencil, KERNEL_STENCILS):
+            print(f"native was requested, but stencil "
+                  f"'{type(self.flow.stencil).__name__}' has no CUDA kernel "
+                  f"instance (compiled for "
+                  f"{', '.join(s.__name__ for s in KERNEL_STENCILS)}).")
+            ok = False
+        if not self.flow.equilibrium.native_available():
+            print(f"native was requested, but equilibrium "
+                  f"'{type(self.flow.equilibrium).__name__}' does not "
+                  f"support the CUDA kernel.")
+            ok = False
+        if not self.collision.native_available():
+            print(f"native was requested, but collision "
+                  f"'{type(self.collision).__name__}' does not support the "
+                  f"CUDA kernel.")
+            ok = False
+        for boundary in self.boundaries[1:]:
+            if not boundary.native_available():
+                print(f"native was requested, but boundary "
+                      f"'{type(boundary).__name__}' does not support the "
+                      f"CUDA kernel.")
+                ok = False
+        return ok
+
+    def _torch_step(self, f: torch.Tensor) -> torch.Tensor:
+        """One collide-and-stream step in plain torch."""
+        flow = self.flow
+        ncm = self.no_collision_mask
+        if ncm is None:
+            f = self.collision(flow.view(f))
+            for boundary in self.boundaries[1:]:
+                f = boundary(flow.view(f))
+        else:
+            f = torch.where(ncm == 0, self.collision(flow.view(f)), f)
+            for i, boundary in enumerate(self.boundaries[1:], start=1):
+                f = torch.where(ncm == i, boundary(flow.view(f)), f)
+        return stream(f, self.flow.stencil.e, self.no_streaming_mask)
+
+    def _cuda_step(self, f: torch.Tensor) -> torch.Tensor:
+        """One step through the CUDA kernel, into the spare buffer."""
+        spare = self._spare
+        if (spare is None or spare.shape != f.shape
+                or spare.dtype != f.dtype or spare.device != f.device
+                or spare.data_ptr() == f.data_ptr()):
+            spare = None  # the wrapper allocates it
+        out = stream_collide(f, out=spare, **self._kernel_params)
+        self._spare = f
+        return out
+
+    # ------------------------------------------------------------------
+    # public API
+    # ------------------------------------------------------------------
+    @property
+    def units(self):
+        return self.flow.units
+
+    @property
+    def step_path(self) -> str:
+        """The selected step path: ``'cuda x1'`` (fused kernel, one step
+        per launch) or ``'torch x1'`` (plain tensor step)."""
+        return f"{self._step_kind} x1"
+
+    def _report(self):
+        for reporter in self.reporter:
+            reporter(self)
+
+    def _synchronize(self):
+        if self.context.device.type == "cuda":
+            torch.cuda.synchronize(self.context.device)
+
+    def __call__(self, num_steps: int) -> float:
+        """Run ``num_steps`` steps, calling the reporters at the gcd of
+        their intervals; returns MLUPS (timed between two device
+        synchronisations on a CUDA device)."""
+        self._synchronize()
+        beg = timer()
+
+        if self.flow.i == 0:
+            self._report()
+
+        g = _gcd_interval(self.reporter)
+        remaining = int(num_steps)
+        while remaining > 0:
+            if g is None:
+                n = remaining
+            else:
+                n = min(g - (self.flow.i % g) or g, remaining)
+            f = self.flow.f
+            for _ in range(n):
+                f = self._step(f)
+            self.flow.f = f
+            self.flow.i += n
+            remaining -= n
+            if g is not None:
+                self._report()
+
+        self._synchronize()
+        end = timer()
+        return (num_steps * float(np.prod(self.flow.resolution))
+                / 1e6 / (end - beg))

@@ -1,0 +1,120 @@
+"""lettuce_tpu_torch.Simulation against lettuce_tpu.Simulation (jnp step)
+on the CPU: ten steps from one seeded state, the reporters, and the step
+path selection."""
+
+import io
+
+import numpy as np
+import pytest
+import torch
+
+import lettuce_tpu as lt
+import lettuce_tpu_torch as ltt
+from tests.torch_helpers import (DTYPES, hand_state, noisy_state, tgv_pair,
+                                 to_numpy)
+
+CASES = [("D2Q9", [32, 32]), ("D3Q19", [16, 16, 16])]
+
+
+def simulations(dtype_name, stencil_name, resolution, reporters=None):
+    jflow, tflow = tgv_pair(dtype_name, resolution, stencil_name,
+                            initialize_fneq=False)
+    hand_state(jflow, tflow, noisy_state(jflow.f, seed=21))
+    tau = jflow.units.relaxation_parameter_lu
+    jrep, trep = reporters(jflow, tflow) if reporters else ([], [])
+    jsim = lt.Simulation(jflow, lt.BGKCollision(tau), jrep)
+    tsim = ltt.Simulation(tflow, ltt.BGKCollision(tau), trep)
+    return jsim, tsim
+
+
+@pytest.mark.parametrize("dtype_name", sorted(DTYPES))
+@pytest.mark.parametrize("stencil_name,resolution", CASES,
+                         ids=["tgv2d-32", "tgv3d-16"])
+def test_ten_steps_match_jnp_path(dtype_name, stencil_name, resolution):
+    jsim, tsim = simulations(dtype_name, stencil_name, resolution)
+    assert jsim._step_kind == "jnp"
+    assert tsim._step_kind == "torch"
+    jsim(10)
+    mlups = tsim(10)
+    assert mlups > 0 and tsim.flow.i == 10 == jsim.flow.i
+    assert tsim.flow.f.dtype == DTYPES[dtype_name][1]
+    np.testing.assert_allclose(to_numpy(tsim.flow.f), to_numpy(jsim.flow.f),
+                               rtol=0, atol=DTYPES[dtype_name][2])
+
+
+def test_cpu_context_runs_torch_step_even_with_native():
+    ctx = ltt.Context(device="cpu", dtype=torch.float32, use_native=True)
+    flow = ltt.TaylorGreenVortex(ctx, [8, 8, 8], 1600, 0.05,
+                                 stencil=ltt.D3Q19())
+    sim = ltt.Simulation(flow, ltt.BGKCollision(0.6), [])
+    assert sim._step_kind == "torch"
+    assert sim.step_path == "torch x1"
+    assert sim.no_collision_mask is None and sim.no_streaming_mask is None
+
+
+def test_cuda_context_raises_without_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device exists: the error path cannot be reached")
+    with pytest.raises(RuntimeError, match="cuda"):
+        ltt.Context(device="cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        ltt.Context(device="cuda:0", dtype=torch.float64)
+
+
+def test_reporters_match():
+    def reporters(jflow, tflow):
+        jout, tout = [], []
+        jrep = [lt.ObservableReporter(cls(jflow), interval=iv, out=jout)
+                for cls, iv in ((lt.MaximumVelocity, 2),
+                                (lt.IncompressibleKineticEnergy, 3),
+                                (lt.Mass, 4))]
+        trep = [ltt.ObservableReporter(cls(tflow), interval=iv, out=tout)
+                for cls, iv in ((ltt.MaximumVelocity, 2),
+                                (ltt.IncompressibleKineticEnergy, 3),
+                                (ltt.Mass, 4))]
+        jrep.append(lt.ErrorReporter(jflow.analytic_solution, interval=5,
+                                     out=jout))
+        trep.append(ltt.ErrorReporter(tflow.analytic_solution, interval=5,
+                                      out=tout))
+        return jrep, trep
+
+    jsim, tsim = simulations("float64", "D2Q9", [24, 24], reporters)
+    jsim(12)
+    tsim(12)
+    jout, tout = jsim.reporter[0].out, tsim.reporter[0].out
+    assert len(tout) == len(jout) > 10
+    for got, want in zip(tout, jout):
+        np.testing.assert_allclose(got, want, rtol=1e-10, atol=1e-13)
+
+
+def test_reporter_prints_to_stream():
+    ctx = ltt.Context(device="cpu", dtype=torch.float64)
+    tflow = ltt.TaylorGreenVortex(ctx, [16, 16], 1600, 0.05,
+                                  stencil=ltt.D2Q9())
+    out = io.StringIO()
+    sim = ltt.Simulation(tflow, ltt.BGKCollision(0.6),
+                         [ltt.ObservableReporter(ltt.Mass(tflow), interval=2,
+                                                 out=out)])
+    sim(4)
+    rows = [line.split() for line in out.getvalue().splitlines()]
+    assert [int(r[0]) for r in rows] == [0, 2, 4]
+
+
+def test_mean_analytic_error_matches():
+    jsim, tsim = simulations("float64", "D2Q9", [16, 16])
+    want = lt.mean_analytic_error(jsim, 20)
+    got = ltt.mean_analytic_error(tsim, 20)
+    assert tsim.flow.i == 20
+    np.testing.assert_allclose(got, want, rtol=1e-10)
+
+
+def test_torch_path_is_differentiable():
+    ctx = ltt.Context(device="cpu", dtype=torch.float64)
+    tflow = ltt.TaylorGreenVortex(ctx, [8, 8], 1600, 0.05,
+                                  stencil=ltt.D2Q9(), initialize_fneq=False)
+    sim = ltt.Simulation(tflow, ltt.BGKCollision(0.6), [])
+    f0 = tflow.f.clone().requires_grad_(True)
+    tflow.f = f0
+    sim(3)
+    tflow.f.pow(2).sum().backward()
+    assert f0.grad is not None and bool(torch.isfinite(f0.grad).all())

@@ -1,0 +1,56 @@
+"""Shared helpers of the ``test_torch_*`` files: build the same flow in
+``lettuce_tpu`` (JAX, on the CPU) and in ``lettuce_tpu_torch`` (torch, on
+the CPU) and hand both one numpy state."""
+
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+import lettuce_tpu as lt
+import lettuce_tpu_torch as ltt
+
+# dtype name -> (jax dtype, torch dtype, parity tolerance). float64 agrees
+# to roundoff; float32 to the tolerance tests/test_native.py holds the
+# Pallas kernel to against the jnp step.
+DTYPES = {
+    "float64": (jnp.float64, torch.float64, 1e-12),
+    "float32": (jnp.float32, torch.float32, 5e-6),
+}
+
+
+def contexts(dtype_name):
+    """(lettuce_tpu context, lettuce_tpu_torch context), both on the CPU,
+    both on the plain step path."""
+    jax_dtype, torch_dtype, _ = DTYPES[dtype_name]
+    return (lt.Context(dtype=jax_dtype, use_native=False),
+            ltt.Context(device="cpu", dtype=torch_dtype, use_native=False))
+
+
+def tgv_pair(dtype_name, resolution, stencil_name, **kwargs):
+    """The same Taylor-Green vortex in both packages."""
+    jctx, tctx = contexts(dtype_name)
+    jflow = lt.TaylorGreenVortex(jctx, resolution, 1600, 0.05,
+                                 stencil=getattr(lt, stencil_name)(),
+                                 **kwargs)
+    tflow = ltt.TaylorGreenVortex(tctx, resolution, 1600, 0.05,
+                                  stencil=getattr(ltt, stencil_name)(),
+                                  **kwargs)
+    return jflow, tflow
+
+
+def noisy_state(f, seed, scale=1e-3):
+    """``f`` (any array) plus seeded numpy noise, as float64 numpy."""
+    f = np.asarray(f, dtype=np.float64)
+    return f + scale * np.random.default_rng(seed).standard_normal(f.shape)
+
+
+def hand_state(jflow, tflow, f_np):
+    """Put one numpy state onto both flows, each in its own dtype."""
+    jflow.f = jnp.asarray(f_np, dtype=jflow.context.dtype)
+    ltt.state_from_numpy(tflow, f_np)
+
+
+def to_numpy(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
