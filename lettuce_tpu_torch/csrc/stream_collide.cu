@@ -3,12 +3,16 @@
 // Replaces lettuce_tpu/ops/pallas/stream_collide.py::_stream_collide_kernel
 // with the "bgk" collision fragment, no masks and one step per launch
 // (n_sub = 1): it computes the same function as
-// fused_stream_collide(f, e, w, opposite, cs, tau_inv).
+// fused_stream_collide(f, e, w, opposite, cs, tau_inv), and with EmitU the
+// same as fused_stream_collide(..., emit_u=True), which also returns the
+// pre-collision velocity u = j / rho as the adjoint kernel's residual
+// (adjoint.cu).
 //
 // What bounds it: device memory. The arithmetic is a few flops per
 // population; the traffic is the state itself. D3Q19 in float32 reads
-// 19 * 4 B and writes 19 * 4 B per cell: 152 B per lattice update. The
-// design reads each population once and writes it once:
+// 19 * 4 B and writes 19 * 4 B per cell: 152 B per lattice update (164 B
+// with EmitU, which writes 3 * 4 B of u more). The design reads each
+// population once and writes it once:
 //   * one thread per lattice cell, threads along the last (fastest) axis,
 //     so every f[q, .] load of a warp is coalesced;
 //   * the cell's q populations stay in registers; rho and j come from the
@@ -18,129 +22,22 @@
 //     same map as the TPU kernel's pull f_out[q, x] = f_post[q, x - e_q].
 //     No neighbour is collided twice and no halo is loaded.
 // The step is out of place (f -> out): a push into f itself would race.
-//
-// The stencil tables are compile-time constants: the q loops unroll by
-// template recursion, so every table lookup folds into the code. A 2D grid
-// [X, Y] runs as the 3D grid [1, X, Y].
+// EmitU is a separate instance, so the primal entries never pay its writes.
 //
 // Plain C interface, loaded with ctypes: one entry per (stencil, dtype)
-// instance. Each entry launches on the stream it is given and returns
-// cudaGetLastError(); it neither allocates nor synchronises.
+// instance, and one more per instance for EmitU. Each entry launches on
+// the stream it is given and returns cudaGetLastError(); it neither
+// allocates nor synchronises.
 
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
+#include "stencils.cuh"
+
 namespace {
 
-constexpr int kBlock = 128;
-
-struct D2Q9 {
-  static constexpr int D = 2, Q = 9;
-  __host__ __device__ static constexpr int e(int q, int a) {
-    constexpr int t[Q][D] = {{0, 0}, {1, 0},  {0, 1},   {-1, 0}, {0, -1},
-                             {1, 1}, {-1, 1}, {-1, -1}, {1, -1}};
-    return t[q][a];
-  }
-  __host__ __device__ static constexpr double w(int q) {
-    return q == 0 ? 4.0 / 9.0 : q < 5 ? 1.0 / 9.0 : 1.0 / 36.0;
-  }
-};
-
-struct D3Q15 {
-  static constexpr int D = 3, Q = 15;
-  __host__ __device__ static constexpr int e(int q, int a) {
-    constexpr int t[Q][D] = {
-        {0, 0, 0},  {1, 0, 0},   {-1, 0, 0},  {0, 1, 0},  {0, -1, 0},
-        {0, 0, 1},  {0, 0, -1},  {1, 1, 1},   {-1, -1, -1}, {1, 1, -1},
-        {-1, -1, 1}, {1, -1, 1}, {-1, 1, -1}, {1, -1, -1}, {-1, 1, 1}};
-    return t[q][a];
-  }
-  __host__ __device__ static constexpr double w(int q) {
-    return q == 0 ? 2.0 / 9.0 : q < 7 ? 1.0 / 9.0 : 1.0 / 72.0;
-  }
-};
-
-struct D3Q19 {
-  static constexpr int D = 3, Q = 19;
-  __host__ __device__ static constexpr int e(int q, int a) {
-    constexpr int t[Q][D] = {
-        {0, 0, 0},  {1, 0, 0},   {-1, 0, 0}, {0, 1, 0},  {0, -1, 0},
-        {0, 0, 1},  {0, 0, -1},  {0, 1, 1},  {0, -1, -1}, {0, 1, -1},
-        {0, -1, 1}, {1, 0, 1},   {-1, 0, -1}, {1, 0, -1}, {-1, 0, 1},
-        {1, 1, 0},  {-1, -1, 0}, {1, -1, 0}, {-1, 1, 0}};
-    return t[q][a];
-  }
-  __host__ __device__ static constexpr double w(int q) {
-    return q == 0 ? 1.0 / 3.0 : q < 7 ? 1.0 / 18.0 : 1.0 / 36.0;
-  }
-};
-
-struct D3Q27 {
-  static constexpr int D = 3, Q = 27;
-  __host__ __device__ static constexpr int e(int q, int a) {
-    constexpr int t[Q][D] = {
-        {0, 0, 0},   {1, 0, 0},   {-1, 0, 0},  {0, 1, 0},   {0, -1, 0},
-        {0, 0, 1},   {0, 0, -1},  {0, 1, 1},   {0, -1, -1}, {0, 1, -1},
-        {0, -1, 1},  {1, 0, 1},   {-1, 0, -1}, {1, 0, -1},  {-1, 0, 1},
-        {1, 1, 0},   {-1, -1, 0}, {1, -1, 0},  {-1, 1, 0},  {1, 1, 1},
-        {-1, -1, -1}, {1, 1, -1}, {-1, -1, 1}, {1, -1, 1},  {-1, 1, -1},
-        {1, -1, -1}, {-1, 1, 1}};
-    return t[q][a];
-  }
-  __host__ __device__ static constexpr double w(int q) {
-    return q == 0    ? 8.0 / 27.0
-           : q < 7   ? 2.0 / 27.0
-           : q < 19  ? 1.0 / 54.0
-                     : 1.0 / 216.0;
-  }
-};
-
-// ---------------------------------------------------------------------------
-// compile-time stencil queries
-// ---------------------------------------------------------------------------
-template <class S>
-__host__ __device__ constexpr int opposite(int q) {
-  for (int p = 0; p < S::Q; ++p) {
-    bool match = true;
-    for (int a = 0; a < S::D; ++a) match = match && S::e(p, a) == -S::e(q, a);
-    if (match) return p;
-  }
-  return -1;
-}
-
-template <class S>
-__host__ __device__ constexpr bool is_rest(int q) {
-  for (int a = 0; a < S::D; ++a)
-    if (S::e(q, a) != 0) return false;
-  return true;
-}
-
-// The pair cache is keyed on the direction whose first non-zero component
-// is positive.
-template <class S>
-__host__ __device__ constexpr bool is_canonical(int q) {
-  for (int a = 0; a < S::D; ++a) {
-    if (S::e(q, a) > 0) return true;
-    if (S::e(q, a) < 0) return false;
-  }
-  return true;
-}
-
-// Component of e_q along axis 0..2 of the 3D launch grid.
-template <class S>
-__host__ __device__ constexpr int comp3(int q, int axis) {
-  return S::D == 3 ? S::e(q, axis) : (axis == 0 ? 0 : S::e(q, axis - 1));
-}
-
-template <class S>
-constexpr bool pair_weights_symmetric() {
-  for (int q = 0; q < S::Q; ++q) {
-    const int p = opposite<S>(q);
-    if (p < 0 || S::w(q) != S::w(p)) return false;
-  }
-  return true;
-}
+using namespace lt;
 
 // ---------------------------------------------------------------------------
 // per-cell pieces, unrolled over q by template recursion
@@ -193,17 +90,10 @@ __device__ __forceinline__ T eu_canonical(const T (&up)[S::D], T acc) {
   }
 }
 
-struct Neighbours {
-  int64_t x[3], y[3], z[3];  // coordinate - 1, coordinate, coordinate + 1
-  int64_t n, n1, n2;         // cells, and the extents of axes 1 and 2
-};
-
 template <class S, class T, int q>
 __device__ __forceinline__ void push(T* __restrict__ out, const Neighbours& nb,
                                      T value) {
-  constexpr int ex = comp3<S>(q, 0), ey = comp3<S>(q, 1), ez = comp3<S>(q, 2);
-  out[q * nb.n + (nb.x[ex + 1] * nb.n1 + nb.y[ey + 1]) * nb.n2 +
-      nb.z[ez + 1]] = value;
+  out[shifted_index<S, q, 1>(nb)] = value;
 }
 
 // BGK with the opposite-pair cache: f_post_q = keep f_q + (G +- H) with
@@ -231,29 +121,16 @@ __device__ __forceinline__ void collide_push(const T (&fv)[S::Q],
   }
 }
 
-template <class S, class T>
+template <class S, class T, bool EmitU>
 __global__ void __launch_bounds__(kBlock)
     stream_collide_kernel(const T* __restrict__ f, T* __restrict__ out,
-                          int64_t n0, int64_t n1, int64_t n2, T tau_inv,
-                          T inv_cs2, T half_inv_cs2) {
+                          T* __restrict__ u_out, int64_t n0, int64_t n1,
+                          int64_t n2, T tau_inv, T inv_cs2, T half_inv_cs2) {
   const int64_t k = int64_t(blockIdx.x) * kBlock + threadIdx.x;
   if (k >= n2) return;
   const int64_t j = blockIdx.y;
   const int64_t i = blockIdx.z;
-
-  Neighbours nb;
-  nb.n = n0 * n1 * n2;
-  nb.n1 = n1;
-  nb.n2 = n2;
-  nb.x[0] = i == 0 ? n0 - 1 : i - 1;
-  nb.x[1] = i;
-  nb.x[2] = i == n0 - 1 ? 0 : i + 1;
-  nb.y[0] = j == 0 ? n1 - 1 : j - 1;
-  nb.y[1] = j;
-  nb.y[2] = j == n1 - 1 ? 0 : j + 1;
-  nb.z[0] = k == 0 ? n2 - 1 : k - 1;
-  nb.z[1] = k;
-  nb.z[2] = k == n2 - 1 ? 0 : k + 1;
+  const Neighbours nb = neighbours(i, j, k, n0, n1, n2);
 
   const int64_t cell = (i * n1 + j) * n2 + k;
   T fv[S::Q];
@@ -272,6 +149,7 @@ __global__ void __launch_bounds__(kBlock)
 #pragma unroll
   for (int a = 0; a < S::D; ++a) {
     const T ua = jm[a] * inv_rho;
+    if constexpr (EmitU) u_out[a * nb.n + cell] = ua;
     u2 = u2 + ua * ua;
     up[a] = ua * inv_cs2;
   }
@@ -282,25 +160,20 @@ __global__ void __launch_bounds__(kBlock)
   collide_push<S, T>(fv, out, nb, keep, base, trho, up);
 }
 
-template <class S, class T>
-int launch(const void* f, void* out, int64_t n0, int64_t n1, int64_t n2,
-           T tau_inv, double cs, int device, void* stream) {
+template <class S, class T, bool EmitU>
+int launch(const void* f, void* out, void* u_out, int64_t n0, int64_t n1,
+           int64_t n2, T tau_inv, double cs, int device, void* stream) {
   static_assert(pair_weights_symmetric<S>(),
                 "the pair cache needs w[q] == w[opposite[q]]");
-  int current = -1;
-  cudaError_t err = cudaGetDevice(&current);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (current != device) {
-    err = cudaSetDevice(device);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  const int err = use_device(device);
+  if (err != 0) return err;
   const double cs2 = cs * cs;
-  const dim3 grid(static_cast<unsigned>((n2 + kBlock - 1) / kBlock),
-                  static_cast<unsigned>(n1), static_cast<unsigned>(n0));
-  stream_collide_kernel<S, T>
-      <<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const T*>(f), static_cast<T*>(out), n0, n1, n2, tau_inv,
-          T(1.0 / cs2), T(0.5 / cs2));
+  stream_collide_kernel<S, T, EmitU>
+      <<<launch_grid(n0, n1, n2), kBlock, 0,
+         static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const T*>(f), static_cast<T*>(out),
+          static_cast<T*>(u_out), n0, n1, n2, tau_inv, T(1.0 / cs2),
+          T(0.5 / cs2));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -309,7 +182,15 @@ int launch(const void* f, void* out, int64_t n0, int64_t n1, int64_t n2,
 #define LT_ENTRY(NAME, S, T)                                                  \
   int NAME(const void* f, void* out, int64_t n0, int64_t n1, int64_t n2,     \
            T tau_inv, double cs, int device, void* stream) {                  \
-    return launch<S, T>(f, out, n0, n1, n2, tau_inv, cs, device, stream);     \
+    return launch<S, T, false>(f, out, nullptr, n0, n1, n2, tau_inv, cs,     \
+                               device, stream);                               \
+  }
+
+#define LT_ENTRY_EMIT_U(NAME, S, T)                                           \
+  int NAME(const void* f, void* out, void* u_out, int64_t n0, int64_t n1,    \
+           int64_t n2, T tau_inv, double cs, int device, void* stream) {      \
+    return launch<S, T, true>(f, out, u_out, n0, n1, n2, tau_inv, cs,        \
+                              device, stream);                                \
   }
 
 extern "C" {
@@ -322,6 +203,15 @@ LT_ENTRY(lt_stream_collide_d3q19_f32, D3Q19, float)
 LT_ENTRY(lt_stream_collide_d3q19_f64, D3Q19, double)
 LT_ENTRY(lt_stream_collide_d3q27_f32, D3Q27, float)
 LT_ENTRY(lt_stream_collide_d3q27_f64, D3Q27, double)
+
+LT_ENTRY_EMIT_U(lt_stream_collide_emit_u_d2q9_f32, D2Q9, float)
+LT_ENTRY_EMIT_U(lt_stream_collide_emit_u_d2q9_f64, D2Q9, double)
+LT_ENTRY_EMIT_U(lt_stream_collide_emit_u_d3q15_f32, D3Q15, float)
+LT_ENTRY_EMIT_U(lt_stream_collide_emit_u_d3q15_f64, D3Q15, double)
+LT_ENTRY_EMIT_U(lt_stream_collide_emit_u_d3q19_f32, D3Q19, float)
+LT_ENTRY_EMIT_U(lt_stream_collide_emit_u_d3q19_f64, D3Q19, double)
+LT_ENTRY_EMIT_U(lt_stream_collide_emit_u_d3q27_f32, D3Q27, float)
+LT_ENTRY_EMIT_U(lt_stream_collide_emit_u_d3q27_f64, D3Q27, double)
 
 const char* lt_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -1,0 +1,136 @@
+"""Adjoint of the fused BGK collide-and-stream step: the hand-written CUDA
+kernel and its plain PyTorch version.
+
+The kernel (``lettuce_tpu_torch/csrc/adjoint.cu``) replaces
+``lettuce_tpu/ops/pallas/adjoint.py::_adjoint_kernel`` for the
+``("bgk", tau_inv)`` spec with the emitted-u residual, no masks, periodic,
+in float32 and float64, for D2Q9, D3Q15, D3Q19 and D3Q27. Given the
+cotangent ``g`` of a step's output and the pre-collision velocity ``u``
+that the step's forward emitted (:func:`.stream_collide.stream_collide`
+with ``u_out``), it returns the cotangent of the step's input, the exact
+vector-Jacobian product::
+
+    h_q(x) = g_q(x + e_q),  t = tau_inv h,
+    S0 = sum_q w_q t_q,  S1_a = sum_q w_q e_qa t_q,
+    S2_ab = sum_q w_q e_qa e_qb t_q,
+    A = S0 (1 - u.u / (2 cs^2)) + u.S1 / cs^2 + u.S2.u / (2 cs^4),
+    B_a = (S1_a - u_a S0 + (S2 u)_a / cs^2) / cs^2,
+    ct_q = h_q - t_q + (A - u.B) + e_q.B.
+
+It is bound by device memory: D3Q19 in float32 reads 19 + 3 fields and
+writes 19, 164 B per lattice update.
+
+:func:`stream_collide_adjoint` runs the plain version only for a CPU
+tensor. For a CUDA tensor it launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from .build import (DTYPES, KERNEL_STENCIL_NAMES, check_launch, check_out,
+                    kernel_stencil_name, launch_dims, open_library)
+
+__all__ = ["stream_collide_adjoint", "stream_collide_adjoint_plain",
+           "load_library"]
+
+
+# ----------------------------------------------------------------------
+# the plain PyTorch version
+# ----------------------------------------------------------------------
+def stream_collide_adjoint_plain(g: torch.Tensor, u: torch.Tensor,
+                                 e: np.ndarray, w: np.ndarray,
+                                 opposite: np.ndarray, cs: float,
+                                 tau_inv: float) -> torch.Tensor:
+    """The closed-form VJP of one BGK collide-and-stream step in plain
+    PyTorch: the cotangent pulled by ``torch.roll`` along -e, then the
+    transposed collision Jacobian from the weighted moments of t and the
+    pre-collision velocity ``u`` (the formulas of the module docstring).
+    ``opposite`` is unused: the moments need no pair folding here."""
+    e = np.asarray(e)
+    d = e.shape[1]
+    et = torch.as_tensor(e, dtype=g.dtype, device=g.device)
+    wt = torch.as_tensor(np.asarray(w), dtype=g.dtype, device=g.device)
+    h = torch.stack([torch.roll(g[q], tuple(-int(s) for s in e[q]),
+                                dims=tuple(range(d)))
+                     for q in range(e.shape[0])])
+    t = tau_inv * h
+    inv_cs2 = 1.0 / (cs * cs)
+    we = (wt[:, None] * et).T                               # [d, q]
+    s0 = torch.tensordot(wt, t, dims=1)                     # [...]
+    s1 = torch.tensordot(we, t, dims=1)                     # [d, ...]
+    s2 = torch.tensordot(we[:, None, :] * et.T[None, :, :], t,
+                         dims=1)                            # [d, d, ...]
+    su = torch.einsum("ab...,b...->a...", s2, u)            # (S2 u)_a
+    u2 = torch.sum(u * u, dim=0)
+    a_term = (s0 * (1 - 0.5 * inv_cs2 * u2)
+              + inv_cs2 * torch.sum(u * s1, dim=0)
+              + 0.5 * inv_cs2 * inv_cs2 * torch.sum(u * su, dim=0))
+    b = inv_cs2 * (s1 - u * s0 + inv_cs2 * su)              # [d, ...]
+    a_prime = a_term - torch.sum(u * b, dim=0)
+    return h - t + a_prime + torch.tensordot(et, b, dims=1)
+
+
+# ----------------------------------------------------------------------
+# the wrapper
+# ----------------------------------------------------------------------
+@functools.cache
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the adjoint library, with ``argtypes``
+    set on every entry."""
+    lib = open_library("adjoint")
+    for name in KERNEL_STENCIL_NAMES:
+        for suffix, scalar in DTYPES.values():
+            fn = getattr(lib, f"lt_stream_collide_adjoint_{name}_{suffix}")
+            fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int64] * 3
+                           + [scalar, ctypes.c_double, ctypes.c_int,
+                              ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def stream_collide_adjoint(g: torch.Tensor, u: torch.Tensor, e: np.ndarray,
+                           w: np.ndarray, opposite: np.ndarray, cs: float,
+                           tau_inv: float, out: torch.Tensor = None
+                           ) -> torch.Tensor:
+    """The cotangent of one step's input from the cotangent ``g``
+    (``[q, *grid]``) of its output and its pre-collision velocity ``u``
+    (``[d, *grid]``).
+
+    On a CPU tensor this is :func:`stream_collide_adjoint_plain`; on a
+    CUDA tensor it launches the kernel (allocating ``out`` when none is
+    given) or raises. ``out`` must not be ``g``: the kernel pulls from
+    neighbours.
+    """
+    if g.device.type == "cpu":
+        result = stream_collide_adjoint_plain(g, u, e, w, opposite, cs,
+                                              tau_inv)
+        return result if out is None else out.copy_(result)
+    if g.device.type != "cuda":
+        raise ValueError(f"stream_collide_adjoint runs on cpu or cuda "
+                         f"tensors, got {g.device}")
+    name = kernel_stencil_name(e, w, opposite)
+    n0, n1, n2 = launch_dims(g, e)
+    d = np.asarray(e).shape[1]
+    if (u.device != g.device or u.dtype != g.dtype
+            or tuple(u.shape) != (d, *g.shape[1:]) or not u.is_contiguous()):
+        raise ValueError(f"u must be a contiguous tensor of shape "
+                         f"{(d, *g.shape[1:])} on g's device in g's dtype")
+    out = check_out(out, g, g.shape, "out", g, u)
+
+    lib = load_library()
+    launch = getattr(lib, f"lt_stream_collide_adjoint_{name}_"
+                          f"{DTYPES[g.dtype][0]}")
+    rc = launch(g.data_ptr(), u.data_ptr(), out.data_ptr(), n0, n1, n2,
+                float(tau_inv), float(cs), g.device.index,
+                torch.cuda.current_stream(g.device).cuda_stream)
+    check_launch(lib, rc, "stream_collide_adjoint")
+    stream_collide_adjoint.launches += 1
+    return out
+
+
+stream_collide_adjoint.launches = 0

@@ -1,0 +1,190 @@
+"""Build and load the hand-written CUDA kernels of ``lettuce_tpu_torch/csrc``.
+
+Each ``csrc/<name>.cu`` is compiled with ``nvcc`` for ``sm_90a`` into its
+own shared library with a plain C interface, cached under
+``build/lettuce_tpu_torch/`` by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, and loaded with ``ctypes``. The first load
+builds every missing library at once, one ``nvcc`` per source, all started
+together. A missing ``nvcc``, a failed build or a failed load raises.
+
+Also here: what every wrapper checks before a launch (the compiled stencil
+instance, the dtype, the launch grid).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from ...stencil import D2Q9, D3Q15, D3Q19, D3Q27
+
+__all__ = ["SOURCES", "find_nvcc", "library_path", "build_libraries",
+           "open_library", "check_launch", "kernel_stencil_name",
+           "launch_dims", "check_out", "KERNEL_STENCILS",
+           "KERNEL_STENCIL_NAMES", "DTYPES"]
+
+CSRC = Path(__file__).resolve().parents[2] / "csrc"
+SOURCES = ("stream_collide", "adjoint")  # csrc/<name>.cu, one library each
+_BUILD_DIR = (Path(__file__).resolve().parents[3] / "build"
+              / "lettuce_tpu_torch")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"  # the toolkit's default install
+
+# one compiled entry per (stencil, dtype) in every source
+_KERNEL_STENCILS = {"d2q9": D2Q9, "d3q15": D3Q15, "d3q19": D3Q19,
+                    "d3q27": D3Q27}
+KERNEL_STENCILS = tuple(_KERNEL_STENCILS.values())
+KERNEL_STENCIL_NAMES = tuple(_KERNEL_STENCILS)
+DTYPES = {torch.float32: ("f32", ctypes.c_float),
+          torch.float64: ("f64", ctypes.c_double)}
+_MAX_GRID_YZ = 65535  # CUDA's limit on gridDim.y and gridDim.z
+
+
+# ----------------------------------------------------------------------
+# build and load
+# ----------------------------------------------------------------------
+def find_nvcc() -> str:
+    """``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on ``PATH``, else the
+    toolkit's default install location; raises if none exists."""
+    candidates = []
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if cuda_home:
+        candidates.append(str(Path(cuda_home) / "bin" / "nvcc"))
+    on_path = shutil.which("nvcc")
+    if on_path:
+        candidates.append(on_path)
+    candidates.append(DEFAULT_NVCC)
+    for nvcc in candidates:
+        if os.path.isfile(nvcc) and os.access(nvcc, os.X_OK):
+            return nvcc
+    raise RuntimeError(f"nvcc not found (looked in $CUDA_HOME/bin, on PATH "
+                       f"and at {DEFAULT_NVCC}): the CUDA kernels cannot be "
+                       f"built")
+
+
+def library_path(name: str) -> Path:
+    """Where the library of ``csrc/<name>.cu`` for the current sources and
+    flags is cached."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return _BUILD_DIR / f"{name}_{digest.hexdigest()[:16]}.so"
+
+
+def build_libraries(names=SOURCES) -> dict:
+    """Compile every library of ``names`` that is not cached yet, one
+    ``nvcc`` per source, all started together; returns ``{name: path}``.
+    Raises if any build fails, after every build has ended."""
+    paths = {name: library_path(name) for name in names}
+    missing = [name for name, path in paths.items() if not path.exists()]
+    if not missing:
+        return paths
+    nvcc = find_nvcc()
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # build beside the target, then rename: concurrent builders never see
+    # a half-written library
+    with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as tmp:
+        jobs = []
+        for name in missing:
+            tmp_so = Path(tmp) / paths[name].name
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp_so),
+                   str(CSRC / f"{name}.cu")]
+            jobs.append((name, cmd, tmp_so, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        failures = []
+        for name, cmd, tmp_so, proc in jobs:
+            output, _ = proc.communicate()
+            if proc.returncode != 0:
+                failures.append(f"building {name}.cu failed (exit "
+                                f"{proc.returncode}): {' '.join(cmd)}\n"
+                                f"{output}")
+            else:
+                os.replace(tmp_so, paths[name])
+        if failures:
+            raise RuntimeError("\n".join(failures))
+    return paths
+
+
+@functools.cache
+def open_library(name: str) -> ctypes.CDLL:
+    """Load the library of ``csrc/<name>.cu``, building every missing
+    library first; the error-string entry gets its ``argtypes`` here, the
+    kernel entries in their wrapper modules."""
+    lib = ctypes.CDLL(str(build_libraries()[name]))
+    lib.lt_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.lt_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check_launch(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise if a C entry returned a CUDA error."""
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: "
+                           f"{lib.lt_cuda_error_string(rc).decode()}")
+
+
+# ----------------------------------------------------------------------
+# what every wrapper checks
+# ----------------------------------------------------------------------
+def kernel_stencil_name(e, w, opposite) -> str:
+    """The compiled instance whose tables equal (e, w, opposite); raises
+    ValueError if there is none."""
+    e, w, opposite = np.asarray(e), np.asarray(w), np.asarray(opposite)
+    for name, stencil in _KERNEL_STENCILS.items():
+        if (e.shape == stencil.e.shape and np.array_equal(e, stencil.e)
+                and np.array_equal(w, stencil.w)
+                and np.array_equal(opposite, stencil.opposite)):
+            return name
+    raise ValueError(f"no compiled CUDA kernel for the stencil with e of "
+                     f"shape {e.shape}: the kernels have "
+                     f"{sorted(_KERNEL_STENCILS)}")
+
+
+def launch_dims(x: torch.Tensor, e) -> tuple:
+    """(n0, n1, n2) of the kernels' 3D launch grid for a contiguous CUDA
+    tensor ``x`` of shape ``[q, *grid]`` in float32 or float64; raises on
+    anything the kernels do not take."""
+    if x.dtype not in DTYPES:
+        raise TypeError(f"the kernels take float32 or float64 tensors, "
+                        f"got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("the kernels need contiguous tensors")
+    q, d = np.asarray(e).shape
+    if x.dim() != d + 1 or x.shape[0] != q:
+        raise ValueError(f"a tensor of shape {tuple(x.shape)} does not fit "
+                         f"a D{d}Q{q} stencil")
+    n0, n1, n2 = (1, *x.shape[1:]) if d == 2 else tuple(x.shape[1:])
+    if min(n0, n1, n2) < 1 or max(n0, n1) > _MAX_GRID_YZ:
+        raise ValueError(f"grid {tuple(x.shape[1:])} is outside the "
+                         f"kernels' launch grid (leading axes up to "
+                         f"{_MAX_GRID_YZ})")
+    return n0, n1, n2
+
+
+def check_out(out: torch.Tensor, like: torch.Tensor, shape, name: str,
+              *inputs: torch.Tensor) -> torch.Tensor:
+    """``out``, or a new tensor of ``shape`` like ``like`` when it is None;
+    raises when ``out`` does not fit or shares memory with an input."""
+    if out is None:
+        return torch.empty(shape, dtype=like.dtype, device=like.device)
+    if (tuple(out.shape) != tuple(shape) or out.dtype != like.dtype
+            or out.device != like.device or not out.is_contiguous()):
+        raise ValueError(f"{name} must be a contiguous tensor of shape "
+                         f"{tuple(shape)}, dtype {like.dtype} and device "
+                         f"{like.device}")
+    for x in inputs:
+        if out.data_ptr() == x.data_ptr():
+            raise ValueError(f"{name} must not alias an input")
+    return out

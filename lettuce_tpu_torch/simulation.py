@@ -10,20 +10,33 @@ Two step paths:
     differentiable by ordinary autograd;
   * ``"cuda"``: the fused CUDA stream-collide kernel, chosen on a CUDA
     context with ``use_native`` when every component supports it. The
-    capability probe is on component types only, and prints its reason
-    when it keeps the torch step; a build or launch error is never caught.
+    capability probe is on component types and the state's dtype only,
+    and prints its reason when it keeps the torch step; a build or launch
+    error is never caught. Its differentiable step (``make_step_fn``,
+    ``make_segment_fn``, and ``__call__`` on a state that requires grad)
+    is ``fused_step``: the emit-u kernel forward, the adjoint kernel
+    backward.
+
+No step ever writes into a tensor that a caller holds: the kernel path's
+throughput loop ping-pongs between two buffers the simulation allocated
+and never exposes, and its last step of each run writes a fresh tensor.
 """
 
 from __future__ import annotations
 
 from abc import ABC, abstractmethod
+from functools import partial
 from timeit import default_timer as timer
 from typing import List, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .ops.collision import Collision
+from .ops.cuda import adjoint
+from .ops.cuda.build import DTYPES as KERNEL_DTYPES
+from .ops.cuda.fused_step import fused_step
 from .ops.cuda.stream_collide import (KERNEL_STENCILS, gate_fused_params,
                                       load_library, stream_collide)
 from .ops.streaming import stream
@@ -91,26 +104,27 @@ class Simulation:
         self._step = self._torch_step
         self._step_kind = "torch"
         if self.context.use_native and self._native_supported():
-            self._kernel_params = gate_fused_params(self)
-            load_library()  # a build error surfaces here, never later
-            # the kernel steps out of place: the simulation keeps a second
-            # state buffer and swaps the two each step, so the tensor a
-            # step consumed is overwritten by the step after it
-            self._spare = None
-            self._step = self._cuda_step
-            self._step_kind = "cuda"
+            # a build error surfaces here, never later
+            load_library()
+            adjoint.load_library()
+            self._use_kernel()
 
     # ------------------------------------------------------------------
     # step construction
     # ------------------------------------------------------------------
     def _native_supported(self) -> bool:
-        """Capability probe on component types. The CUDA kernel needs a
-        CUDA device, a quadratic equilibrium, BGK collision and no
-        boundaries; prints the reason for each component that keeps the
-        torch step."""
+        """Capability probe on component types and the state's dtype. The
+        CUDA kernel needs a CUDA device, float32 or float64 state, a
+        quadratic equilibrium, BGK collision and no boundaries; prints the
+        reason for each component that keeps the torch step."""
         if self.context.device.type != "cuda":
             return False  # a CPU context runs the torch step
         ok = True
+        if self.context.dtype not in KERNEL_DTYPES:
+            print(f"native was requested, but the CUDA kernel has no "
+                  f"{self.context.dtype} instance (compiled for "
+                  f"{', '.join(map(str, KERNEL_DTYPES))}).")
+            ok = False
         if not isinstance(self.flow.stencil, KERNEL_STENCILS):
             print(f"native was requested, but stencil "
                   f"'{type(self.flow.stencil).__name__}' has no CUDA kernel "
@@ -135,6 +149,15 @@ class Simulation:
                 ok = False
         return ok
 
+    def _use_kernel(self):
+        """Select the kernel path. ``_buffers`` are the two state buffers
+        the throughput loop steps between (out of place); they are never
+        handed out."""
+        self._kernel_params = gate_fused_params(self)
+        self._buffers = [None, None]
+        self._step = partial(fused_step, **self._kernel_params)
+        self._step_kind = "cuda"
+
     def _torch_step(self, f: torch.Tensor) -> torch.Tensor:
         """One collide-and-stream step in plain torch."""
         flow = self.flow
@@ -149,16 +172,77 @@ class Simulation:
                 f = torch.where(ncm == i, boundary(flow.view(f)), f)
         return stream(f, self.flow.stencil.e, self.no_streaming_mask)
 
-    def _cuda_step(self, f: torch.Tensor) -> torch.Tensor:
-        """One step through the CUDA kernel, into the spare buffer."""
-        spare = self._spare
-        if (spare is None or spare.shape != f.shape
-                or spare.dtype != f.dtype or spare.device != f.device
-                or spare.data_ptr() == f.data_ptr()):
-            spare = None  # the wrapper allocates it
-        out = stream_collide(f, out=spare, **self._kernel_params)
-        self._spare = f
-        return out
+    def _cuda_step(self, f: torch.Tensor, out: torch.Tensor = None
+                   ) -> torch.Tensor:
+        """One step through the CUDA kernel, into ``out`` (a fresh tensor
+        when None)."""
+        return stream_collide(f, out=out, **self._kernel_params)
+
+    def _buffer(self, i: int, like: torch.Tensor) -> torch.Tensor:
+        """The simulation's own state buffer ``i`` (0 or 1), allocated like
+        ``like`` when it is missing or does not fit."""
+        b = self._buffers[i]
+        if (b is None or b.shape != like.shape or b.dtype != like.dtype
+                or b.device != like.device):
+            b = self._buffers[i] = torch.empty_like(
+                like, memory_format=torch.contiguous_format)
+        return b
+
+    def _advance(self, f: torch.Tensor, n: int) -> torch.Tensor:
+        """``n`` steps from ``f``. The kernel path outside autograd steps
+        between the simulation's two buffers, and its last step writes a
+        fresh tensor, so neither ``f`` nor any tensor returned earlier is
+        written."""
+        if (self._step_kind != "cuda"
+                or (f.requires_grad and torch.is_grad_enabled())):
+            for _ in range(n):
+                f = self._step(f)
+            return f
+        for i in range(n):
+            f = self._cuda_step(f, None if i == n - 1
+                                else self._buffer(i % 2, f))
+        return f
+
+    def make_step_fn(self):
+        """One collide-and-stream step as a function ``f -> f'`` for custom
+        loops (learned collisions, differentiable rollouts): on the kernel
+        path the differentiable ``fused_step`` bound to the kernel
+        parameters, else the torch step. It returns a fresh tensor and
+        never writes into its input."""
+        return self._step
+
+    def make_segment_fn(self, num_steps: int,
+                        checkpoint_every: Optional[int] = None):
+        """``num_steps`` collide-and-stream steps as one reverse-
+        differentiable function ``f -> f'``, the rollout analog of
+        :meth:`make_step_fn` for training loops.
+
+        ``checkpoint_every=k`` runs the rollout in chunks of ``k`` steps
+        under ``torch.utils.checkpoint`` (non-reentrant): the backward
+        stores one state per chunk instead of one residual per step and
+        recomputes each chunk's forward, so residual memory drops from
+        O(num_steps) to O(num_steps / k + k) at about twice the forward
+        cost. The remainder steps run plainly. Pick k ~ sqrt(num_steps).
+        """
+        step = self._step
+        num_steps = int(num_steps)
+
+        def run(f, n):
+            for _ in range(n):
+                f = step(f)
+            return f
+
+        if checkpoint_every is None:
+            return lambda f: run(f, num_steps)
+        k = max(1, int(checkpoint_every))
+        n_chunks, rem = divmod(num_steps, k)
+
+        def segment(f):
+            for _ in range(n_chunks):
+                f = checkpoint(run, f, k, use_reentrant=False)
+            return run(f, rem)
+
+        return segment
 
     # ------------------------------------------------------------------
     # public API
@@ -198,10 +282,7 @@ class Simulation:
                 n = remaining
             else:
                 n = min(g - (self.flow.i % g) or g, remaining)
-            f = self.flow.f
-            for _ in range(n):
-                f = self._step(f)
-            self.flow.f = f
+            self.flow.f = self._advance(self.flow.f, n)
             self.flow.i += n
             remaining -= n
             if g is not None:

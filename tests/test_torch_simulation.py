@@ -10,6 +10,7 @@ import torch
 
 import lettuce_tpu as lt
 import lettuce_tpu_torch as ltt
+import lettuce_tpu_torch.simulation as simulation_module
 from tests.torch_helpers import (DTYPES, hand_state, noisy_state, tgv_pair,
                                  to_numpy)
 
@@ -118,3 +119,68 @@ def test_torch_path_is_differentiable():
     sim(3)
     tflow.f.pow(2).sum().backward()
     assert f0.grad is not None and bool(torch.isfinite(f0.grad).all())
+
+
+@pytest.mark.parametrize("interval", [None, 2], ids=["one-run", "reported"])
+def test_kernel_path_never_writes_a_state_the_caller_holds(interval):
+    """The kernel path's throughput loop on the CPU: ``_cuda_step``'s
+    wrapper copies into ``out`` exactly as the kernel writes it. Neither
+    the state a run starts from nor the one it ends with is written by a
+    later step, and the states equal the torch step's."""
+    def run(kernel):
+        jflow, tflow = tgv_pair("float64", [12, 10], "D2Q9",
+                                initialize_fneq=False)
+        hand_state(jflow, tflow, noisy_state(jflow.f, seed=23))
+        reporters = ([] if interval is None else
+                     [ltt.ObservableReporter(ltt.Mass(tflow),
+                                             interval=interval, out=[])])
+        sim = ltt.Simulation(tflow, ltt.BGKCollision(0.6), reporters)
+        if kernel:
+            sim._use_kernel()
+        return sim
+
+    sim, reference = run(kernel=True), run(kernel=False)
+    steps = []
+    real_step = sim._cuda_step
+    sim._cuda_step = lambda f, out=None: steps.append(out) or real_step(
+        f, out)
+    f0 = sim.flow.f
+    kept0 = f0.clone()
+    sim(3)
+    f1 = sim.flow.f
+    kept1 = f1.clone()
+    sim(4)
+    assert len(steps) == 7 and any(out is not None for out in steps)
+    assert torch.equal(f0, kept0)
+    assert torch.equal(f1, kept1)
+    owned = {b.data_ptr() for b in sim._buffers if b is not None}
+    assert owned and f1.data_ptr() not in owned
+    assert sim.flow.f.data_ptr() not in owned
+    reference(7)
+    np.testing.assert_allclose(to_numpy(sim.flow.f),
+                               to_numpy(reference.flow.f), rtol=0,
+                               atol=1e-12)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bfloat16", "float16"])
+def test_probe_keeps_torch_step_for_16_bit_state(dtype, monkeypatch,
+                                                 capsys):
+    """A CUDA context with 16-bit state: the probe names the dtype, keeps
+    the torch step and never builds the kernels. The context is made on
+    the CPU and then says ``cuda``, so no card is needed."""
+    ctx = ltt.Context(device="cpu", dtype=dtype, use_native=True)
+    flow = ltt.TaylorGreenVortex(ctx, [8, 8], 1600, 0.05,
+                                 stencil=ltt.D2Q9(), initialize_fneq=False)
+    ctx.device = torch.device("cuda", 0)
+
+    def no_build():
+        raise AssertionError("the kernel library was loaded")
+
+    monkeypatch.setattr(simulation_module, "load_library", no_build)
+    monkeypatch.setattr(simulation_module.adjoint, "load_library", no_build)
+    sim = ltt.Simulation(flow, ltt.BGKCollision(0.6), [])
+    assert sim._step_kind == "torch"
+    printed = capsys.readouterr().out
+    assert f"has no {dtype} instance" in printed
+    assert "native was requested" in printed

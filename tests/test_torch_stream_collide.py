@@ -13,6 +13,7 @@ import torch
 
 import lettuce_tpu as lt
 import lettuce_tpu_torch as ltt
+import lettuce_tpu_torch.ops.cuda.build as build
 import lettuce_tpu_torch.ops.cuda.stream_collide as sc
 from lettuce_tpu.ops.pallas.stream_collide import fused_stream_collide
 from tests.torch_helpers import DTYPES
@@ -104,9 +105,9 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.delenv("CUDA_HOME", raising=False)
     monkeypatch.delenv("CUDA_PATH", raising=False)
     monkeypatch.setenv("PATH", str(tmp_path))
-    monkeypatch.setattr(sc, "DEFAULT_NVCC", str(tmp_path / "no-nvcc"))
+    monkeypatch.setattr(build, "DEFAULT_NVCC", str(tmp_path / "no-nvcc"))
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        sc.find_nvcc()
+        build.find_nvcc()
 
 
 def test_failed_build_raises(monkeypatch, tmp_path):
@@ -115,10 +116,11 @@ def test_failed_build_raises(monkeypatch, tmp_path):
     fake.write_text("#!/bin/sh\necho 'error: fake compiler' >&2\nexit 2\n")
     fake.chmod(0o755)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
-    monkeypatch.setattr(sc, "_BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(build, "_BUILD_DIR", tmp_path / "build")
     with pytest.raises(RuntimeError, match="fake compiler"):
-        sc.build_library()
-    assert not sc.library_path().exists()
+        build.build_libraries()
+    for name in build.SOURCES:
+        assert not build.library_path(name).exists()
     assert os.listdir(tmp_path / "build") == []  # no half-written library
 
 
