@@ -6,13 +6,17 @@ Run from the root of a checkout, with no arguments::
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``lettuce_tpu_torch/csrc`` (the fused
-stream-collide step, its emit-u variant and its adjoint), checks each
-against its plain PyTorch version, drives the main path (D3Q19 BGK
-Taylor-Green 256^3, float32) through the kernel, runs the float64
-convergence gate through the kernel, measures the card's practical
-bandwidth, and drives the gradient of an 8-step rollout of the main path
-and a few Adam iterations of an inverse-design loss through the emit-u
-and adjoint kernels. Every failed check exits non-zero; nothing is caught.
+stream-collide step, its emit-u variant and its adjoint, each periodic and
+masked), checks each against its plain PyTorch version, drives the main
+path (D3Q19 BGK Taylor-Green 256^3, float32) through the kernel, runs the
+float64 convergence gate through the kernel, measures the card's practical
+bandwidth, drives the gradient of an 8-step rollout of the main path and a
+few Adam iterations of an inverse-design loss through the emit-u and
+adjoint kernels, then drives the bounded-flow path: the 2048x1024 obstacle
+flow through the masked kernel and the outlet window replay, forward and
+backward, and the Ghia lid-driven cavity gate through the masked kernel,
+and profiles the bounded path. Every failed check exits non-zero; nothing
+is caught.
 
 Phases:
   0. the card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
@@ -40,13 +44,45 @@ Phases:
      share of the saxpy bandwidth at 164 B per update;
   8. 5 Adam iterations of example 09's inverse-design loss (rollout
      velocity against a target's) at 256^3 through an 8-step segment; the
-     last loss must be below the first.
+     last loss must be below the first;
+  9. the masked kernels vs plain on all 24 masked instances (primal and
+     emit-u forward, adjoint) at the grids of phase 2, with a bounce-back
+     cylinder (sphere), a constant-equilibrium inlet, a per-node
+     equilibrium field, an identity outlet plane and a frozen plane; one
+     launch of each per case;
+ 10. the probe on the card: the kernel path for each outlet kind and for
+     Couette (256x128, against the torch step over 4 steps), the torch
+     step with its printed reason for PeriodicPressureBC; then the obstacle
+     flow of benchmarks/run_benchmarks.py:76-88
+     (``obstacle2d_2048``: 2048x1024 D2Q9 float32, Re 100, Ma 0.1, a
+     cylinder of radius 0.05 ny, equilibrium inlet, anti-bounce-back
+     outlet) on the ``'cuda+hybrid x1'`` path: kernel + replay against the
+     torch step over 4 steps; 20 warm-up and 100 timed steps with one
+     masked launch per step, finite state; MLUPS of the kernel path and of
+     the torch path; per-step ms of the masked kernel and of the replay by
+     CUDA events, with GB/s at 73 B per update and the share of the
+     saxpy; the 8-step gradient ``(seg(f0) ** 2).sum()`` against autograd
+     of the torch step to 1e-5, bitwise equal under ``checkpoint_every=4``;
+ 11. the lid-driven cavity at 256^2, Re 100, Ma 0.05, float32 through the
+     masked kernel: the kernel against its plain version at this shape and
+     table (one step from a noisy state, and from the converged state),
+     the kernel path against the torch step over 20 steps; then in chunks
+     of 5000 steps until the velocity field changes by less than 1e-4;
+     the centreline's max deviation from Ghia et al. (1982) Table I must
+     be under 0.03 (benchmarks/validate_cavity.py's gate);
+ 12. where the bounded path's time goes: the periodic and the masked
+     kernel back to back on the obstacle's grid; host microseconds per
+     masked launch at 256^2 with the gate's packed table and an unpacked
+     one; the obstacle step and its 8-step gradient under torch.profiler
+     (device launches, device time, the device idle share against the
+     unprofiled wall time).
 
 Prints, before the last line, one JSON line describing the kernels, and
 last ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
 """
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -64,6 +100,22 @@ KERNEL_SOURCE = "lettuce_tpu_torch/csrc/stream_collide.cu"
 REPLACES = "lettuce_tpu/ops/pallas/stream_collide.py:1402"
 ADJOINT_SOURCE = "lettuce_tpu_torch/csrc/adjoint.cu"
 ADJOINT_REPLACES = "lettuce_tpu/ops/pallas/adjoint.py:131"
+# the mask pipeline of the TPU kernels: stream_collide.py:1565-1605,
+# adjoint.py:218-241
+MASKED_REPLACES = "lettuce_tpu/ops/pallas/stream_collide.py:1565"
+ADJOINT_MASKED_REPLACES = "lettuce_tpu/ops/pallas/adjoint.py:218"
+# D2Q9 float32 masked step: q populations in and out plus the 1-byte code
+MASKED_BYTES_PER_UPDATE = 9 * 4 * 2 + 1
+# Ghia, Ghia & Shin (1982), Table I: u_x / u_lid on the vertical
+# centreline, Re = 100 (as benchmarks/validate_cavity.py)
+GHIA_Y = np.array([
+    0.0547, 0.0625, 0.0703, 0.1016, 0.1719, 0.2813, 0.4531,
+    0.5000, 0.6172, 0.7344, 0.8516, 0.9531, 0.9609, 0.9688, 0.9766])
+GHIA_U = np.array([
+    -0.03717, -0.04192, -0.04775, -0.06434, -0.10150, -0.15662, -0.21090,
+    -0.20581, -0.13641, 0.00332, 0.23151, 0.68717, 0.73722, 0.78871,
+    0.84123])
+GHIA_GATE = 0.03
 BYTES_PER_UPDATE = 19 * 4 * 2  # D3Q19 float32: q populations in and out
 # emit-u: q in, q + d out; adjoint: q + d in, q out
 GRAD_BYTES_PER_UPDATE = (19 * 2 + 3) * 4
@@ -297,11 +349,20 @@ def phase5_saxpy(mlups, card):
 
 
 def launch_counts():
-    """(primal, emit-u, adjoint) kernel launch counts."""
+    """(primal, emit-u, adjoint) periodic kernel launch counts."""
     from lettuce_tpu_torch.ops.cuda import adjoint
     import lettuce_tpu_torch.ops.cuda.stream_collide as sc
     return (sc.stream_collide.launches, sc.stream_collide.emit_u_launches,
             adjoint.stream_collide_adjoint.launches)
+
+
+def masked_launch_counts():
+    """(primal, emit-u, adjoint) masked kernel launch counts."""
+    from lettuce_tpu_torch.ops.cuda import adjoint
+    import lettuce_tpu_torch.ops.cuda.stream_collide as sc
+    return (sc.stream_collide.masked_launches,
+            sc.stream_collide.masked_emit_u_launches,
+            adjoint.stream_collide_adjoint.masked_launches)
 
 
 def reset_launch_counts():
@@ -309,7 +370,10 @@ def reset_launch_counts():
     import lettuce_tpu_torch.ops.cuda.stream_collide as sc
     sc.stream_collide.launches = 0
     sc.stream_collide.emit_u_launches = 0
+    sc.stream_collide.masked_launches = 0
+    sc.stream_collide.masked_emit_u_launches = 0
     adjoint.stream_collide_adjoint.launches = 0
+    adjoint.stream_collide_adjoint.masked_launches = 0
 
 
 def scaled_err(got, want):
@@ -533,6 +597,536 @@ def phase8_adam(card):
     torch.cuda.empty_cache()
 
 
+def bounded_case(stencil, shape, dtype, seed):
+    """A masked-kernel case on the card: a state near rest with seeded
+    noise and the masks of a bounded flow. Codes: 1 bounce back (a
+    cylinder or sphere), 2 a constant equilibrium (inlet plane x = 0),
+    3 a per-node equilibrium field (wall plane y = 0), 4 identity (outlet
+    plane x = -1); every population frozen on the plane x = n0 // 2, the
+    odd ones on y = 1."""
+    rng = np.random.default_rng(seed)
+    q, d = stencil.e.shape
+    w = stencil.w.reshape((-1,) + (1,) * d)
+    f = w * (1 + rng.uniform(-0.1, 0.1, (q, *shape)))
+    feq = w * (1 + rng.uniform(-0.05, 0.05, (q, *shape)))
+    ncm = np.zeros(shape, np.uint8)
+    grid = np.meshgrid(*[np.arange(n) for n in shape], indexing="ij")
+    r2 = sum((x - n / 2) ** 2 for x, n in zip(grid, shape))
+    ncm[r2 < (min(shape) / 5) ** 2] = 1
+    ncm[0] = 2
+    ncm[:, 0] = 3
+    ncm[-1] = 4
+    nsm = np.zeros((q, *shape), bool)
+    nsm[:, shape[0] // 2] = True
+    nsm[1::2, :, 1] = True
+    table = (("collide", None), ("bounce_back", None),
+             ("equilibrium_pu", tuple(1.01 * stencil.w)),
+             ("equilibrium_pu_field", None), ("identity", None))
+    masks = dict(ncm=torch.as_tensor(ncm, device="cuda"),
+                 nsm=torch.as_tensor(nsm, device="cuda"), table=table,
+                 feq_field=torch.as_tensor(feq, dtype=dtype, device="cuda"))
+    return torch.as_tensor(f, dtype=dtype, device="cuda"), masks
+
+
+def phase9_masked_kernels_vs_plain():
+    from lettuce_tpu_torch.ops.cuda import adjoint
+    import lettuce_tpu_torch.ops.cuda.stream_collide as sc
+    worst_fwd = worst_emit = worst_adjoint = 0.0
+    seed = 200
+    for stencil, shape in phase2_cases():
+        for dtype in (torch.float32, torch.float64):
+            seed += 1
+            f, masks = bounded_case(stencil, shape, dtype, seed)
+            args = (stencil.e, stencil.w, stencil.opposite, stencil.cs,
+                    1.0 / 0.6)
+            g = torch.as_tensor(np.random.default_rng(seed).standard_normal(
+                tuple(f.shape)), dtype=dtype, device="cuda")
+            u = torch.empty((stencil.d, *shape), dtype=dtype, device="cuda")
+            before = masked_launch_counts()
+            got = sc.stream_collide(f, *args, **masks)
+            got_emit, _ = sc.stream_collide(f, *args, **masks, u_out=u)
+            ct = adjoint.stream_collide_adjoint(g, u, *args, **masks)
+            torch.cuda.synchronize()
+            launched = tuple(a - b for a, b in
+                             zip(masked_launch_counts(), before))
+            ref, u_ref = sc.stream_collide_plain(f, *args, **masks,
+                                                 emit_u=True)
+            ct_ref = adjoint.stream_collide_adjoint_plain(g, u, *args,
+                                                          **masks)
+            err_f = (got - ref).abs().max().item()
+            err_e = max((got_emit - ref).abs().max().item(),
+                        (u - u_ref).abs().max().item())
+            err_ct, scale = scaled_err(ct, ct_ref)
+            name = type(stencil).__name__
+            print(f"phase 9: {name} {'x'.join(map(str, shape))} "
+                  f"{str(dtype)[6:]} masked: primal {err_f:.3e}, emit-u "
+                  f"{err_e:.3e} (atol {ATOL[dtype]:.0e}); adjoint "
+                  f"{err_ct:.3e} of {scale:.3e} (rtol "
+                  f"{GRAD_RTOL[dtype]:.0e}); launches {launched}")
+            check(launched == (1, 1, 1), f"{name}: masked launches "
+                                         f"{launched}")
+            check(bool(torch.isfinite(got).all() and torch.isfinite(ct).all()
+                       and torch.isfinite(u).all()), f"{name}: not finite")
+            check(max(err_f, err_e) <= ATOL[dtype],
+                  f"{name} {dtype}: masked forward error {err_f}, {err_e}")
+            check(err_ct <= GRAD_RTOL[dtype] * scale,
+                  f"{name} {dtype}: masked adjoint error {err_ct} of "
+                  f"{scale}")
+            worst_fwd = max(worst_fwd, err_f)
+            worst_emit = max(worst_emit, err_e)
+            worst_adjoint = max(worst_adjoint, err_ct)
+    return worst_fwd, worst_emit, worst_adjoint
+
+
+def obstacle_simulation(use_native, nx=2048, ny=1024, outlet=None):
+    """``obstacle2d_2048`` of benchmarks/run_benchmarks.py:76-88,136 on
+    the card: a cylinder in a 2048x1024 D2Q9 float32 channel. ``outlet``
+    (a boundary class name) replaces its anti-bounce-back outlet."""
+    import lettuce_tpu_torch as lt
+
+    class Channel(lt.Obstacle):
+        @property
+        def boundaries(self):
+            inlet, abb, cylinder = lt.Obstacle.boundaries.fget(self)
+            if outlet is not None:
+                abb = getattr(lt, outlet)([1, 0], self)
+            return [inlet, abb, cylinder]
+
+    context = lt.Context(device="cuda", dtype=torch.float32,
+                         use_native=use_native)
+    flow = Channel(context, [nx, ny], reynolds_number=100, mach_number=0.1,
+                   domain_length_x=float(nx))
+    x, y = flow.grid
+    r = 0.05 * ny
+    flow.mask = (x - 0.25 * nx) ** 2 + (y - 0.5 * ny) ** 2 < r ** 2
+    flow.initialize()
+    return lt.Simulation(
+        flow, lt.BGKCollision(tau=flow.units.relaxation_parameter_lu), [])
+
+
+def probe_on_card():
+    """The probe picks the kernel for every outlet kind and for Couette
+    (kernel against torch step over 4 steps, 256x128), and keeps the torch
+    step for PeriodicPressureBC with its reason printed."""
+    import contextlib
+    import io
+    import lettuce_tpu_torch as lt
+    for outlet in ("AntiBounceBackOutlet", "EquilibriumOutletP",
+                   "SpongeOutlet", "couette"):
+        sims = []
+        for native in (True, False):
+            if outlet == "couette":
+                context = lt.Context(device="cuda", dtype=torch.float32,
+                                     use_native=native)
+                flow = lt.CouetteFlow2D(context, [256, 128], 10, 0.05)
+                sims.append(lt.Simulation(flow, lt.BGKCollision(
+                    tau=flow.units.relaxation_parameter_lu), []))
+            else:
+                sims.append(obstacle_simulation(native, 256, 128, outlet))
+        check(sims[0]._step_kind == "cuda" and sims[1]._step_kind == "torch",
+              f"{outlet}: step kinds {sims[0]._step_kind}, "
+              f"{sims[1]._step_kind}")
+        for sim in sims:
+            sim(4)
+        err = (sims[0].flow.f - sims[1].flow.f).abs().max().item()
+        print(f"phase 10: {outlet} 256x128: {sims[0].step_path} vs "
+              f"{sims[1].step_path} over 4 steps: {err:.3e} (atol 5e-6)")
+        check(err <= ATOL[torch.float32], f"{outlet}: {err}")
+
+    class Driven(lt.CouetteFlow2D):
+        @property
+        def boundaries(self):
+            return (lt.CouetteFlow2D.boundaries.fget(self)
+                    + [lt.PeriodicPressureBC(self, 1e-3,
+                                             lt.BGKCollision(0.8))])
+
+    context = lt.Context(device="cuda", dtype=torch.float32, use_native=True)
+    flow = Driven(context, [64, 32], 10, 0.05)
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        sim = lt.Simulation(flow, lt.BGKCollision(0.8), [])
+    reason = printed.getvalue().strip()
+    print(f"phase 10: PeriodicPressureBC keeps the {sim._step_kind} step: "
+          f"{reason!r}")
+    check(sim._step_kind == "torch" and "PeriodicPressureBC" in reason,
+          "PeriodicPressureBC: the probe did not keep the torch step with "
+          "its reason")
+
+
+def time_in_turns(kernel, plain, kernel_repeats=200, plain_repeats=5):
+    """(kernel ms, plain ms, the four readings) by CUDA events, in turns:
+    plain, kernel, kernel, plain."""
+    kernel()
+    plain()
+    plain_a = cuda_ms(plain, plain_repeats)
+    kernel_a = cuda_ms(kernel, kernel_repeats)
+    kernel_b = cuda_ms(kernel, kernel_repeats)
+    plain_b = cuda_ms(plain, plain_repeats)
+    return ((kernel_a + kernel_b) / 2, (plain_a + plain_b) / 2,
+            (plain_a, kernel_a, kernel_b, plain_b))
+
+
+def phase10_obstacle(card, saxpy_gbps):
+    from lettuce_tpu_torch.ops.cuda import adjoint
+    import lettuce_tpu_torch.ops.cuda.stream_collide as sc
+    probe_on_card()
+    simulation = obstacle_simulation(True)
+    plain_sim = obstacle_simulation(False)
+    flow = simulation.flow
+    check(simulation._step_kind == "cuda"
+          and simulation.step_path == "cuda+hybrid x1",
+          f"obstacle runs {simulation.step_path!r}, not 'cuda+hybrid x1'")
+    check(plain_sim._step_kind == "torch", "plain obstacle is not torch")
+    params = simulation._kernel_params
+    check(params["nsm"] is None, "the obstacle kernel reads the nsm")
+    cells = flow.f[0].numel()
+
+    # kernel + replay against the torch step, 4 steps from one state
+    simulation(4)
+    plain_sim(4)
+    err4 = (flow.f - plain_sim.flow.f).abs().max().item()
+    print(f"phase 10: obstacle 2048x1024 D2Q9 float32, 4 steps: max "
+          f"|kernel+replay - torch step| {err4:.3e} (atol 5e-6)")
+    check(err4 <= ATOL[torch.float32], f"obstacle 4 steps: {err4}")
+
+    # the throughput run
+    reset_launch_counts()
+    simulation(20)
+    mlups = simulation(100)
+    torch.cuda.synchronize()
+    launched = masked_launch_counts()
+    periodic = launch_counts()
+    check(launched == (120, 0, 0) and periodic == (0, 0, 0),
+          f"obstacle launches masked {launched}, periodic {periodic} for "
+          f"120 steps")
+    check(bool(torch.isfinite(flow.f).all()), "obstacle state not finite")
+    plain_sim(3)
+    plain_mlups = plain_sim(20)
+    check(bool(torch.isfinite(plain_sim.flow.f).all()),
+          "plain obstacle state not finite")
+    print(f"phase 10: obstacle {simulation.step_path} {mlups:.1f} MLUPS, "
+          f"{plain_sim.step_path} {plain_mlups:.1f} MLUPS; launches "
+          f"{launched} ({card})")
+
+    # per step by CUDA events: the masked kernel, the replay, the whole
+    # step, and the plain masked step
+    f = flow.f.clone()
+    out = torch.empty_like(f)
+    ref = sc.stream_collide_plain(f, **params)
+    got = sc.stream_collide(f, **params, out=out)
+    torch.cuda.synchronize()
+    err1 = (got - ref).abs().max().item()
+    check(err1 <= ATOL[torch.float32], f"masked 2048x1024: {err1}")
+    del ref
+    kernel_ms, plain_ms, turns = time_in_turns(
+        lambda: sc.stream_collide(f, **params, out=out),
+        lambda: sc.stream_collide_plain(f, **params))
+    replay_ms = (cuda_ms(lambda: simulation._fixup(f, out), 20)
+                 + cuda_ms(lambda: simulation._fixup(f, out), 20)) / 2
+    step_ms = cuda_ms(lambda: simulation._cuda_step(f, out), 50)
+    gbps = MASKED_BYTES_PER_UPDATE * cells / (kernel_ms * 1e-3) / 1e9
+    print(f"phase 10: per step, CUDA events: masked kernel "
+          f"{turns[1]:.4f} / {turns[2]:.4f} ms, plain masked step "
+          f"{turns[0]:.4f} / {turns[3]:.4f} ms ({plain_ms / kernel_ms:.1f}x); "
+          f"replay {replay_ms:.4f} ms; kernel + replay {step_ms:.4f} ms; "
+          f"{MASKED_BYTES_PER_UPDATE} B/update, {gbps:.1f} GB/s, "
+          f"{gbps / saxpy_gbps:.1%} of the saxpy ({card})")
+
+    # the gradient kernels at this size
+    u = torch.empty((2, *f.shape[1:]), dtype=f.dtype, device="cuda")
+    g = torch.randn(f.shape, generator=torch.Generator(
+        device="cuda").manual_seed(10), device="cuda")
+    ct = torch.empty_like(f)
+    sc.stream_collide(f, **params, out=out, u_out=u)
+    adjoint.stream_collide_adjoint(g, u, **params, out=ct)
+    ref_out, ref_u = sc.stream_collide_plain(f, **params, emit_u=True)
+    ref_ct = adjoint.stream_collide_adjoint_plain(g, u, **params)
+    torch.cuda.synchronize()
+    err_emit = max((out - ref_out).abs().max().item(),
+                   (u - ref_u).abs().max().item())
+    err_adj, scale_adj = scaled_err(ct, ref_ct)
+    check(err_emit <= ATOL[torch.float32], f"masked emit-u: {err_emit}")
+    check(err_adj <= GRAD_RTOL[torch.float32] * scale_adj,
+          f"masked adjoint: {err_adj} of {scale_adj}")
+    del ref_out, ref_u, ref_ct
+    emit_ms, emit_plain_ms, _ = time_in_turns(
+        lambda: sc.stream_collide(f, **params, out=out, u_out=u),
+        lambda: sc.stream_collide_plain(f, **params, emit_u=True))
+    adj_ms, adj_plain_ms, _ = time_in_turns(
+        lambda: adjoint.stream_collide_adjoint(g, u, **params, out=ct),
+        lambda: adjoint.stream_collide_adjoint_plain(g, u, **params))
+    print(f"phase 10: masked emit-u {emit_ms:.4f} ms (plain "
+          f"{emit_plain_ms:.4f}), masked adjoint {adj_ms:.4f} ms (plain "
+          f"{adj_plain_ms:.4f}) per launch ({card})")
+
+    # the 8-step gradient through kernels and replay, against autograd of
+    # the torch step
+    f0 = flow.f.detach().clone().requires_grad_(True)
+
+    def grad_of(seg):
+        (grad,) = torch.autograd.grad((seg(f0) ** 2).sum(), f0)
+        return grad
+
+    segment = simulation.make_segment_fn(SEGMENT_STEPS)
+    reset_launch_counts()
+    grad = grad_of(segment)
+    torch.cuda.synchronize()
+    grad_launches = masked_launch_counts()
+    check(grad_launches == (0, SEGMENT_STEPS, SEGMENT_STEPS)
+          and launch_counts() == (0, 0, 0),
+          f"masked (primal, emit-u, adjoint) launches {grad_launches} for "
+          f"an {SEGMENT_STEPS}-step gradient")
+    check(bool(torch.isfinite(grad).all()), "obstacle gradient not finite")
+    check(grad.abs().max().item() > 0, "obstacle gradient is zero")
+    ref = grad_of(plain_sim.make_segment_fn(SEGMENT_STEPS))
+    err_g, scale_g = scaled_err(grad, ref)
+    del ref
+    print(f"phase 10: {SEGMENT_STEPS}-step gradient: launches "
+          f"{grad_launches}; max |kernels+replay - autograd of the torch "
+          f"step| {err_g:.3e} of {scale_g:.3e} ({err_g / scale_g:.2e} "
+          f"relative, rtol 1e-5)")
+    check(err_g <= GRAD_RTOL[torch.float32] * scale_g,
+          f"obstacle gradient: {err_g} of {scale_g}")
+    grad_ck = grad_of(simulation.make_segment_fn(SEGMENT_STEPS,
+                                                 checkpoint_every=4))
+    torch.cuda.synchronize()
+    check(torch.equal(grad, grad_ck),
+          "obstacle checkpoint_every=4 gradient differs")
+    print("phase 10: checkpoint_every=4 gradient is bitwise equal")
+    grad_of(segment)
+    torch.cuda.synchronize()
+    beg = time.perf_counter()
+    for _ in range(3):
+        grad_of(segment)
+    torch.cuda.synchronize()
+    seconds = (time.perf_counter() - beg) / 3
+    grad_mlups = cells * SEGMENT_STEPS / seconds / 1e6
+    print(f"phase 10: fwd+bwd {grad_mlups:.1f} MLUPS ({seconds * 1e3:.2f} "
+          f"ms per {SEGMENT_STEPS}-step gradient) ({card})")
+    del simulation, plain_sim, flow, f, out, u, g, ct, f0, grad, grad_ck
+    torch.cuda.empty_cache()
+    return dict(launches=launched[0], grad_launches=grad_launches,
+                err=max(err1, err4), err_emit=err_emit, err_adjoint=err_adj,
+                kernel_ms=kernel_ms, plain_ms=plain_ms, emit_ms=emit_ms,
+                emit_plain_ms=emit_plain_ms, adjoint_ms=adj_ms,
+                adjoint_plain_ms=adj_plain_ms)
+
+
+def cavity_simulation(use_native, n=256):
+    """The lid-driven cavity of benchmarks/validate_cavity.py on the card:
+    256^2 D2Q9 float32, Re 100, Ma 0.05."""
+    import lettuce_tpu_torch as lt
+    context = lt.Context(device="cuda", dtype=torch.float32,
+                         use_native=use_native)
+    flow = lt.Cavity2D(context, n, reynolds_number=100, mach_number=0.05)
+    return lt.Simulation(
+        flow, lt.BGKCollision(tau=flow.units.relaxation_parameter_lu), [])
+
+
+def masked_vs_plain(f, params):
+    """max |masked kernel - plain masked step| for one step from ``f``."""
+    import lettuce_tpu_torch.ops.cuda.stream_collide as sc
+    got = sc.stream_collide(f, **params)
+    ref = sc.stream_collide_plain(f, **params)
+    torch.cuda.synchronize()
+    return (got - ref).abs().max().item()
+
+
+def phase11_cavity(card):
+    n = 256
+    simulation = cavity_simulation(True, n)
+    flow = simulation.flow
+    check(simulation.step_path == "cuda x1",
+          f"cavity runs {simulation.step_path!r}, not the masked kernel")
+    params = simulation._kernel_params
+    check([kind for kind, _ in params["table"]]
+          == ["collide", "bounce_back", "equilibrium_pu"],
+          f"cavity table {[kind for kind, _ in params['table']]}")
+
+    # the masked kernel at this path's shape and table (bounce-back walls,
+    # the lid's constant equilibrium) against its plain version, on the
+    # initial state plus seeded noise; then 20 steps of the kernel path
+    # against the torch step
+    noise = 1e-3 * np.random.default_rng(11).standard_normal(
+        tuple(flow.f.shape))
+    err_noise = masked_vs_plain(
+        (flow.f + torch.as_tensor(noise, dtype=flow.f.dtype,
+                                  device="cuda")).contiguous(), params)
+    check(err_noise <= ATOL[torch.float32],
+          f"cavity masked kernel vs plain: {err_noise}")
+    lockstep = cavity_simulation(True, n)
+    plain_sim = cavity_simulation(False, n)
+    check(plain_sim._step_kind == "torch", "plain cavity is not torch")
+    lockstep(20)
+    plain_sim(20)
+    err_steps = (lockstep.flow.f - plain_sim.flow.f).abs().max().item()
+    print(f"phase 11: cavity {n}^2 masked kernel vs plain, one step from a "
+          f"noisy state: {err_noise:.3e}; kernel path vs torch step over 20 "
+          f"steps: {err_steps:.3e} (atol 5e-6)")
+    check(err_steps <= ATOL[torch.float32],
+          f"cavity kernel path vs torch step: {err_steps}")
+    del lockstep, plain_sim
+
+    reset_launch_counts()
+    steps, chunk, max_steps = 0, 5000, 200_000
+    prev, change = None, float("inf")
+    beg = time.perf_counter()
+    while steps < max_steps:
+        simulation(chunk)
+        steps += chunk
+        u = flow.u()
+        if prev is not None:
+            change = ((u - prev).abs().max()
+                      / u.abs().max().clamp_min(1e-30)).item()
+            if change < 1e-4:
+                break
+        prev = u
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - beg
+    launched = masked_launch_counts()
+    check(launched == (steps, 0, 0) and launch_counts() == (0, 0, 0),
+          f"cavity launches {launched} for {steps} steps")
+    check(bool(torch.isfinite(flow.f).all()), "cavity state not finite")
+    # the centreline profile, with the walls half a link outside their
+    # node rows and the lid on the top row (validate_cavity.py)
+    u_np = u.cpu().numpy()
+    u_lid = float(flow.units.characteristic_velocity_lu)
+    y_nodes = (np.arange(n) - 0.5) / (n - 1.5)
+    ux_center = (u_np[0][n // 2 - 1, :] + u_np[0][n // 2, :]) / 2 / u_lid
+    dev = np.abs(np.interp(GHIA_Y, y_nodes, ux_center) - GHIA_U)
+    print(f"phase 11: cavity 256^2 Re 100 Ma 0.05 float32, "
+          f"{simulation.step_path}: {steps} steps "
+          f"({'converged' if change < 1e-4 else 'not converged'}, last "
+          f"change {change:.2e}) in {seconds:.2f} s, "
+          f"{steps * n * n / seconds / 1e6:.1f} MLUPS; max deviation from "
+          f"Ghia {dev.max():.5f}, rms {np.sqrt((dev ** 2).mean()):.5f} "
+          f"(gate {GHIA_GATE}) ({card})")
+    check(dev.max() < GHIA_GATE, f"cavity deviation {dev.max()} from Ghia")
+    # and once more on the converged state, where the flow fills the box
+    err_converged = masked_vs_plain(flow.f, params)
+    print(f"phase 11: masked kernel vs plain on the converged state: "
+          f"{err_converged:.3e} (atol 5e-6)")
+    check(err_converged <= ATOL[torch.float32],
+          f"converged cavity masked kernel vs plain: {err_converged}")
+    del simulation, flow
+    torch.cuda.empty_cache()
+    return max(err_noise, err_steps, err_converged)
+
+
+def profiled_device_ms(fn):
+    """(device ms, device launches) of ``fn()`` under ``torch.profiler``,
+    and the device ms of the masked kernels by name; None when the
+    profiler saw no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    device = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not device:
+        return None
+    by_name = {}
+    for e in device:
+        # "void (anonymous namespace)::masked_..._kernel<...>(...)"
+        name = re.search(r"(\w+)<", e.name)
+        if name and name.group(1).startswith("masked_"):
+            by_name[name.group(1)] = (by_name.get(name.group(1), 0.0)
+                                      + e.time_range.elapsed_us() / 1e3)
+    return (sum(e.time_range.elapsed_us() for e in device) / 1e3,
+            len(device), {k: round(v, 4) for k, v in by_name.items()})
+
+
+def phase12_profile(card):
+    """Where the bounded path's time goes: K1a against K1b back to back on
+    the obstacle's grid; the host time per masked launch at the cavity's
+    size, with the gate's packed table and with an unpacked one; the
+    obstacle step and its 8-step gradient under torch.profiler, with the
+    device idle share against the same work's unprofiled wall time."""
+    import lettuce_tpu_torch as lt
+    import lettuce_tpu_torch.ops.cuda.stream_collide as sc
+    simulation = obstacle_simulation(True)
+    params = simulation._kernel_params
+    f = simulation.flow.f.clone()
+    out = torch.empty_like(f)
+    periodic, tau_inv = tgv_state(lt.D2Q9(), tuple(f.shape[1:]),
+                                  torch.float32, 12)
+    periodic_params = dict(e=params["e"], w=params["w"],
+                           opposite=params["opposite"], cs=params["cs"],
+                           tau_inv=tau_inv)
+    k1b_ms, k1a_ms, turns = time_in_turns(
+        lambda: sc.stream_collide(f, **params, out=out),
+        lambda: sc.stream_collide(periodic, **periodic_params, out=out),
+        kernel_repeats=200, plain_repeats=200)
+    print(f"phase 12: 2048x1024 D2Q9 float32 per launch, CUDA events, in "
+          f"turns: periodic K1a {turns[0]:.4f} / {turns[3]:.4f} ms, masked "
+          f"K1b {turns[1]:.4f} / {turns[2]:.4f} ms ({k1b_ms / k1a_ms:.3f}x) "
+          f"({card})")
+    del periodic
+
+    # host time per masked launch where the kernel is short: 256^2
+    cavity = cavity_simulation(True)
+    cparams = cavity._kernel_params
+    unpacked = dict(cparams, table=tuple(cparams["table"]))
+    cf = cavity.flow.f
+    cout = torch.empty_like(cf)
+    host_us = {}
+    for name, kw in (("packed", cparams), ("unpacked", unpacked),
+                     ("packed again", cparams)):
+        sc.stream_collide(cf, **kw, out=cout)
+        torch.cuda.synchronize()
+        beg = time.perf_counter()
+        for _ in range(2000):
+            sc.stream_collide(cf, **kw, out=cout)
+        host_us[name] = (time.perf_counter() - beg) / 2000 * 1e6
+        torch.cuda.synchronize()
+    step_us = cf[0].numel() / cavity(2000)  # cells / MLUPS
+    print(f"phase 12: host us per masked launch at 256^2 (2000 launches): "
+          f"{', '.join(f'{k} table {v:.2f}' for k, v in host_us.items())}; "
+          f"cavity step through Simulation {step_us:.2f} us ({card})")
+    del cavity, cf, cout
+
+    # the obstacle step and its gradient under the profiler
+    wall_step_ms = 1e3 / simulation(100) * f[0].numel() / 1e6
+    profiled = profiled_device_ms(lambda: simulation(10))
+    if profiled is None:
+        print("phase 12: obstacle step device time not measured (the "
+              "profiler saw no device activity)")
+    else:
+        device_ms, launches, by_name = profiled
+        print(f"phase 12: obstacle step under torch.profiler (10 steps): "
+              f"{launches / 10:.1f} device launches and "
+              f"{device_ms / 10:.4f} ms of device time per step, "
+              f"masked kernels {by_name}; unprofiled wall "
+              f"{wall_step_ms:.4f} ms per step: device idle "
+              f"{1 - device_ms / 10 / wall_step_ms:.1%} ({card})")
+    f0 = simulation.flow.f.detach().clone().requires_grad_(True)
+    segment = simulation.make_segment_fn(SEGMENT_STEPS)
+
+    def gradient():
+        torch.autograd.grad((segment(f0) ** 2).sum(), f0)
+
+    gradient()
+    torch.cuda.synchronize()
+    beg = time.perf_counter()
+    for _ in range(3):
+        gradient()
+    torch.cuda.synchronize()
+    wall_grad_ms = (time.perf_counter() - beg) / 3 * 1e3
+    profiled = profiled_device_ms(gradient)
+    if profiled is None:
+        print("phase 12: gradient device time not measured")
+    else:
+        device_ms, launches, by_name = profiled
+        print(f"phase 12: {SEGMENT_STEPS}-step obstacle gradient under "
+              f"torch.profiler: {launches} device launches, "
+              f"{device_ms:.4f} ms of device time, masked kernels "
+              f"{by_name}; unprofiled wall {wall_grad_ms:.4f} ms: device "
+              f"idle {1 - device_ms / wall_grad_ms:.1%} ({card})")
+    del simulation, f, out, f0, segment
+    torch.cuda.empty_cache()
+
+
 def main():
     card = phase0_card()
     build_s = phase1_build()
@@ -543,6 +1137,10 @@ def main():
     worst_emit, worst_adjoint = phase6_gradient_kernels_vs_plain()
     grad_path = phase7_gradient_path(card, saxpy_gbps)
     phase8_adam(card)
+    worst_masked = phase9_masked_kernels_vs_plain()
+    obstacle = phase10_obstacle(card, saxpy_gbps)
+    cavity_err = phase11_cavity(card)
+    phase12_profile(card)
     print(f"build {build_s:.2f} s")
     print(card)
     emit_ms, emit_plain_ms = grad_path["timings"]["emit_u"]
@@ -574,6 +1172,33 @@ def main():
         "max_abs_err": max(worst_adjoint, grad_path["err_adjoint"]),
         "ms": adj_ms,
         "plain_ms": adj_plain_ms,
+    }, {
+        "name": "stream_collide_masked",
+        "route": "cuda",
+        "source": KERNEL_SOURCE,
+        "replaces": MASKED_REPLACES,
+        "launches": obstacle["launches"],
+        "max_abs_err": max(worst_masked[0], obstacle["err"], cavity_err),
+        "ms": obstacle["kernel_ms"],
+        "plain_ms": obstacle["plain_ms"],
+    }, {
+        "name": "stream_collide_masked_emit_u",
+        "route": "cuda",
+        "source": KERNEL_SOURCE,
+        "replaces": MASKED_REPLACES,
+        "launches": obstacle["grad_launches"][1],
+        "max_abs_err": max(worst_masked[1], obstacle["err_emit"]),
+        "ms": obstacle["emit_ms"],
+        "plain_ms": obstacle["emit_plain_ms"],
+    }, {
+        "name": "stream_collide_adjoint_masked",
+        "route": "cuda",
+        "source": ADJOINT_SOURCE,
+        "replaces": ADJOINT_MASKED_REPLACES,
+        "launches": obstacle["grad_launches"][2],
+        "max_abs_err": max(worst_masked[2], obstacle["err_adjoint"]),
+        "ms": obstacle["adjoint_ms"],
+        "plain_ms": obstacle["adjoint_plain_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,11 @@
 """lettuce_tpu_torch: the PyTorch/CUDA port of lettuce_tpu.
 
-The same API as ``lettuce_tpu`` for the periodic BGK main path, on torch
+The same API as ``lettuce_tpu`` for BGK flows, periodic and bounded
+(obstacle, lid-driven cavity, Couette, with their boundaries), on torch
 tensors on an explicit ``torch.device``, with the fused collide-and-stream
-step as a hand-written CUDA kernel for Hopper (``csrc/stream_collide.cu``).
-This package imports neither jax nor ``lettuce_tpu``.
+step and its adjoint as hand-written CUDA kernels for Hopper
+(``csrc/stream_collide.cu``, ``csrc/adjoint.cu``). This package imports
+neither jax nor ``lettuce_tpu``.
 """
 
 from .context import Context

@@ -1,8 +1,8 @@
 // Adjoint of the fused BGK collide-and-stream step for Hopper (sm_90a).
 //
 // Replaces lettuce_tpu/ops/pallas/adjoint.py::_adjoint_kernel for the
-// ("bgk", tau_inv) spec with the emitted-u residual, no masks, periodic:
-// it computes the same function as
+// ("bgk", tau_inv) spec with the emitted-u residual: it computes the same
+// function as
 // fused_adjoint(u, g, e, w, opposite, cs, ("bgk", tau_inv),
 //               residual_u=True),
 // the exact vector-Jacobian product of one step of stream_collide.cu. For
@@ -17,8 +17,18 @@
 // The sums run in the order of the TPU kernel (pairs in the order of
 // adjoint.py::_pairs_of, the rest direction last).
 //
+// The Masked instances transpose the forward's masked kernel (the mask
+// routing of _adjoint_kernel, adjoint.py:151-159, :218-241, :534-539):
+//   * frozen populations re-route the pulled cotangent,
+//     h_q(x) = (nsm_q(x + e_q) ? 0 : g_q(x + e_q)) + (nsm_q(x) ? g_q(x) : 0),
+//     reading the mask at both places (no pre-shifted copy);
+//   * the cell's code selects: the BGK transpose above on collide cells
+//     only, h_opp(q) on bounce-back cells, 0 on equilibrium cells (constant
+//     in f), h_q on identity cells (the outlets the replay rewrites).
+//
 // What bounds it: device memory. D3Q19 in float32 reads 19 * 4 B of g and
-// 3 * 4 B of u and writes 19 * 4 B per cell: 164 B per lattice update.
+// 3 * 4 B of u and writes 19 * 4 B per cell: 164 B per lattice update (the
+// masked instances add the 1-byte code, and read u on collide cells only).
 // One thread per cell along the fastest axis, as in the forward; here the
 // shifted accesses are the loads (a warp's g_q loads straddle two 128 B
 // lines for e_q with a component along the fastest axis) and every store
@@ -26,8 +36,9 @@
 // cotangent stays in registers between the moment sums and the writes.
 //
 // Plain C interface, loaded with ctypes: one entry per (stencil, dtype)
-// instance. Each entry launches on the stream it is given and returns
-// cudaGetLastError(); it neither allocates nor synchronises.
+// instance, periodic and Masked. Each entry launches on the stream it is
+// given and returns cudaGetLastError(); it neither allocates nor
+// synchronises.
 
 #include <cstdint>
 
@@ -146,27 +157,37 @@ __device__ __forceinline__ void write_ct(const T (&h)[S::Q], T tau_inv, T ap,
   }
 }
 
+// Pull with frozen populations (see the header comment).
+template <class S, class T, int q = 0>
+__device__ __forceinline__ void pull_frozen(const T* __restrict__ g,
+                                            const uint8_t* __restrict__ nsm,
+                                            const Neighbours& nb,
+                                            int64_t cell, T (&h)[S::Q]) {
+  if constexpr (q < S::Q) {
+    const int64_t src = shifted_index<S, q, 1>(nb);
+    const int64_t here = q * nb.n + cell;
+    const T streamed = nsm[src] ? T(0) : __ldg(g + src);
+    const T kept = nsm[here] ? __ldg(g + here) : T(0);
+    h[q] = streamed + kept;
+    pull_frozen<S, T, q + 1>(g, nsm, nb, cell, h);
+  }
+}
+
+// The BGK transpose of a collide cell from its pulled cotangent h.
 template <class S, class T>
-__global__ void __launch_bounds__(kBlock)
-    adjoint_kernel(const T* __restrict__ g, const T* __restrict__ u,
-                   T* __restrict__ out, int64_t n0, int64_t n1, int64_t n2,
-                   T tau_inv, T inv_cs2, T half_inv_cs2, T half_inv_cs4) {
+__device__ __forceinline__ void collide_adjoint(const T (&h)[S::Q],
+                                                const T* __restrict__ u,
+                                                T* __restrict__ out,
+                                                int64_t n, int64_t cell,
+                                                T tau_inv, T inv_cs2,
+                                                T half_inv_cs2,
+                                                T half_inv_cs4) {
   constexpr int D = S::D;
-  const int64_t k = int64_t(blockIdx.x) * kBlock + threadIdx.x;
-  if (k >= n2) return;
-  const int64_t j = blockIdx.y;
-  const int64_t i = blockIdx.z;
-  const Neighbours nb = neighbours(i, j, k, n0, n1, n2);
-  const int64_t cell = (i * n1 + j) * n2 + k;
-
-  T h[S::Q];
-  pull<S, T>(g, nb, h);
-
   T uv[D];
   T u2 = T(0);
 #pragma unroll
   for (int a = 0; a < D; ++a) {
-    uv[a] = __ldg(u + a * nb.n + cell);
+    uv[a] = __ldg(u + a * n + cell);
     u2 = u2 + uv[a] * uv[a];
   }
 
@@ -206,7 +227,73 @@ __global__ void __launch_bounds__(kBlock)
     ap = ap - uv[a] * bv[a];
   }
 
-  write_ct<S, T>(h, tau_inv, ap, bv, out, nb.n, cell);
+  write_ct<S, T>(h, tau_inv, ap, bv, out, n, cell);
+}
+
+// The transpose of a boundary cell's replacement.
+template <class S, class T, int q = 0>
+__device__ __forceinline__ void boundary_adjoint(int kind,
+                                                 const T (&h)[S::Q],
+                                                 T* __restrict__ out,
+                                                 int64_t n, int64_t cell) {
+  if constexpr (q < S::Q) {
+    T v;
+    if (kind == kBounceBack) {
+      v = h[opposite<S>(q)];
+    } else if (kind == kIdentity) {
+      v = h[q];
+    } else {  // the equilibrium kinds are constant in f
+      v = T(0);
+    }
+    out[q * n + cell] = v;
+    boundary_adjoint<S, T, q + 1>(kind, h, out, n, cell);
+  }
+}
+
+template <class S, class T>
+__global__ void __launch_bounds__(kBlock)
+    adjoint_kernel(const T* __restrict__ g, const T* __restrict__ u,
+                   T* __restrict__ out, int64_t n0, int64_t n1, int64_t n2,
+                   T tau_inv, T inv_cs2, T half_inv_cs2, T half_inv_cs4) {
+  const int64_t k = int64_t(blockIdx.x) * kBlock + threadIdx.x;
+  if (k >= n2) return;
+  const int64_t j = blockIdx.y;
+  const int64_t i = blockIdx.z;
+  const Neighbours nb = neighbours(i, j, k, n0, n1, n2);
+  const int64_t cell = (i * n1 + j) * n2 + k;
+
+  T h[S::Q];
+  pull<S, T>(g, nb, h);
+  collide_adjoint<S, T>(h, u, out, nb.n, cell, tau_inv, inv_cs2,
+                        half_inv_cs2, half_inv_cs4);
+}
+
+template <class S, class T>
+__global__ void __launch_bounds__(kBlock) masked_adjoint_kernel(
+    const T* __restrict__ g, const T* __restrict__ u, T* __restrict__ out,
+    const uint8_t* __restrict__ ncm, const uint8_t* __restrict__ nsm,
+    const __grid_constant__ CodeKinds kinds, int64_t n0, int64_t n1,
+    int64_t n2, T tau_inv, T inv_cs2, T half_inv_cs2, T half_inv_cs4) {
+  const int64_t k = int64_t(blockIdx.x) * kBlock + threadIdx.x;
+  if (k >= n2) return;
+  const int64_t j = blockIdx.y;
+  const int64_t i = blockIdx.z;
+  const Neighbours nb = neighbours(i, j, k, n0, n1, n2);
+  const int64_t cell = (i * n1 + j) * n2 + k;
+
+  T h[S::Q];
+  if (nsm == nullptr) {
+    pull<S, T>(g, nb, h);
+  } else {
+    pull_frozen<S, T>(g, nsm, nb, cell, h);
+  }
+  const int kind = kind_of(kinds.kind, ncm[cell]);
+  if (kind == kCollide) {
+    collide_adjoint<S, T>(h, u, out, nb.n, cell, tau_inv, inv_cs2,
+                          half_inv_cs2, half_inv_cs4);
+  } else {
+    boundary_adjoint<S, T>(kind, h, out, nb.n, cell);
+  }
 }
 
 template <class S, class T>
@@ -225,6 +312,28 @@ int launch(const void* g, const void* u, void* out, int64_t n0, int64_t n1,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <class S, class T>
+int launch_masked(const void* g, const void* u, void* out, const void* ncm,
+                  const void* nsm, const int32_t* kinds, int64_t n0,
+                  int64_t n1, int64_t n2, T tau_inv, double cs, int device,
+                  void* stream) {
+  static_assert(pair_weights_symmetric<S>(),
+                "the pair-folded moments need w[q] == w[opposite[q]]");
+  CodeKinds table;
+  if (!fill_kinds(kinds, table.kind))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int err = use_device(device);
+  if (err != 0) return err;
+  const double inv_cs2 = 1.0 / (cs * cs);
+  masked_adjoint_kernel<S, T><<<launch_grid(n0, n1, n2), kBlock, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(g), static_cast<const T*>(u),
+      static_cast<T*>(out), static_cast<const uint8_t*>(ncm),
+      static_cast<const uint8_t*>(nsm), table, n0, n1, n2, tau_inv,
+      T(inv_cs2), T(0.5 * inv_cs2), T(0.5 * inv_cs2 * inv_cs2));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 #define LT_ENTRY(NAME, S, T)                                                  \
@@ -233,16 +342,26 @@ int launch(const void* g, const void* u, void* out, int64_t n0, int64_t n1,
     return launch<S, T>(g, u, out, n0, n1, n2, tau_inv, cs, device, stream);  \
   }
 
+#define LT_ENTRY_MASKED(NAME, S, T)                                           \
+  int NAME(const void* g, const void* u, void* out, const void* ncm,         \
+           const void* nsm, const int32_t* kinds, int64_t n0, int64_t n1,     \
+           int64_t n2, T tau_inv, double cs, int device, void* stream) {      \
+    return launch_masked<S, T>(g, u, out, ncm, nsm, kinds, n0, n1, n2,       \
+                               tau_inv, cs, device, stream);                  \
+  }
+
+#define LT_ENTRIES(STENCIL, S)                                                \
+  LT_ENTRY(lt_stream_collide_adjoint_##STENCIL##_f32, S, float)               \
+  LT_ENTRY(lt_stream_collide_adjoint_##STENCIL##_f64, S, double)              \
+  LT_ENTRY_MASKED(lt_stream_collide_adjoint_masked_##STENCIL##_f32, S, float) \
+  LT_ENTRY_MASKED(lt_stream_collide_adjoint_masked_##STENCIL##_f64, S, double)
+
 extern "C" {
 
-LT_ENTRY(lt_stream_collide_adjoint_d2q9_f32, D2Q9, float)
-LT_ENTRY(lt_stream_collide_adjoint_d2q9_f64, D2Q9, double)
-LT_ENTRY(lt_stream_collide_adjoint_d3q15_f32, D3Q15, float)
-LT_ENTRY(lt_stream_collide_adjoint_d3q15_f64, D3Q15, double)
-LT_ENTRY(lt_stream_collide_adjoint_d3q19_f32, D3Q19, float)
-LT_ENTRY(lt_stream_collide_adjoint_d3q19_f64, D3Q19, double)
-LT_ENTRY(lt_stream_collide_adjoint_d3q27_f32, D3Q27, float)
-LT_ENTRY(lt_stream_collide_adjoint_d3q27_f64, D3Q27, double)
+LT_ENTRIES(d2q9, D2Q9)
+LT_ENTRIES(d3q15, D3Q15)
+LT_ENTRIES(d3q19, D3Q19)
+LT_ENTRIES(d3q27, D3Q27)
 
 const char* lt_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -1,5 +1,6 @@
-// Lattice stencils and compile-time stencil queries, shared by the fused
-// stream-collide kernel (stream_collide.cu) and its adjoint (adjoint.cu).
+// Lattice stencils, compile-time stencil queries and the boundary-code
+// table, shared by the fused stream-collide kernel (stream_collide.cu) and
+// its adjoint (adjoint.cu).
 //
 // The stencil tables are compile-time constants: the q loops of both
 // kernels unroll by template recursion, so every table lookup folds into
@@ -158,6 +159,52 @@ __device__ __forceinline__ int64_t shifted_index(const Neighbours& nb) {
                 ez = sign * comp3<S>(q, 2);
   return q * nb.n + (nb.x[ex + 1] * nb.n1 + nb.y[ey + 1]) * nb.n2 +
          nb.z[ez + 1];
+}
+
+// ---------------------------------------------------------------------------
+// boundary codes of the masked kernels
+// ---------------------------------------------------------------------------
+// The uint8 no_collision_mask holds a code per cell; the per-code table says
+// what the cell's post-collision populations are. The order is KINDS of
+// ops/cuda/stream_collide.py.
+enum Kind : int {
+  kCollide = 0,           // BGK (code 0)
+  kBounceBack = 1,        // f_post[q] = f[opposite(q)], pre-collision
+  kEquilibrium = 2,       // f_post[q] = the table's constant feq[q]
+  kEquilibriumField = 3,  // f_post[q] = feq_field[q, cell]
+  kIdentity = 4,          // f_post[q] = f[q] (outlets the replay rewrites)
+};
+
+constexpr int kMaxCodes = 8;  // codes 0..7
+constexpr int kMaxQ = 27;
+
+// Passed by value as a kernel parameter (__grid_constant__, so indexing it
+// with a run-time code reads the parameter bank, not a local copy).
+template <class T>
+struct BoundaryTable {
+  int kind[kMaxCodes];
+  T value[kMaxCodes][kMaxQ];  // kEquilibrium codes only
+};
+
+struct CodeKinds {
+  int kind[kMaxCodes];
+};
+
+// The kind of a cell's code; a code outside the table is identity, as on
+// the TPU kernel (unclaimed codes keep f).
+__device__ __forceinline__ int kind_of(const int (&kinds)[kMaxCodes],
+                                       int code) {
+  return code < kMaxCodes ? kinds[code] : int(kIdentity);
+}
+
+// Copy the host arrays of a C entry into the table; false if a kind is
+// out of range.
+inline bool fill_kinds(const int32_t* kinds, int (&out)[kMaxCodes]) {
+  for (int c = 0; c < kMaxCodes; ++c) {
+    if (kinds[c] < kCollide || kinds[c] > kIdentity) return false;
+    out[c] = kinds[c];
+  }
+  return true;
 }
 
 // Select the current device for a launch; returns a cudaError_t.

@@ -1,4 +1,4 @@
-"""Base class and shared grid helpers for the concrete flow cases:
+"""Base class and shared grid/mask helpers for the concrete flow cases:
 subclasses supply ``make_resolution`` / ``make_units`` / ``initial_pu`` /
 ``boundaries``."""
 
@@ -7,13 +7,15 @@ from __future__ import annotations
 from abc import ABC, abstractmethod
 from typing import List, Optional, Union
 
+import numpy as np
 import torch
 
 from ..flow import Flow
 from ..ops.equilibrium import QuadraticEquilibrium
 from ..stencil import D1Q3, D2Q9, D3Q19
 
-__all__ = ["ExtFlow", "periodic_grid", "expand_resolution"]
+__all__ = ["ExtFlow", "periodic_grid", "closed_grid", "face_mask",
+           "expand_resolution"]
 
 _DEFAULT_STENCILS = (D1Q3, D2Q9, D3Q19)
 
@@ -35,6 +37,29 @@ def periodic_grid(resolution, extent: float, dtype, device):
     axes = [torch.arange(n, dtype=dtype, device=device) * (extent / n)
             for n in resolution]
     return torch.meshgrid(*axes, indexing="ij")
+
+
+def closed_grid(resolution, extent: float, dtype, device):
+    """Node coordinates of a wall-bounded box [0, extent], endpoints
+    included (first/last nodes sit ON the walls)."""
+    axes = [torch.linspace(0, extent, n, dtype=dtype, device=device)
+            for n in resolution]
+    return torch.meshgrid(*axes, indexing="ij")
+
+
+def face_mask(resolution, axis: int, end: int, exclude_corners=()):
+    """Boolean numpy mask of one domain face: ``end`` is 0 (low face) or
+    -1 (high face). Axes listed in ``exclude_corners`` drop their first
+    node from the face (used to give wall/lid corners a unique owner)."""
+    m = np.zeros(tuple(resolution), dtype=bool)
+    sel = [slice(None)] * len(resolution)
+    sel[axis] = end
+    m[tuple(sel)] = True
+    for a in exclude_corners:
+        sel2 = [slice(None)] * len(resolution)
+        sel2[a] = 0
+        m[tuple(sel2)] = False
+    return m
 
 
 class ExtFlow(Flow, ABC):

@@ -1,15 +1,21 @@
 """The differentiable fused step: a ``torch.autograd.Function`` whose
 forward is the emit-u stream-collide kernel and whose backward is the
-adjoint kernel.
+adjoint kernel, periodic or masked.
 
 It is the counterpart of the ``custom_vjp`` of
-``lettuce_tpu/ops/pallas/stream_collide.py::build_fused_step`` for the
-periodic BGK configuration. When the input needs a gradient, the forward
-also emits the pre-collision velocity u and saves only that (d fields
-instead of the q of the state); otherwise it runs the primal kernel and
-saves nothing. The backward hands the contiguous cotangent and u to the
-adjoint kernel. On CPU tensors both wrappers run their plain versions, so
-the same wiring runs without a card.
+``lettuce_tpu/ops/pallas/stream_collide.py::build_fused_step``. When the
+input needs a gradient, the forward also emits the pre-collision velocity
+u and saves only that (d fields instead of the q of the state); otherwise
+it runs the primal kernel and saves nothing. The backward hands the
+contiguous cotangent, u and the forward's masks and table to the adjoint
+kernel. On CPU tensors both wrappers run their plain versions, so the same
+wiring runs without a card.
+
+A flow with outlets composes the window replay after the Function under
+ordinary autograd (``fixup``): the replay's in-place write gives the
+planes it rewrites a zero cotangent on the kernel's side, which is the
+split of ``build_fused_step``'s hybrid backward, and its own graph saves
+its window.
 
 Every call returns a freshly allocated output: it never writes into its
 input or into an earlier output, which autograd could not notice.
@@ -50,10 +56,14 @@ class _FusedStep(torch.autograd.Function):
 
 
 def fused_step(f: torch.Tensor, *, e, w, opposite, cs: float,
-               tau_inv: float) -> torch.Tensor:
+               tau_inv: float, ncm=None, nsm=None, table=None,
+               feq_field=None, fixup=None) -> torch.Tensor:
     """One differentiable BGK collide-and-stream step ``f -> f'`` through
     the kernels (or their plain versions on CPU tensors), with the static
-    kernel parameters of
-    :func:`.stream_collide.gate_fused_params`."""
-    return _FusedStep.apply(f, dict(e=e, w=w, opposite=opposite, cs=cs,
-                                    tau_inv=tau_inv))
+    kernel parameters of :func:`.stream_collide.gate_fused_params`, and
+    the window replay ``fixup`` of :mod:`.hybrid_outlets` after the kernel
+    when the flow has outlets."""
+    out = _FusedStep.apply(f, dict(
+        e=e, w=w, opposite=opposite, cs=cs, tau_inv=tau_inv, ncm=ncm,
+        nsm=nsm, table=table, feq_field=feq_field))
+    return out if fixup is None else fixup(f, out)

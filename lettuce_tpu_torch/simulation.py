@@ -8,18 +8,22 @@ steps and returns MLUPS.
 Two step paths:
   * ``"torch"``: the plain tensor step (collision, boundaries, per-q roll),
     differentiable by ordinary autograd;
-  * ``"cuda"``: the fused CUDA stream-collide kernel, chosen on a CUDA
-    context with ``use_native`` when every component supports it. The
-    capability probe is on component types and the state's dtype only,
-    and prints its reason when it keeps the torch step; a build or launch
-    error is never caught. Its differentiable step (``make_step_fn``,
-    ``make_segment_fn``, and ``__call__`` on a state that requires grad)
-    is ``fused_step``: the emit-u kernel forward, the adjoint kernel
-    backward.
+  * ``"cuda"``: the fused CUDA stream-collide kernel (masked when the flow
+    has boundaries), chosen on a CUDA context with ``use_native`` when
+    every component supports it. Outlets ride it through the window
+    replay of ``ops/cuda/hybrid_outlets.py`` (``'cuda+hybrid'``). The
+    capability probe makes host-side checks only (component types, the
+    state's dtype, the outlets' replay windows), the same ones the kernel
+    gate raises on, and prints its reason when it keeps the torch step; a
+    build or launch error is never caught. Its differentiable step
+    (``make_step_fn``, ``make_segment_fn``, and ``__call__`` on a state
+    that requires grad) is ``fused_step``: the emit-u kernel forward, the
+    adjoint kernel backward, then the replay under autograd.
 
 No step ever writes into a tensor that a caller holds: the kernel path's
 throughput loop ping-pongs between two buffers the simulation allocated
-and never exposes, and its last step of each run writes a fresh tensor.
+and never exposes (the replay writes into the buffer the kernel just
+wrote), and its last step of each run writes a fresh tensor.
 """
 
 from __future__ import annotations
@@ -35,11 +39,12 @@ from torch.utils.checkpoint import checkpoint
 
 from .ops.collision import Collision
 from .ops.cuda import adjoint
-from .ops.cuda.build import DTYPES as KERNEL_DTYPES
 from .ops.cuda.fused_step import fused_step
-from .ops.cuda.stream_collide import (KERNEL_STENCILS, gate_fused_params,
-                                      load_library, stream_collide)
-from .ops.streaming import stream
+from .ops.cuda.hybrid_outlets import build_hybrid_fixup, nsm_outside_regions
+from .ops.cuda.stream_collide import (checked_table, gate_fused_params,
+                                      kernel_refusals, load_library,
+                                      stream_collide)
+from .ops.streaming import compose_step
 
 __all__ = ["Collision", "Reporter", "Simulation"]
 
@@ -103,6 +108,7 @@ class Simulation:
         # ---------------- step-path selection ----------------
         self._step = self._torch_step
         self._step_kind = "torch"
+        self._fixup = None
         if self.context.use_native and self._native_supported():
             # a build error surfaces here, never later
             load_library()
@@ -113,70 +119,56 @@ class Simulation:
     # step construction
     # ------------------------------------------------------------------
     def _native_supported(self) -> bool:
-        """Capability probe on component types and the state's dtype. The
-        CUDA kernel needs a CUDA device, float32 or float64 state, a
-        quadratic equilibrium, BGK collision and no boundaries; prints the
-        reason for each component that keeps the torch step."""
+        """Capability probe: a CUDA device, and no reason of
+        ``kernel_refusals`` (the checks the kernel gate raises on: float32
+        or float64 state, a compiled stencil, the quadratic equilibrium,
+        BGK collision, boundaries with a kind in the kernel's table or an
+        outlet the window replay can rewrite). Prints each reason that
+        keeps the torch step."""
         if self.context.device.type != "cuda":
             return False  # a CPU context runs the torch step
-        ok = True
-        if self.context.dtype not in KERNEL_DTYPES:
-            print(f"native was requested, but the CUDA kernel has no "
-                  f"{self.context.dtype} instance (compiled for "
-                  f"{', '.join(map(str, KERNEL_DTYPES))}).")
-            ok = False
-        if not isinstance(self.flow.stencil, KERNEL_STENCILS):
-            print(f"native was requested, but stencil "
-                  f"'{type(self.flow.stencil).__name__}' has no CUDA kernel "
-                  f"instance (compiled for "
-                  f"{', '.join(s.__name__ for s in KERNEL_STENCILS)}).")
-            ok = False
-        if not self.flow.equilibrium.native_available():
-            print(f"native was requested, but equilibrium "
-                  f"'{type(self.flow.equilibrium).__name__}' does not "
-                  f"support the CUDA kernel.")
-            ok = False
-        if not self.collision.native_available():
-            print(f"native was requested, but collision "
-                  f"'{type(self.collision).__name__}' does not support the "
-                  f"CUDA kernel.")
-            ok = False
-        for boundary in self.boundaries[1:]:
-            if not boundary.native_available():
-                print(f"native was requested, but boundary "
-                      f"'{type(boundary).__name__}' does not support the "
-                      f"CUDA kernel.")
-                ok = False
-        return ok
+        reasons = kernel_refusals(self)
+        for reason in reasons:
+            print(f"native was requested, but {reason}.")
+        return not reasons
 
     def _use_kernel(self):
-        """Select the kernel path. ``_buffers`` are the two state buffers
-        the throughput loop steps between (out of place); they are never
-        handed out."""
-        self._kernel_params = gate_fused_params(self)
+        """Select the kernel path: the gate's parameters, and the window
+        replay of the outlets the kernel leaves frozen. The kernel runs
+        without the no-streaming mask when every frozen population lies
+        in planes the replay rewrites. ``_buffers`` are the two state
+        buffers the throughput loop steps between (out of place); they
+        are never handed out."""
+        params, hybrid = gate_fused_params(self)
+        self._fixup = None
+        if hybrid:
+            self._fixup, regions = build_hybrid_fixup(self, hybrid)
+            if (params["nsm"] is not None
+                    and not nsm_outside_regions(params["nsm"], regions)):
+                params["nsm"] = None
+                params["table"] = checked_table(
+                    self.flow.f, params["ncm"], None, params["table"],
+                    params["feq_field"])
+        self._kernel_params = params
         self._buffers = [None, None]
-        self._step = partial(fused_step, **self._kernel_params)
+        if self._fixup is None:
+            self._step = partial(fused_step, **params)
+        else:
+            self._step = partial(fused_step, fixup=self._fixup, **params)
         self._step_kind = "cuda"
 
     def _torch_step(self, f: torch.Tensor) -> torch.Tensor:
         """One collide-and-stream step in plain torch."""
-        flow = self.flow
-        ncm = self.no_collision_mask
-        if ncm is None:
-            f = self.collision(flow.view(f))
-            for boundary in self.boundaries[1:]:
-                f = boundary(flow.view(f))
-        else:
-            f = torch.where(ncm == 0, self.collision(flow.view(f)), f)
-            for i, boundary in enumerate(self.boundaries[1:], start=1):
-                f = torch.where(ncm == i, boundary(flow.view(f)), f)
-        return stream(f, self.flow.stencil.e, self.no_streaming_mask)
+        return compose_step(f, self.flow, self.collision,
+                            self.boundaries[1:], self.no_collision_mask,
+                            self.no_streaming_mask)
 
     def _cuda_step(self, f: torch.Tensor, out: torch.Tensor = None
                    ) -> torch.Tensor:
         """One step through the CUDA kernel, into ``out`` (a fresh tensor
-        when None)."""
-        return stream_collide(f, out=out, **self._kernel_params)
+        when None), then the outlets' window replay over it."""
+        out = stream_collide(f, out=out, **self._kernel_params)
+        return out if self._fixup is None else self._fixup(f, out)
 
     def _buffer(self, i: int, like: torch.Tensor) -> torch.Tensor:
         """The simulation's own state buffer ``i`` (0 or 1), allocated like
@@ -254,8 +246,10 @@ class Simulation:
     @property
     def step_path(self) -> str:
         """The selected step path: ``'cuda x1'`` (fused kernel, one step
-        per launch) or ``'torch x1'`` (plain tensor step)."""
-        return f"{self._step_kind} x1"
+        per launch), ``'cuda+hybrid x1'`` (the kernel, then the outlets'
+        window replay) or ``'torch x1'`` (plain tensor step)."""
+        hybrid = "+hybrid" if self._fixup is not None else ""
+        return f"{self._step_kind}{hybrid} x1"
 
     def _report(self):
         for reporter in self.reporter:

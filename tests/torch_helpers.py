@@ -54,3 +54,46 @@ def to_numpy(x):
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+class TorchTestFlow(ltt.ExtFlow):
+    """The lettuce_tpu_torch twin of ``tests/conftest.py::TestFlow``:
+    uniform p=0.01, u=1.01 everywhere; boundaries settable."""
+
+    __test__ = False  # not a pytest collectible
+
+    def __init__(self, context, resolution, reynolds_number=100,
+                 mach_number=0.05, stencil=None, equilibrium=None,
+                 boundaries=None):
+        self._boundaries = boundaries or []
+        super().__init__(context, resolution, reynolds_number, mach_number,
+                         stencil, equilibrium)
+
+    def make_resolution(self, resolution, stencil=None):
+        return list(resolution)
+
+    def make_units(self, reynolds_number, mach_number, resolution):
+        return ltt.UnitConversion(
+            reynolds_number=reynolds_number, mach_number=mach_number,
+            characteristic_length_lu=resolution[0])
+
+    def initial_pu(self):
+        shape = tuple(self.resolution)
+        return np.full((1,) + shape, 0.01), np.full((len(shape),) + shape,
+                                                    1.01)
+
+    @property
+    def boundaries(self):
+        return list(self._boundaries)
+
+
+def boundary_flow_pair(dtype_name, resolution, stencil_name):
+    """``tests/conftest.py::TestFlow`` and its torch twin, no boundaries
+    yet (set ``_boundaries`` on each)."""
+    from tests.conftest import TestFlow
+    jctx, tctx = contexts(dtype_name)
+    return (TestFlow(jctx, list(resolution),
+                     stencil=getattr(lt, stencil_name)()),
+            TorchTestFlow(tctx, list(resolution),
+                          stencil=getattr(ltt, stencil_name)()))
+
