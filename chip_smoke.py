@@ -15,13 +15,17 @@ few Adam iterations of an inverse-design loss through the emit-u and
 adjoint kernels, then drives the bounded-flow path: the 2048x1024 obstacle
 flow through the masked kernel and the outlet window replay, forward and
 backward, and the Ghia lid-driven cavity gate through the masked kernel,
-and profiles the bounded path. Every failed check exits non-zero; nothing
-is caught.
+and profiles the bounded path; then drives the collision-model path: every
+collision fragment against its plain version, the JAX suite's fragment
+cells at full size, the TGV3D KBC and Poiseuille gates, every fragment on
+the obstacle, the probe's refusals and the decaying turbulence. Every
+failed check exits non-zero; nothing is caught.
 
 Phases:
   0. the card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
   1. build the kernel libraries, one nvcc per source, all at once (seconds
-     printed);
+     printed), and summarise ptxas's registers and spills per source (the
+     table per instance in build/lettuce_tpu_torch/ptxas_summary.txt);
   2. kernel vs plain on the card: D2Q9 64x96 and D3Q15/D3Q19/D3Q27
      30x34x36, float32 and float64, 1 and 4 steps, TGV state plus seeded
      noise; the launch count must advance by the step count;
@@ -75,7 +79,34 @@ Phases:
      masked launch at 256^2 with the gate's packed table and an unpacked
      one; the obstacle step and its 8-step gradient under torch.profiler
      (device launches, device time, the device idle share against the
-     unprofiled wall time).
+     unprofiled wall time);
+ 13. every collision fragment (K1c: none, bgk_force, trt, reg, smag, the
+     four MRT bases, kbc) on each stencil it is compiled for, float32 and
+     float64, against its plain version on the grids of phase 2: periodic
+     over 1 and 3 steps, masked (phase 9's codes and frozen planes) over 2;
+     launches equal steps;
+ 14. the fragment cells of benchmarks/run_benchmarks.py:129-171, uncut,
+     float32, through Simulation.__call__ on 'cuda x1': kbc3d_256_d3q27,
+     reg3d_256_d3q27, mrt3d_256_d3q19, trt3d_256_d3q19, smag3d_256_d3q19,
+     poiseuille2d_2048_guo; 20 + 100 steps with one launch each, finite,
+     mass conserved; MLUPS, kernel and plain ms by CUDA events, the share
+     of the saxpy;
+ 15. the TGV3D gate: D3Q27 KBC at 256^3, Re 1600 (2 pi), Ma 0.05, float32,
+     to t = 10 with E and the enstrophy every ~0.05; both dissipation
+     peaks against benchmarks/tgv3d_validation_kbc.json (0.15 in time,
+     5 % in value);
+ 16. tests/test_force.py's Poiseuille gate through the masked forced-BGK
+     kernel, Guo and Shan-Chen, float64;
+ 17. every D2Q9 fragment on obstacle2d_2048 ('cuda+hybrid x1') and the 3D
+     MRT fragments on a 96x48x48 obstacle, against the torch step over 4
+     steps, each masked kernel timed against its plain version; the probe
+     keeps the torch step, with its reason, for an MRT transform without
+     a closed form, Smagorinsky with a force and a per-node acceleration;
+     a TRT state that requires grad runs the torch step and launches no
+     BGK gradient kernel;
+ 18. decaying turbulence, D3Q19 Smagorinsky 256^3 float32: the kernel path
+     against the torch step over 4 steps, 20 steps losing energy
+     monotonically.
 
 Prints, before the last line, one JSON line describing the kernels, and
 last ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
@@ -160,12 +191,13 @@ def phase1_build():
     cached = all(build.library_path(name).exists() for name in build.SOURCES)
     beg = time.perf_counter()
     paths = build.build_libraries()
-    sc.load_library()
+    sc.load_libraries()
     adjoint.load_library()
     seconds = time.perf_counter() - beg
     print(f"phase 1: kernel libraries "
           f"{', '.join(path.name for path in paths.values())} "
           f"{'loaded from cache' if cached else 'built'} in {seconds:.2f} s")
+    ptxas_summary()
     return seconds
 
 
@@ -374,6 +406,7 @@ def reset_launch_counts():
     sc.stream_collide.masked_emit_u_launches = 0
     adjoint.stream_collide_adjoint.launches = 0
     adjoint.stream_collide_adjoint.masked_launches = 0
+    sc.stream_collide.fragment_launches.clear()
 
 
 def scaled_err(got, want):
@@ -1127,7 +1160,571 @@ def phase12_profile(card):
     torch.cuda.empty_cache()
 
 
+# ----------------------------------------------------------------------
+# the collision-model path: the K1c fragments
+# ----------------------------------------------------------------------
+# the fragments of lettuce_tpu/ops/pallas/stream_collide.py::_make_collide
+FRAGMENT_REPLACES = {
+    "none": 520, "bgk_force": 592, "trt": 712, "reg": 747, "smag": 800,
+    "mrt_from_feq": 866, "mrt_lallemand": 895, "mrt_dellar": 904,
+    "mrt_hermite27": 912, "kbc": 997}
+FRAGMENT_TAU = 0.6
+
+
+def fragment_collisions(flow, tau):
+    """One collision per K1c fragment compiled for the flow's stencil."""
+    import lettuce_tpu_torch as lt
+    stencil, context = flow.stencil, flow.context
+    d = stencil.d
+    out = {"none": lt.NoCollision(),
+           "bgk_force": lt.BGKCollision(tau, force=lt.Guo(
+               flow, tau, [1e-4, -5e-5, 2e-5][:d])),
+           "trt": lt.TRTCollision(tau, 1.1),
+           "reg": lt.RegularizedCollision(tau),
+           "smag": lt.SmagorinskyCollision(tau)}
+    if isinstance(stencil, lt.D2Q9):
+        taus = [1.0, 1.0, 1.0, tau, tau, 1.2, 1.1, 1.1, 1.2]
+        out["mrt_lallemand"] = lt.MRTCollision(
+            lt.D2Q9Lallemand(stencil, context), taus, context)
+        out["mrt_dellar"] = lt.MRTCollision(
+            lt.D2Q9Dellar(stencil, context), taus, context)
+    if isinstance(stencil, lt.D3Q19):
+        out["mrt_from_feq"] = lt.MRTCollision(
+            lt.D3Q19DHumieres(stencil, context),
+            [1.0] * 3 + [1.1, tau] * 8, context)
+    if isinstance(stencil, lt.D3Q27):
+        out["mrt_hermite27"] = lt.MRTCollision(
+            lt.D3Q27Hermite(stencil, context),
+            [1.0] * 4 + [tau] * 6 + [1.2] * 17, context)
+    if isinstance(stencil, (lt.D2Q9, lt.D3Q27)):
+        out["kbc"] = lt.KBCCollision(tau)
+    return out
+
+
+def fragment_spec(flow, collision):
+    """The packed collision spec the gate builds for ``collision``."""
+    import lettuce_tpu_torch as lt
+    import lettuce_tpu_torch.ops.cuda.stream_collide as sc
+    spec, reason = sc.collision_spec_of(lt.Simulation(flow, collision, []))
+    check(reason is None, f"no spec: {reason}")
+    stencil = flow.stencil
+    return sc.pack_spec(spec, stencil.e, stencil.w, stencil.opposite)
+
+
+def fragment_launches():
+    import lettuce_tpu_torch.ops.cuda.stream_collide as sc
+    return dict(sc.stream_collide.fragment_launches)
+
+
+def phase13_fragments_vs_plain():
+    """Every K1c instance (fragment x stencil x dtype, periodic and masked)
+    against its plain version on the card at the grids of phase 2."""
+    import lettuce_tpu_torch as lt
+    import lettuce_tpu_torch.ops.cuda.stream_collide as sc
+    worst = {}
+    seed = 300
+    for stencil, shape in phase2_cases():
+        name = type(stencil).__name__
+        for dtype in (torch.float32, torch.float64):
+            context = lt.Context(device="cuda", dtype=dtype, use_native=False)
+            flow = lt.TaylorGreenVortex(context, list(shape), 1600, 0.05,
+                                        stencil=stencil,
+                                        initialize_fneq=False)
+            for fragment, collision in fragment_collisions(
+                    flow, FRAGMENT_TAU).items():
+                spec = fragment_spec(flow, collision)
+                args = (stencil.e, stencil.w, stencil.opposite, stencil.cs,
+                        None)
+                errs = []
+                for masked, steps in ((False, 1), (False, 3), (True, 2)):
+                    seed += 1
+                    # the TGV state with noise, masked or not: the masked
+                    # cases take bounded_case's codes and frozen planes,
+                    # but not its far-from-equilibrium populations, on
+                    # which KBC's stabiliser is ill-conditioned in float32
+                    f, _ = tgv_state(stencil, shape, dtype, seed)
+                    masks = (bounded_case(stencil, shape, dtype, seed)[1]
+                             if masked else {})
+                    key = ("masked_" if masked else "") + fragment
+                    before = fragment_launches().get(key, 0)
+                    got = ref = f
+                    for _ in range(steps):
+                        got = sc.stream_collide(got, *args, **masks,
+                                                collision_spec=spec)
+                        ref = sc.stream_collide_plain(ref, *args, **masks,
+                                                      collision_spec=spec)
+                    torch.cuda.synchronize()
+                    launched = fragment_launches().get(key, 0) - before
+                    check(launched == steps,
+                          f"{key} {name}: {launched} launches for {steps} "
+                          f"steps")
+                    check(bool(torch.isfinite(got).all()),
+                          f"{key} {name} {dtype}: not finite")
+                    err = (got - ref).abs().max().item()
+                    check(err <= ATOL[dtype],
+                          f"{key} {name} {dtype} {steps} steps: max error "
+                          f"{err}")
+                    errs.append(err)
+                    worst[key] = max(worst.get(key, 0.0), err)
+                print(f"phase 13: {fragment} {name} "
+                      f"{'x'.join(map(str, shape))} {str(dtype)[6:]}: max "
+                      f"|kernel - plain| periodic 1 step {errs[0]:.3e}, "
+                      f"3 steps {errs[1]:.3e}, masked 2 steps {errs[2]:.3e} "
+                      f"(atol {ATOL[dtype]:.0e})")
+    return worst
+
+
+def fragment_cells():
+    """The JAX suite's fragment cells (benchmarks/run_benchmarks.py:
+    129-171), uncut, float32: (name, fragment, flow factory, collision
+    factory)."""
+    import lettuce_tpu_torch as lt
+
+    def tgv(stencil):
+        def make(context):
+            return lt.TaylorGreenVortex(context, 256, 1600, 0.05,
+                                        stencil=stencil,
+                                        initialize_fneq=False)
+        return make
+
+    def tau(flow):
+        return flow.units.relaxation_parameter_lu
+
+    def guo(flow):
+        acc = flow.units.convert_acceleration_to_lu(flow.acceleration)
+        return lt.BGKCollision(tau(flow), force=lt.Guo(flow, tau(flow), acc))
+
+    return [
+        ("kbc3d_256_d3q27", "kbc", tgv(lt.D3Q27()),
+         lambda flow: lt.KBCCollision()),
+        ("reg3d_256_d3q27", "reg", tgv(lt.D3Q27()),
+         lambda flow: lt.RegularizedCollision(tau(flow))),
+        ("mrt3d_256_d3q19", "mrt_from_feq", tgv(lt.D3Q19()),
+         lambda flow: lt.MRTCollision(
+             lt.D3Q19DHumieres(flow.stencil, flow.context),
+             [tau(flow)] * 19, flow.context)),
+        ("trt3d_256_d3q19", "trt", tgv(lt.D3Q19()),
+         lambda flow: lt.TRTCollision(tau(flow))),
+        ("smag3d_256_d3q19", "smag", tgv(lt.D3Q19()),
+         lambda flow: lt.SmagorinskyCollision(tau(flow))),
+        ("poiseuille2d_2048_guo", "masked_bgk_force",
+         lambda context: lt.PoiseuilleFlow2D(context, 2048, 100, 0.05), guo),
+    ]
+
+
+def phase14_fragment_cells(card, saxpy_gbps):
+    """Each fragment cell through Simulation.__call__ on 'cuda x1': 20
+    warm-up and 100 timed steps, one launch per step, finite state, mass
+    conserved; kernel vs plain at the cell's state; kernel and plain ms by
+    CUDA events in turns; MLUPS and the share of the saxpy."""
+    import lettuce_tpu_torch as lt
+    import lettuce_tpu_torch.ops.cuda.stream_collide as sc
+    results = {}
+    for cell, key, make_flow, make_collision in fragment_cells():
+        context = lt.Context(device="cuda", dtype=torch.float32,
+                             use_native=True)
+        flow = make_flow(context)
+        simulation = lt.Simulation(flow, make_collision(flow), [])
+        check(simulation.step_path == "cuda x1",
+              f"{cell} runs {simulation.step_path!r}, not 'cuda x1'")
+        params = simulation._kernel_params
+        mass0 = torch.sum(flow.f, dtype=torch.float64).item()
+        reset_launch_counts()
+        simulation(20)
+        mlups = simulation(100)
+        torch.cuda.synchronize()
+        launched = fragment_launches()
+        check(launched == {key: 120} and launch_counts() == (0, 0, 0)
+              and masked_launch_counts() == (0, 0, 0),
+              f"{cell}: launches {launched} for 120 steps")
+        check(bool(torch.isfinite(flow.f).all()), f"{cell}: not finite")
+        drift = abs(torch.sum(flow.f, dtype=torch.float64).item() - mass0
+                    ) / mass0
+        check(drift < 1e-5, f"{cell}: mass drift {drift}")
+
+        f = flow.f.clone()
+        out = torch.empty_like(f)
+        ref = sc.stream_collide_plain(f, **params)
+        got = sc.stream_collide(f, **params, out=out)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        check(err <= ATOL[torch.float32], f"{cell} kernel vs plain: {err}")
+        del ref
+        kernel_ms, plain_ms, turns = time_in_turns(
+            lambda: sc.stream_collide(f, **params, out=out),
+            lambda: sc.stream_collide_plain(f, **params),
+            kernel_repeats=50, plain_repeats=3)
+        cells = f[0].numel()
+        bytes_per_update = 2 * flow.stencil.q * 4
+        gbps = bytes_per_update * cells / (kernel_ms * 1e-3) / 1e9
+        print(f"phase 14: {cell} ({key}), {simulation.step_path}: "
+              f"{mlups:.1f} MLUPS, mass drift {drift:.2e}; per step, CUDA "
+              f"events: kernel {turns[1]:.4f} / {turns[2]:.4f} ms "
+              f"({cells / kernel_ms / 1e3:.1f} MLUPS), plain "
+              f"{turns[0]:.4f} / {turns[3]:.4f} ms "
+              f"({plain_ms / kernel_ms:.1f}x); max |kernel - plain| "
+              f"{err:.3e}; {bytes_per_update} B/update,"
+              f" {gbps:.1f} GB/s, {gbps / saxpy_gbps:.1%} of the saxpy "
+              f"({card})")
+        results[key] = dict(cell=cell, mlups=mlups, launches=launched[key],
+                            err=err, kernel_ms=kernel_ms, plain_ms=plain_ms)
+        del simulation, flow, f, out, got
+        torch.cuda.empty_cache()
+    return results
+
+
+def phase15_tgv3d_kbc(card):
+    """BASELINE config 3, the physics gate: D3Q27 KBC TGV at 256^3, Re
+    1600 (2 pi), Ma 0.05, float32, to t = 10 with E and the enstrophy
+    every ~0.05 time units, as benchmarks/validate_tgv3d.py runs it; the
+    dissipation peaks against benchmarks/tgv3d_validation_kbc.json."""
+    import lettuce_tpu_torch as lt
+    with open("benchmarks/tgv3d_validation_kbc.json") as fh:
+        reference = json.load(fh)
+    context = lt.Context(device="cuda", dtype=torch.float32, use_native=True)
+    flow = lt.TaylorGreenVortex(context, 256,
+                                reynolds_number=1600 * 2 * np.pi,
+                                mach_number=0.05, stencil=lt.D3Q27())
+    simulation = lt.Simulation(flow, lt.KBCCollision(), [])
+    check(simulation.step_path == "cuda x1",
+          f"TGV3D KBC runs {simulation.step_path!r}")
+    dt = flow.units.convert_time_to_pu(1)
+    interval = max(1, int(round(0.05 / dt)))
+    records = int(round(10.0 / dt)) // interval
+    energy = lt.IncompressibleKineticEnergy(flow)
+    enstrophy = lt.Enstrophy(flow)
+    E, ens = [], []
+    reset_launch_counts()
+    beg = time.perf_counter()
+    for _ in range(records):
+        simulation(interval)
+        E.append(energy().item())
+        ens.append(enstrophy().item())
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - beg
+    steps = records * interval
+    check(fragment_launches() == {"kbc": steps},
+          f"TGV3D KBC launches {fragment_launches()} for {steps} steps")
+    check(bool(torch.isfinite(flow.f).all()), "TGV3D KBC not finite")
+    vol = (2 * np.pi) ** 3
+    E = np.asarray(E) / vol
+    t = np.arange(1, records + 1) * interval * dt
+    eps = -np.gradient(E, t)
+    eps_ens = (1.0 / 1600.0) * np.asarray(ens) / vol
+    peaks = {"energy": (float(t[np.argmax(eps)]), float(eps.max()),
+                        reference["t_peak"], reference["eps_peak"]),
+             "enstrophy": (float(t[np.argmax(eps_ens)]),
+                           float(eps_ens.max()),
+                           reference["t_enstrophy_peak"],
+                           reference["eps_enstrophy_peak"])}
+    print(f"phase 15: TGV3D D3Q27 KBC 256^3 Re 1600 Ma 0.05 float32, "
+          f"{steps} steps to t = {steps * dt:.3f} in {seconds:.1f} s "
+          f"({steps * 256 ** 3 / seconds / 1e6:.1f} MLUPS with E and the "
+          f"enstrophy every {interval} steps) ({card})")
+    for name, (t_peak, eps_peak, t_ref, eps_ref) in peaks.items():
+        print(f"phase 15: {name} dissipation peak {eps_peak:.5f} at t = "
+              f"{t_peak:.3f}; lettuce_tpu's run {eps_ref} at {t_ref} "
+              f"(gate: t within 0.15, value within 5%)")
+        check(abs(t_peak - t_ref) <= 0.15,
+              f"TGV3D {name} peak at {t_peak}, reference {t_ref}")
+        check(abs(eps_peak / eps_ref - 1) <= 0.05,
+              f"TGV3D {name} peak {eps_peak}, reference {eps_ref}")
+    del simulation, flow
+    torch.cuda.empty_cache()
+    return peaks, seconds, steps
+
+
+def phase16_poiseuille():
+    """tests/test_force.py's Poiseuille gate through the masked forced-BGK
+    kernel, Guo and Shan-Chen: 16^2, Re 1, Ma 0.02, float64 as that test
+    runs it (the lattice acceleration, ~9e-9, is below float32's
+    resolution of the populations), 500 steps, profile error under
+    0.06."""
+    import lettuce_tpu_torch as lt
+    errors = {}
+    for force_cls in (lt.Guo, lt.ShanChen):
+        context = lt.Context(device="cuda", dtype=torch.float64,
+                             use_native=True)
+        flow = lt.PoiseuilleFlow2D(context, 16, 1, 0.02,
+                                   initialize_with_zeros=True)
+        acc = flow.units.convert_acceleration_to_lu(flow.acceleration)
+        tau = flow.units.relaxation_parameter_lu
+        simulation = lt.Simulation(flow, lt.BGKCollision(
+            tau, force=force_cls(flow, tau, acc)), [])
+        check(simulation.step_path == "cuda x1",
+              f"Poiseuille {force_cls.__name__}: {simulation.step_path!r}")
+        reset_launch_counts()
+        simulation(500)
+        check(fragment_launches() == {"masked_bgk_force": 500},
+              f"Poiseuille launches {fragment_launches()}")
+        u = flow.units.convert_velocity_to_pu(flow.u(acceleration=acc))
+        u = u.cpu().numpy()[:, 1:-1, 1:-1]
+        u_ref = flow.analytic_solution()[1].cpu().numpy()[:, 1:-1, 1:-1]
+        err = float(np.abs(u - u_ref).max() / np.abs(u_ref).max())
+        print(f"phase 16: Poiseuille 16^2 float64 {force_cls.__name__}, "
+              f"{simulation.step_path}: 500 steps, profile error {err:.4f} "
+              f"(gate 0.06)")
+        check(err < 0.06, f"Poiseuille {force_cls.__name__}: {err}")
+        errors[force_cls.__name__] = err
+    return errors
+
+
+def masked_sweep(card):
+    """Each D2Q9 fragment on obstacle2d_2048 ('cuda+hybrid x1': masked
+    kernel and replay) against the torch step over 4 steps; the D3Q19 and
+    D3Q27 MRT fragments on a 3D obstacle (96x48x48) the same way. Then
+    each masked kernel against its plain version on the state reached,
+    both timed by CUDA events in turns."""
+    import lettuce_tpu_torch as lt
+    import lettuce_tpu_torch.ops.cuda.stream_collide as sc
+    results = {}
+    for shape in ((2048, 1024), (96, 48, 48)):
+        stencils = ((lt.D2Q9(),) if len(shape) == 2
+                    else (lt.D3Q19(), lt.D3Q27()))
+        for stencil in stencils:
+            def make(use_native):
+                context = lt.Context(device="cuda", dtype=torch.float32,
+                                     use_native=use_native)
+                flow = lt.Obstacle(context, list(shape), reynolds_number=100,
+                                   mach_number=0.1,
+                                   domain_length_x=float(shape[0]),
+                                   stencil=stencil)
+                grid = flow.grid
+                centre = [0.25 * shape[0]] + [0.5 * n for n in shape[1:]]
+                r = 0.05 * shape[1]
+                flow.mask = (sum((x - c) ** 2 for x, c in zip(grid, centre))
+                             < r ** 2).cpu().numpy()
+                flow.initialize()
+                return flow
+            probe = make(False)
+            fragments = fragment_collisions(
+                probe, probe.units.relaxation_parameter_lu)
+            if len(shape) == 3:
+                fragments = {k: v for k, v in fragments.items()
+                             if k.startswith("mrt")}
+            for fragment in fragments:
+                sims = []
+                for native in (True, False):
+                    flow = make(native)
+                    tau = flow.units.relaxation_parameter_lu
+                    sims.append(lt.Simulation(
+                        flow, fragment_collisions(flow, tau)[fragment], []))
+                check(sims[0].step_path == "cuda+hybrid x1"
+                      and sims[1].step_path == "torch x1",
+                      f"{fragment} obstacle: {sims[0].step_path}, "
+                      f"{sims[1].step_path}")
+                reset_launch_counts()
+                sims[0](4)
+                key = f"masked_{fragment}"
+                launched = fragment_launches()
+                check(launched == {key: 4},
+                      f"{fragment} obstacle launches {launched}")
+                sims[1](4)
+                err = (sims[0].flow.f - sims[1].flow.f).abs().max().item()
+                check(err <= ATOL[torch.float32],
+                      f"{fragment} obstacle: {err}")
+                # the masked kernel alone against its plain version, on
+                # this state, timed in turns
+                params = sims[0]._kernel_params
+                f = sims[0].flow.f.clone()
+                out = torch.empty_like(f)
+                err1 = (sc.stream_collide(f, **params, out=out)
+                        - sc.stream_collide_plain(f, **params)
+                        ).abs().max().item()
+                check(err1 <= ATOL[torch.float32],
+                      f"{fragment} masked kernel vs plain: {err1}")
+                # ~0.07 ms kernels: 200 launches, as phase 10 times K1b
+                kernel_ms, plain_ms, _ = time_in_turns(
+                    lambda: sc.stream_collide(f, **params, out=out),
+                    lambda: sc.stream_collide_plain(f, **params),
+                    kernel_repeats=200, plain_repeats=3)
+                print(f"phase 17: {fragment} obstacle "
+                      f"{'x'.join(map(str, shape))} "
+                      f"{type(stencil).__name__}: {sims[0].step_path} vs "
+                      f"{sims[1].step_path} over 4 steps: {err:.3e}; masked "
+                      f"kernel vs plain {err1:.3e} (atol 5e-6); kernel "
+                      f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms per "
+                      f"step ({card})")
+                results[key] = dict(launches=launched[key],
+                                    err=max(err, err1), kernel_ms=kernel_ms,
+                                    plain_ms=plain_ms)
+                del sims, f, out
+                torch.cuda.empty_cache()
+    return results
+
+
+def probe_fragments():
+    """The probe keeps the torch step, with its reason printed, for an MRT
+    transform without a closed form (the stand-in for the cumulant
+    collision, which the port does not have yet), Smagorinsky with a
+    force and a per-node acceleration; a TRT state that requires grad runs
+    the torch step and launches no BGK gradient kernel, while the forward
+    outside autograd launches the TRT fragment."""
+    import contextlib
+    import io
+    import lettuce_tpu_torch as lt
+    context = lt.Context(device="cuda", dtype=torch.float32, use_native=True)
+
+    def probed(make_flow, make_collision):
+        flow = make_flow()
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            sim = lt.Simulation(flow, make_collision(flow), [])
+        return sim, printed.getvalue().strip()
+
+    def tgv3d():
+        return lt.TaylorGreenVortex(context, 32, 1600, 0.05,
+                                    stencil=lt.D3Q27(), initialize_fneq=False)
+
+    def poiseuille():
+        return lt.PoiseuilleFlow2D(context, 32, 10, 0.05)
+
+    refused = {
+        "MRT without a closed form": (tgv3d, lambda flow: lt.MRTCollision(
+            lt.Transform(flow.stencil, context), [0.6] * 27, context),
+            "no closed-form equilibrium"),
+        "Smagorinsky with a force": (poiseuille, lambda flow: (
+            lt.SmagorinskyCollision(0.6, force=lt.Guo(flow, 0.6,
+                                                      [1e-4, 0.0]))),
+            "with a force has no CUDA fragment"),
+        "per-node acceleration": (poiseuille, lambda flow: lt.BGKCollision(
+            0.6, force=lt.Guo(flow, 0.6, torch.full(
+                (2, 32, 32), 1e-5, device="cuda"))),
+            "per-node acceleration"),
+    }
+    for name, (make_flow, make_collision, reason) in refused.items():
+        sim, printed = probed(make_flow, make_collision)
+        print(f"phase 17: {name}: {sim.step_path} path, {printed!r}")
+        check(sim.step_path == "torch x1" and reason in printed,
+              f"{name}: the probe did not keep the torch step with its "
+              f"reason")
+        sim(2)
+        check(bool(torch.isfinite(sim.flow.f).all()), f"{name}: not finite")
+
+    sim, _ = probed(tgv3d, lambda flow: lt.TRTCollision(0.6, 1.1))
+    check(sim.step_path == "cuda x1", f"TRT: {sim.step_path}")
+    f0 = sim.flow.f.detach().clone().requires_grad_(True)
+    printed = io.StringIO()
+    reset_launch_counts()
+    with contextlib.redirect_stdout(printed):
+        segment = sim.make_segment_fn(3)
+    (grad,) = torch.autograd.grad((segment(f0) ** 2).sum(), f0)
+    torch.cuda.synchronize()
+    grad_launches = (launch_counts(), masked_launch_counts(),
+                     fragment_launches())
+    check(grad_launches == ((0, 0, 0), (0, 0, 0), {}),
+          f"TRT gradient launched kernels: {grad_launches}")
+    check(bool(torch.isfinite(grad).all()) and grad.abs().max().item() > 0,
+          "TRT gradient not finite or zero")
+    reason = printed.getvalue().strip()
+    check("no adjoint kernel for the 'trt' collision yet" in reason,
+          f"TRT gradient: reason {reason!r}")
+    sim(3)
+    check(fragment_launches() == {"trt": 3},
+          f"TRT forward launches {fragment_launches()}")
+    print(f"phase 17: TRT with a state that requires grad: launches "
+          f"(BGK periodic, BGK masked, fragments) {grad_launches}, "
+          f"{reason!r}; the forward outside autograd launched "
+          f"{fragment_launches()}")
+
+
+def phase17_probe_and_masked(card):
+    results = masked_sweep(card)
+    probe_fragments()
+    return results
+
+
+def phase18_decaying_turbulence(card):
+    """BASELINE config 4 on one card: decaying turbulence, D3Q19
+    Smagorinsky at 256^3 (initialize_pressure=False), float32: the kernel
+    path against the torch step over 4 steps, then 20 steps losing
+    kinetic energy monotonically."""
+    import lettuce_tpu_torch as lt
+    context = lt.Context(device="cuda", dtype=torch.float32, use_native=True)
+    beg = time.perf_counter()
+    flow = lt.DecayingTurbulence(context, [256] * 3, 2000, 0.05,
+                                 stencil=lt.D3Q19(), randseed=0,
+                                 initialize_pressure=False)
+    setup = time.perf_counter() - beg
+    simulation = lt.Simulation(flow, lt.SmagorinskyCollision(
+        flow.units.relaxation_parameter_lu), [])
+    check(simulation.step_path == "cuda x1",
+          f"decaying turbulence runs {simulation.step_path!r}")
+    ref = flow.f
+    with torch.no_grad():
+        for _ in range(4):
+            ref = simulation._torch_step(ref)
+    energy = lt.IncompressibleKineticEnergy(flow)
+    energies = [energy().item()]
+    reset_launch_counts()
+    simulation(4)
+    err = (flow.f - ref).abs().max().item()
+    del ref
+    check(err <= ATOL[torch.float32],
+          f"decaying turbulence kernel vs torch step: {err}")
+    energies.append(energy().item())
+    for _ in range(16):
+        simulation(1)
+        energies.append(energy().item())
+    check(fragment_launches() == {"smag": 20},
+          f"decaying turbulence launches {fragment_launches()}")
+    check(all(b < a for a, b in zip(energies, energies[1:])),
+          f"energy not monotonically decreasing: {energies}")
+    print(f"phase 18: decaying turbulence D3Q19 Smagorinsky 256^3 float32 "
+          f"(set-up {setup:.1f} s), {simulation.step_path}: kernel vs torch "
+          f"step over 4 steps {err:.3e} (atol 5e-6); kinetic energy "
+          f"{energies[0]:.6e} -> {energies[-1]:.6e} over 20 steps, "
+          f"monotone ({card})")
+    del simulation, flow
+    torch.cuda.empty_cache()
+    return err
+
+
+def ptxas_summary():
+    """Registers and spills per kernel instance from the build's ptxas
+    report: one line per source, the full table in
+    build/lettuce_tpu_torch/ptxas_summary.txt."""
+    from lettuce_tpu_torch.ops.cuda import build
+    rows = []
+    for source in build.SOURCES:
+        log = build.ptxas_log(source)
+        if not log.exists():
+            print(f"phase 1: {source}: no ptxas report (library cached "
+                  f"without one)")
+            continue
+        kernel = None
+        per_source = []
+        for line in log.read_text().splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                kernel = m.group(1)
+                spill = [0, 0]
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m and kernel:
+                spill = [int(m.group(1)), int(m.group(2))]
+            m = re.search(r"Used (\d+) registers", line)
+            if m and kernel:
+                per_source.append((kernel, int(m.group(1)), *spill))
+                kernel = None
+        rows += [(source, *r) for r in per_source]
+        if per_source:
+            regs = [r[1] for r in per_source]
+            spills = [r for r in per_source if r[2] or r[3]]
+            print(f"phase 1: {source}: {len(per_source)} kernels, "
+                  f"{min(regs)}-{max(regs)} registers, "
+                  f"{len(spills)} with spills"
+                  + (f" (worst {max(r[2] for r in spills)} B stored)"
+                     if spills else ""))
+    path = build.library_path("stream_collide").parent / "ptxas_summary.txt"
+    path.write_text("\n".join(f"{s}\t{k}\t{r}\t{st}\t{ld}"
+                              for s, k, r, st, ld in rows) + "\n")
+    return rows
+
+
 def main():
+    import lettuce_tpu_torch.ops.cuda.stream_collide as sc
     card = phase0_card()
     build_s = phase1_build()
     worst = phase2_kernel_vs_plain()
@@ -1141,6 +1738,12 @@ def main():
     obstacle = phase10_obstacle(card, saxpy_gbps)
     cavity_err = phase11_cavity(card)
     phase12_profile(card)
+    worst_fragments = phase13_fragments_vs_plain()
+    cells = phase14_fragment_cells(card, saxpy_gbps)
+    phase15_tgv3d_kbc(card)
+    phase16_poiseuille()
+    masked = phase17_probe_and_masked(card)
+    phase18_decaying_turbulence(card)
     print(f"build {build_s:.2f} s")
     print(card)
     emit_ms, emit_plain_ms = grad_path["timings"]["emit_u"]
@@ -1199,7 +1802,18 @@ def main():
         "max_abs_err": max(worst_masked[2], obstacle["err_adjoint"]),
         "ms": obstacle["adjoint_ms"],
         "plain_ms": obstacle["adjoint_plain_ms"],
-    }]}))
+    }] + [{
+        "name": f"stream_collide_{key}",
+        "route": "cuda",
+        "source": "lettuce_tpu_torch/csrc/"
+                  f"{sc.FRAGMENTS[key.removeprefix('masked_')][0]}.cu",
+        "replaces": "lettuce_tpu/ops/pallas/stream_collide.py:"
+                    f"{FRAGMENT_REPLACES[key.removeprefix('masked_')]}",
+        "launches": run["launches"],
+        "max_abs_err": max(run["err"], worst_fragments[key]),
+        "ms": run["kernel_ms"],
+        "plain_ms": run["plain_ms"],
+    } for key, run in sorted({**masked, **cells}.items())]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

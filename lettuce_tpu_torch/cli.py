@@ -127,8 +127,19 @@ def benchmark(context, steps, resolution, flow_name, profile_out=""):
         profile.enable()
 
     flow_class, stencil = lt.flow_by_name[flow_name]
-    flow = flow_class(context, resolution, 10000, 0.05, stencil=stencil())
-    collision = lt.BGKCollision(tau=flow.units.relaxation_parameter_lu)
+    if flow_name == "decay2d":
+        flow = flow_class(context, [resolution] * 2, 10000, 0.05, randseed=0)
+    else:
+        flow = flow_class(context, resolution, 10000, 0.05,
+                          stencil=stencil())
+    # a flow with a body force gets Guo forcing, as lettuce_tpu's CLI does
+    force = None
+    if hasattr(flow, "acceleration"):
+        force = lt.Guo(flow, tau=flow.units.relaxation_parameter_lu,
+                       acceleration=flow.units.convert_acceleration_to_lu(
+                           flow.acceleration))
+    collision = lt.BGKCollision(tau=flow.units.relaxation_parameter_lu,
+                                force=force)
     simulation = lt.Simulation(flow, collision, [])
     mlups = simulation(steps)
 

@@ -1,0 +1,423 @@
+// The fused collide-and-stream kernels as templates over a collision
+// policy, shared by stream_collide.cu (the BGK instances) and the
+// collision-fragment sources collide_*.cu.
+//
+// A policy C is a struct with the stencil S, the scalar T, a Params struct
+// (passed by value as a __grid_constant__ kernel parameter: the relaxation
+// times, and for MRT the folded moment matrices, read from the parameter
+// bank at compile-time offsets), a host-side Params load(params, cs) from
+// the C entry's float64 array, and a __device__ collide(p, fv, rho, u, u2,
+// store) that hands the q post-collision values of one cell to the Store.
+// Every policy runs in the periodic kernel (PeriodicStore) and in the
+// masked kernel's collide branch (MaskedStore, with frozen populations);
+// the replacement branch of the masked kernel is the same for all.
+//
+// The emit-u instances are BGK only: emit-u is the residual of the BGK
+// adjoint kernel (adjoint.cu).
+
+#pragma once
+
+#include <cstdint>
+#include <type_traits>
+#include <utility>
+
+#include <cuda_runtime.h>
+
+#include "stencils.cuh"
+
+namespace lt {
+
+// the parameter space of a kernel launch (CUDA 12.1+ on Volta and later)
+constexpr int kMaxParamBytes = 32764;
+
+// ---------------------------------------------------------------------------
+// compile-time loops
+// ---------------------------------------------------------------------------
+template <class F, int... Is>
+__device__ __forceinline__ void static_for_impl(
+    F&& f, std::integer_sequence<int, Is...>) {
+  (f(std::integral_constant<int, Is>{}), ...);
+}
+
+// f(std::integral_constant<int, i>) for i = 0 .. N-1, unrolled.
+template <int N, class F>
+__device__ __forceinline__ void static_for(F&& f) {
+  static_for_impl(f, std::make_integer_sequence<int, N>{});
+}
+
+// ---------------------------------------------------------------------------
+// opposite pairs: pair k is (pair_first(k), opposite(pair_first(k))), the
+// k-th direction (ascending) whose opposite has a larger index. The rest
+// direction is q = 0 on every stencil.
+// ---------------------------------------------------------------------------
+template <class S>
+constexpr int kPairs = (S::Q - 1) / 2;
+
+template <class S>
+__host__ __device__ constexpr int pair_first(int k) {
+  int n = 0;
+  for (int q = 0; q < S::Q; ++q) {
+    if (q < opposite<S>(q)) {
+      if (n == k) return q;
+      ++n;
+    }
+  }
+  return -1;
+}
+
+// ---------------------------------------------------------------------------
+// per-cell pieces, unrolled over q by template recursion
+// ---------------------------------------------------------------------------
+template <class S, class T, int q, int a = 0>
+__device__ __forceinline__ void add_pair_diff(T dif, T (&j)[S::D]) {
+  if constexpr (a < S::D) {
+    if constexpr (S::e(q, a) == 1) {
+      j[a] = j[a] + dif;
+    } else if constexpr (S::e(q, a) == -1) {
+      j[a] = j[a] - dif;
+    }
+    add_pair_diff<S, T, q, a + 1>(dif, j);
+  }
+}
+
+// rho and j as the pair-folded add tree of _moments: the rest population
+// adds to rho; each opposite pair adds its sum to rho and its difference
+// to the j components it moves along.
+template <class S, class T, int q = 0>
+__device__ __forceinline__ void moments(const T (&fv)[S::Q], T& rho,
+                                        T (&j)[S::D]) {
+  if constexpr (q < S::Q) {
+    if constexpr (is_rest<S>(q)) {
+      rho = rho + fv[q];
+    } else if constexpr (opposite<S>(q) > q) {
+      constexpr int p = opposite<S>(q);
+      const T s = fv[q] + fv[p];
+      const T dif = fv[q] - fv[p];
+      rho = rho + s;
+      add_pair_diff<S, T, q>(dif, j);
+    }
+    moments<S, T, q + 1>(fv, rho, j);
+  }
+}
+
+// e.u / cs^2 along the canonical direction of q's pair.
+template <class S, class T, int q, int a = 0>
+__device__ __forceinline__ T eu_canonical(const T (&up)[S::D], T acc) {
+  if constexpr (a < S::D) {
+    constexpr int c = is_canonical<S>(q) ? S::e(q, a) : -S::e(q, a);
+    if constexpr (c == 1) {
+      acc = acc + up[a];
+    } else if constexpr (c == -1) {
+      acc = acc - up[a];
+    }
+    return eu_canonical<S, T, q, a + 1>(up, acc);
+  } else {
+    return acc;
+  }
+}
+
+// The quadratic equilibrium (not tau-scaled) in the opposite-pair form of
+// the TPU fragments' feq_raw: feq = G +- H per canonical direction, with
+//   G = w base0 + (w / 2) rho (e.u)^2 / cs^4,  H = w rho e.u / cs^2,
+// base0 = rho - rho u^2 / (2 cs^2) and up = u / cs^2.
+template <class S, class T>
+__device__ __forceinline__ void feq_pairs(T rho, T base0,
+                                          const T (&up)[S::D],
+                                          T (&feq)[S::Q]) {
+  static_for<S::Q>([&](auto Q_) {
+    constexpr int q = decltype(Q_)::value;
+    if constexpr (is_rest<S>(q)) {
+      feq[q] = T(S::w(q)) * base0;
+    } else if constexpr (is_canonical<S>(q)) {
+      constexpr int p = opposite<S>(q);
+      const T eu = eu_canonical<S, T, q>(up, T(0));
+      const T reu = rho * eu;
+      const T H = T(S::w(q)) * reu;
+      const T G = T(S::w(q)) * base0 + T(0.5 * S::w(q)) * (reu * eu);
+      feq[q] = G + H;
+      feq[p] = G - H;
+    }
+  });
+}
+
+// Where a post-collision population goes: the periodic push, or the push
+// with frozen populations (nsm == nullptr: nothing frozen).
+template <class S, class T>
+struct PeriodicStore {
+  T* out;
+  const Neighbours& nb;
+
+  template <int q>
+  __device__ __forceinline__ void put(T value) const {
+    out[shifted_index<S, q, 1>(nb)] = value;
+  }
+};
+
+template <class S, class T>
+struct MaskedStore {
+  T* out;
+  const Neighbours& nb;
+  int64_t cell;
+  const uint8_t* nsm;
+
+  template <int q>
+  __device__ __forceinline__ void put(T value) const {
+    const int64_t dst = shifted_index<S, q, 1>(nb);
+    if (nsm == nullptr) {
+      out[dst] = value;
+      return;
+    }
+    const int64_t here = q * nb.n + cell;
+    if (nsm[here]) out[here] = value;  // frozen at its own node
+    if (!nsm[dst]) out[dst] = value;   // streamed unless frozen there
+  }
+};
+
+// A boundary cell's replacement, pushed like a collided population.
+template <class S, class T, class Store, int q = 0>
+__device__ __forceinline__ void replace_push(int kind, const T* values,
+                                             const T (&fv)[S::Q],
+                                             const T* __restrict__ feq_field,
+                                             int64_t n, int64_t cell,
+                                             const Store& store) {
+  if constexpr (q < S::Q) {
+    T v;
+    if (kind == kBounceBack) {
+      v = fv[opposite<S>(q)];
+    } else if (kind == kEquilibrium) {
+      v = values[q];
+    } else if (kind == kEquilibriumField) {
+      v = __ldg(feq_field + q * n + cell);
+    } else {
+      v = fv[q];
+    }
+    store.template put<q>(v);
+    replace_push<S, T, Store, q + 1>(kind, values, fv, feq_field, n, cell,
+                                     store);
+  }
+}
+
+// The cell's populations, rho, u = j / rho and u.u, with u written to
+// u_out when EmitU.
+template <class S, class T, bool EmitU>
+__device__ __forceinline__ void load_moments(const T* __restrict__ f,
+                                             T* __restrict__ u_out,
+                                             const Neighbours& nb,
+                                             int64_t cell, T (&fv)[S::Q],
+                                             T& rho, T (&u)[S::D], T& u2) {
+#pragma unroll
+  for (int q = 0; q < S::Q; ++q) fv[q] = __ldg(f + q * nb.n + cell);
+
+  rho = T(0);
+  T jm[S::D];
+#pragma unroll
+  for (int a = 0; a < S::D; ++a) jm[a] = T(0);
+  moments<S, T>(fv, rho, jm);
+
+  const T inv_rho = T(1) / rho;
+  u2 = T(0);
+#pragma unroll
+  for (int a = 0; a < S::D; ++a) {
+    u[a] = jm[a] * inv_rho;
+    if constexpr (EmitU) u_out[a * nb.n + cell] = u[a];
+    u2 = u2 + u[a] * u[a];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the BGK policy (the "bgk" fragment)
+// ---------------------------------------------------------------------------
+// BGK with the opposite-pair cache: f_post_q = keep f_q + (G +- H) with
+//   G = w (base + quad), H = w trho eu_canonical.
+template <class S, class T, class Store, int q = 0>
+__device__ __forceinline__ void collide_push(const T (&fv)[S::Q],
+                                             const Store& store, T keep,
+                                             T base, T trho,
+                                             const T (&up)[S::D]) {
+  if constexpr (q < S::Q) {
+    if constexpr (is_rest<S>(q)) {
+      store.template put<q>(keep * fv[q] + T(S::w(q)) * base);
+    } else if constexpr (is_canonical<S>(q)) {
+      constexpr int p = opposite<S>(q);
+      const T wq = T(S::w(q));
+      const T eu = eu_canonical<S, T, q>(up, T(0));
+      const T teu = trho * eu;
+      const T H = wq * teu;
+      const T G = wq * base + T(0.5 * S::w(q)) * (teu * eu);
+      store.template put<q>(keep * fv[q] + (G + H));
+      store.template put<p>(keep * fv[p] + (G - H));
+    }
+    collide_push<S, T, Store, q + 1>(fv, store, keep, base, trho, up);
+  }
+}
+
+template <class S_, class T_>
+struct Bgk {
+  using S = S_;
+  using T = T_;
+  struct Params {
+    T tau_inv, inv_cs2, half_inv_cs2;
+  };
+
+  static Params make(T tau_inv, double cs) {
+    const double cs2 = cs * cs;
+    return Params{tau_inv, T(1.0 / cs2), T(0.5 / cs2)};
+  }
+
+  template <class Store>
+  __device__ __forceinline__ static void collide(const Params& p,
+                                                 const T (&fv)[S::Q], T rho,
+                                                 const T (&u)[S::D], T u2,
+                                                 const Store& store) {
+    T up[S::D];
+#pragma unroll
+    for (int a = 0; a < S::D; ++a) up[a] = u[a] * p.inv_cs2;
+    const T keep = T(1) - p.tau_inv;
+    const T base = p.tau_inv * (rho - rho * (u2 * p.half_inv_cs2));
+    const T trho = p.tau_inv * rho;
+    collide_push<S, T>(fv, store, keep, base, trho, up);
+  }
+};
+
+// ---------------------------------------------------------------------------
+// the kernels
+// ---------------------------------------------------------------------------
+template <class C, bool EmitU>
+__global__ void __launch_bounds__(kBlock) stream_collide_kernel(
+    const typename C::T* __restrict__ f, typename C::T* __restrict__ out,
+    typename C::T* __restrict__ u_out, int64_t n0, int64_t n1, int64_t n2,
+    const __grid_constant__ typename C::Params p) {
+  using S = typename C::S;
+  using T = typename C::T;
+  const int64_t k = int64_t(blockIdx.x) * kBlock + threadIdx.x;
+  if (k >= n2) return;
+  const int64_t j = blockIdx.y;
+  const int64_t i = blockIdx.z;
+  const Neighbours nb = neighbours(i, j, k, n0, n1, n2);
+  const int64_t cell = (i * n1 + j) * n2 + k;
+
+  T fv[S::Q], u[S::D], rho, u2;
+  load_moments<S, T, EmitU>(f, u_out, nb, cell, fv, rho, u, u2);
+  C::collide(p, fv, rho, u, u2, PeriodicStore<S, T>{out, nb});
+}
+
+template <class C, bool EmitU>
+__global__ void __launch_bounds__(kBlock) masked_stream_collide_kernel(
+    const typename C::T* __restrict__ f, typename C::T* __restrict__ out,
+    typename C::T* __restrict__ u_out, const uint8_t* __restrict__ ncm,
+    const uint8_t* __restrict__ nsm,
+    const typename C::T* __restrict__ feq_field,
+    const __grid_constant__ BoundaryTable<typename C::T> table, int64_t n0,
+    int64_t n1, int64_t n2, const __grid_constant__ typename C::Params p) {
+  using S = typename C::S;
+  using T = typename C::T;
+  const int64_t k = int64_t(blockIdx.x) * kBlock + threadIdx.x;
+  if (k >= n2) return;
+  const int64_t j = blockIdx.y;
+  const int64_t i = blockIdx.z;
+  const Neighbours nb = neighbours(i, j, k, n0, n1, n2);
+  const int64_t cell = (i * n1 + j) * n2 + k;
+
+  T fv[S::Q], u[S::D], rho, u2;
+  load_moments<S, T, EmitU>(f, u_out, nb, cell, fv, rho, u, u2);
+
+  const int code = ncm[cell];
+  const int kind = kind_of(table.kind, code);
+  const MaskedStore<S, T> store{out, nb, cell, nsm};
+  if (kind == kCollide) {
+    C::collide(p, fv, rho, u, u2, store);
+  } else {
+    const T* values = table.value[code < kMaxCodes ? code : 0];
+    replace_push<S, T>(kind, values, fv, feq_field, nb.n, cell, store);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// host launchers: each returns cudaGetLastError()
+// ---------------------------------------------------------------------------
+template <class C, bool EmitU>
+int launch(const void* f, void* out, void* u_out, int64_t n0, int64_t n1,
+           int64_t n2, const typename C::Params& p, int device,
+           void* stream) {
+  using S = typename C::S;
+  using T = typename C::T;
+  static_assert(pair_weights_symmetric<S>(),
+                "the pair cache needs w[q] == w[opposite[q]]");
+  static_assert(is_rest<S>(0), "the rest direction is q = 0");
+  static_assert(sizeof(typename C::Params) + 64 <= kMaxParamBytes,
+                "kernel parameters exceed the launch's parameter space");
+  const int err = use_device(device);
+  if (err != 0) return err;
+  stream_collide_kernel<C, EmitU>
+      <<<launch_grid(n0, n1, n2), kBlock, 0,
+         static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const T*>(f), static_cast<T*>(out),
+          static_cast<T*>(u_out), n0, n1, n2, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class C, bool EmitU>
+int launch_masked(const void* f, void* out, void* u_out, const void* ncm,
+                  const void* nsm, const void* feq_field,
+                  const int32_t* kinds, const double* values, int64_t n0,
+                  int64_t n1, int64_t n2, const typename C::Params& p,
+                  int device, void* stream) {
+  using S = typename C::S;
+  using T = typename C::T;
+  static_assert(pair_weights_symmetric<S>(),
+                "the pair cache needs w[q] == w[opposite[q]]");
+  static_assert(is_rest<S>(0), "the rest direction is q = 0");
+  static_assert(S::Q <= kMaxQ, "the table holds kMaxQ values per code");
+  static_assert(sizeof(typename C::Params) + sizeof(BoundaryTable<T>) + 96 <=
+                    kMaxParamBytes,
+                "kernel parameters exceed the launch's parameter space");
+  BoundaryTable<T> table;
+  if (!fill_kinds(kinds, table.kind))
+    return static_cast<int>(cudaErrorInvalidValue);
+  for (int c = 0; c < kMaxCodes; ++c)
+    for (int q = 0; q < kMaxQ; ++q)
+      table.value[c][q] = T(values[c * kMaxQ + q]);
+  const int err = use_device(device);
+  if (err != 0) return err;
+  masked_stream_collide_kernel<C, EmitU>
+      <<<launch_grid(n0, n1, n2), kBlock, 0,
+         static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const T*>(f), static_cast<T*>(out),
+          static_cast<T*>(u_out), static_cast<const uint8_t*>(ncm),
+          static_cast<const uint8_t*>(nsm), static_cast<const T*>(feq_field),
+          table, n0, n1, n2, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace lt
+
+// The C entries of a collision fragment: periodic and masked, float32 and
+// float64, for the policy template POLICY on stencil S. ``params`` is the
+// host float64 array the policy's load() reads.
+#define LT_COLLIDE_ENTRIES(FRAG, STENCIL, POLICY, S)                          \
+  LT_COLLIDE_ENTRY(FRAG, STENCIL, POLICY, S, f32, float)                      \
+  LT_COLLIDE_ENTRY(FRAG, STENCIL, POLICY, S, f64, double)
+
+#define LT_COLLIDE_ENTRY(FRAG, STENCIL, POLICY, S, SUFFIX, T)                 \
+  int lt_collide_##FRAG##_##STENCIL##_##SUFFIX(                               \
+      const void* f, void* out, int64_t n0, int64_t n1, int64_t n2,          \
+      const double* params, double cs, int device, void* stream) {           \
+    using C = POLICY<lt::S, T>;                                               \
+    return lt::launch<C, false>(f, out, nullptr, n0, n1, n2,                  \
+                                C::load(params, cs), device, stream);         \
+  }                                                                           \
+  int lt_collide_##FRAG##_masked_##STENCIL##_##SUFFIX(                        \
+      const void* f, void* out, const void* ncm, const void* nsm,            \
+      const void* feq_field, const int32_t* kinds, const double* values,     \
+      int64_t n0, int64_t n1, int64_t n2, const double* params, double cs,   \
+      int device, void* stream) {                                             \
+    using C = POLICY<lt::S, T>;                                               \
+    return lt::launch_masked<C, false>(f, out, nullptr, ncm, nsm, feq_field, \
+                                       kinds, values, n0, n1, n2,            \
+                                       C::load(params, cs), device, stream); \
+  }
+
+#define LT_ERROR_STRING_ENTRY                                                 \
+  const char* lt_cuda_error_string(int code) {                                \
+    return cudaGetErrorString(static_cast<cudaError_t>(code));                \
+  }

@@ -18,9 +18,10 @@ import numpy as np
 import torch
 
 from .stencil import TorchStencil
-from .utils.utility import torch_gradient
+from .utils.utility import torch_gradient, torch_jacobi
 
 __all__ = ["Equilibrium", "Flow", "Boundary", "initialize_f_neq",
+           "initialize_pressure_poisson", "pressure_poisson",
            "state_from_numpy"]
 
 
@@ -100,11 +101,13 @@ class Flow(ABC):
         """Initial (p, u) in physical units."""
         ...
 
+    initialize_pressure: bool = False
     initialize_fneq: bool = False
 
     def initialize(self):
-        """Initialise ``f`` at equilibrium from ``initial_pu``, plus the
-        optional non-equilibrium (f^neq) part."""
+        """Initialise ``f`` at equilibrium from ``initial_pu``, with the
+        optional pressure-Poisson density and the optional non-equilibrium
+        (f^neq) part."""
         initial_p, initial_u = self.initial_pu()
         rho = self.context.convert_to_tensor(
             self.units.convert_pressure_pu_to_density_lu(
@@ -112,6 +115,8 @@ class Flow(ABC):
         u = self.context.convert_to_tensor(
             self.units.convert_velocity_to_lu(
                 self.context.convert_to_tensor(initial_u)))
+        if self.initialize_pressure:
+            rho = pressure_poisson(self.units, u, rho)
         f = self.equilibrium(self, rho=rho, u=u)
         if self.initialize_fneq:
             f = initialize_f_neq(self.view(f))
@@ -141,10 +146,20 @@ class Flow(ABC):
         return torch.tensordot(self.torch_stencil.e.T,
                                self.f if f is None else f, dims=1)
 
-    def u(self, f: Optional[torch.Tensor] = None, rho=None) -> torch.Tensor:
-        """Velocity, shape [d, *resolution]."""
+    def u(self, f: Optional[torch.Tensor] = None, rho=None,
+          acceleration=None) -> torch.Tensor:
+        """Velocity, shape [d, *resolution]; with a forcing scheme,
+        ``acceleration`` adds the Guo half-step correction a/(2 rho)."""
         rho = self.rho(f=f) if rho is None else rho
-        return self.j(f=f) / rho
+        v = self.j(f=f) / rho
+        if acceleration is None:
+            return v
+        acceleration = torch.as_tensor(acceleration, dtype=v.dtype,
+                                       device=v.device)
+        if acceleration.ndim == 1:
+            acceleration = acceleration.reshape(
+                acceleration.shape + (1,) * self.stencil.d)
+        return v + acceleration / (2 * rho)
 
     @property
     def velocity(self) -> torch.Tensor:
@@ -155,6 +170,12 @@ class Flow(ABC):
         """Pointwise incompressible kinetic energy 0.5 |u|^2."""
         u = self.u(f)
         return 0.5 * torch.sum(u * u, dim=0)
+
+    def shear_tensor(self, f: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+        """Pi_ab = sum_q f_q e_qa e_qb, shape [d, d, *resolution]."""
+        from .ops.collision import shear_tensor
+        return shear_tensor(self.torch_stencil.e, self.f if f is None else f)
 
     def einsum(self, equation, fields, *args) -> torch.Tensor:
         """Shape-polymorphic Einstein summation: trailing grid axes are
@@ -209,8 +230,39 @@ def state_from_numpy(flow: "Flow", f: np.ndarray, i: int = 0) -> None:
 
 
 # ----------------------------------------------------------------------
-# initialisation helper
+# initialisation helpers
 # ----------------------------------------------------------------------
+def pressure_poisson(units: "UnitConversion", u, rho0, tol_abs=1e-10,
+                     max_num_steps=100000):
+    """Density from the pressure Poisson equation, solved by Jacobi
+    iteration: rhs = -d_i d_j (u_i u_j) by periodic finite differences."""
+    dx = units.convert_length_to_pu(1.0)
+    u = units.convert_velocity_to_pu(u)
+    p = units.convert_density_lu_to_pressure_pu(rho0)
+
+    dim = u.shape[0]
+    u_mod = torch.zeros_like(u[0])
+    for i in range(dim):
+        for j in range(dim):
+            derivative = torch_gradient(
+                torch_gradient(u[i] * u[j], dx)[i], dx)[j]
+            u_mod = u_mod - derivative
+
+    p_mod = torch_jacobi(u_mod, p[0], dx, dim=dim, tol_abs=tol_abs,
+                         max_num_steps=max_num_steps)[None, ...]
+    return units.convert_pressure_pu_to_density_lu(p_mod)
+
+
+def initialize_pressure_poisson(flow: "Flow", max_num_steps=100000,
+                                tol_pressure=1e-6):
+    """Re-equilibrate with the Jacobi-solved pressure (call before
+    ``initialize_f_neq``)."""
+    u = flow.u()
+    rho = pressure_poisson(flow.units, u, flow.rho(), tol_abs=tol_pressure,
+                           max_num_steps=max_num_steps)
+    return flow.equilibrium(flow, rho=rho, u=u)
+
+
 def initialize_f_neq(flow: "Flow"):
     """Add first-order (f^1) contributions approximated by 6th-order finite
     differences of the strain rate (Krueger et al. 2017)."""

@@ -66,21 +66,33 @@ def _pull(g: torch.Tensor, e: np.ndarray, nsm) -> torch.Tensor:
     return torch.stack(h)
 
 
+def check_bgk(collision_spec) -> None:
+    """Raise NotImplementedError unless ``collision_spec`` is None or the
+    BGK spec: the adjoint here is BGK's, and must never stand in for
+    another collision's."""
+    if collision_spec is not None and collision_spec[0] != "bgk":
+        raise NotImplementedError(
+            f"no adjoint kernel for the {collision_spec[0]!r} collision yet "
+            f"(K3b/K3d)")
+
+
 def stream_collide_adjoint_plain(g: torch.Tensor, u: torch.Tensor,
                                  e: np.ndarray, w: np.ndarray,
                                  opposite: np.ndarray, cs: float,
                                  tau_inv: float, ncm: torch.Tensor = None,
                                  nsm: torch.Tensor = None, table=None,
-                                 feq_field: torch.Tensor = None
-                                 ) -> torch.Tensor:
+                                 feq_field: torch.Tensor = None,
+                                 collision_spec=None) -> torch.Tensor:
     """The closed-form VJP of one BGK collide-and-stream step in plain
-    PyTorch: the cotangent pulled by ``torch.roll`` along -e (re-routed
+    PyTorch (``collision_spec`` None or BGK; any other raises): the
+    cotangent pulled by ``torch.roll`` along -e (re-routed
     where ``nsm`` froze populations), then the transposed collision
     Jacobian from the weighted moments of t and the pre-collision velocity
     ``u`` (the formulas of the module docstring), and the boundary codes
     of ``table`` where ``ncm`` holds them. ``feq_field`` is unused (an
     equilibrium replacement is constant in f); it is taken so that one
     parameter set serves the forward and the adjoint."""
+    check_bgk(collision_spec)
     e = np.asarray(e)
     et = torch.as_tensor(e, dtype=g.dtype, device=g.device)
     wt = torch.as_tensor(np.asarray(w), dtype=g.dtype, device=g.device)
@@ -144,7 +156,8 @@ def stream_collide_adjoint(g: torch.Tensor, u: torch.Tensor, e: np.ndarray,
                            tau_inv: float, ncm: torch.Tensor = None,
                            nsm: torch.Tensor = None, table=None,
                            feq_field: torch.Tensor = None,
-                           out: torch.Tensor = None) -> torch.Tensor:
+                           out: torch.Tensor = None,
+                           collision_spec=None) -> torch.Tensor:
     """The cotangent of one step's input from the cotangent ``g``
     (``[q, *grid]``) of its output and its pre-collision velocity ``u``
     (``[d, *grid]``). With ``ncm`` and ``table`` (and ``nsm``) the masked
@@ -154,8 +167,10 @@ def stream_collide_adjoint(g: torch.Tensor, u: torch.Tensor, e: np.ndarray,
     On a CPU tensor this is :func:`stream_collide_adjoint_plain`; on a
     CUDA tensor it launches a kernel (allocating ``out`` when none is
     given) or raises. ``out`` must not be ``g``: the kernel pulls from
-    neighbours.
+    neighbours. ``collision_spec`` is None or BGK: no other collision has
+    an adjoint kernel yet, and one raises NotImplementedError.
     """
+    check_bgk(collision_spec)
     masks = dict(ncm=ncm, nsm=nsm, table=table, feq_field=feq_field)
     if g.device.type == "cpu":
         result = stream_collide_adjoint_plain(g, u, e, w, opposite, cs,

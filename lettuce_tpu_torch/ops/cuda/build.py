@@ -6,6 +6,8 @@ own shared library with a plain C interface, cached under
 (``csrc/*.cuh``) and the flags, and loaded with ``ctypes``. The first load
 builds every missing library at once, one ``nvcc`` per source, all started
 together. A missing ``nvcc``, a failed build or a failed load raises.
+``ptxas -v`` reports each kernel's registers and spills; the report is
+kept beside the library (:func:`ptxas_log`).
 
 Also here: what every wrapper checks before a launch (the compiled stencil
 instance, the dtype, the launch grid).
@@ -27,17 +29,21 @@ import torch
 
 from ...stencil import D2Q9, D3Q15, D3Q19, D3Q27
 
-__all__ = ["SOURCES", "find_nvcc", "library_path", "build_libraries",
+__all__ = ["SOURCES", "find_nvcc", "library_path", "ptxas_log",
+           "build_libraries",
            "open_library", "check_launch", "kernel_stencil_name",
            "launch_dims", "check_out", "KERNEL_STENCILS",
            "KERNEL_STENCIL_NAMES", "DTYPES"]
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
-SOURCES = ("stream_collide", "adjoint")  # csrc/<name>.cu, one library each
+# csrc/<name>.cu, one library each: the BGK step (K1a, K1d, K1b), its
+# adjoint (K3a, K3c), and the other collision fragments (K1c)
+SOURCES = ("stream_collide", "adjoint", "collide_basic", "collide_moments",
+           "collide_mrt", "collide_kbc")
 _BUILD_DIR = (Path(__file__).resolve().parents[3] / "build"
               / "lettuce_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"  # the toolkit's default install
 
 # one compiled entry per (stencil, dtype) in every source
@@ -82,6 +88,12 @@ def library_path(name: str) -> Path:
     return _BUILD_DIR / f"{name}_{digest.hexdigest()[:16]}.so"
 
 
+def ptxas_log(name: str) -> Path:
+    """The compiler's report (``ptxas -v``: registers, spills) kept beside
+    the library of ``csrc/<name>.cu``."""
+    return library_path(name).with_suffix(".log")
+
+
 def build_libraries(names=SOURCES) -> dict:
     """Compile every library of ``names`` that is not cached yet, one
     ``nvcc`` per source, all started together; returns ``{name: path}``.
@@ -111,6 +123,7 @@ def build_libraries(names=SOURCES) -> dict:
                                 f"{proc.returncode}): {' '.join(cmd)}\n"
                                 f"{output}")
             else:
+                ptxas_log(name).write_text(output)
                 os.replace(tmp_so, paths[name])
         if failures:
             raise RuntimeError("\n".join(failures))

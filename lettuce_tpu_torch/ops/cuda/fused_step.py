@@ -27,7 +27,7 @@ import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
-from .adjoint import stream_collide_adjoint
+from .adjoint import check_bgk, stream_collide_adjoint
 from .stream_collide import stream_collide
 
 __all__ = ["fused_step"]
@@ -56,14 +56,17 @@ class _FusedStep(torch.autograd.Function):
 
 
 def fused_step(f: torch.Tensor, *, e, w, opposite, cs: float,
-               tau_inv: float, ncm=None, nsm=None, table=None,
-               feq_field=None, fixup=None) -> torch.Tensor:
+               tau_inv: float, collision_spec=None, ncm=None, nsm=None,
+               table=None, feq_field=None, fixup=None) -> torch.Tensor:
     """One differentiable BGK collide-and-stream step ``f -> f'`` through
     the kernels (or their plain versions on CPU tensors), with the static
     kernel parameters of :func:`.stream_collide.gate_fused_params`, and
     the window replay ``fixup`` of :mod:`.hybrid_outlets` after the kernel
-    when the flow has outlets."""
+    when the flow has outlets. A ``collision_spec`` other than BGK raises
+    NotImplementedError: its adjoint kernel is not there yet."""
+    check_bgk(collision_spec)
     out = _FusedStep.apply(f, dict(
-        e=e, w=w, opposite=opposite, cs=cs, tau_inv=tau_inv, ncm=ncm,
-        nsm=nsm, table=table, feq_field=feq_field))
+        e=e, w=w, opposite=opposite, cs=cs, tau_inv=tau_inv,
+        collision_spec=collision_spec, ncm=ncm, nsm=nsm, table=table,
+        feq_field=feq_field))
     return out if fixup is None else fixup(f, out)

@@ -1,10 +1,15 @@
-"""Fused BGK collide-and-stream step: the hand-written CUDA kernels, their
+"""Fused collide-and-stream step: the hand-written CUDA kernels, their
 plain PyTorch version, and the simulation gate that selects them.
 
-The kernels (``lettuce_tpu_torch/csrc/stream_collide.cu``) replace
+The kernels (``lettuce_tpu_torch/csrc/``) replace
 ``lettuce_tpu/ops/pallas/stream_collide.py::_stream_collide_kernel`` with
-the BGK fragment and one step per launch, in float32 and float64, for
-D2Q9, D3Q15, D3Q19 and D3Q27:
+one step per launch, in float32 and float64, for D2Q9, D3Q15, D3Q19 and
+D3Q27. A collision spec, built from the simulation like the TPU gate's,
+selects the fragment: ``("bgk", tau_inv)`` runs ``stream_collide.cu``;
+``("none",)``, ``("bgk_force", tau_inv, accel, k_ueq, src_pref)``,
+``("trt", tau_plus, tau_minus)``, ``("reg", tau)``, ``("smag", tau, C)``,
+``("mrt", M, Minv, taus, meq_kind)`` and ``("kbc", tau)`` run the
+fragment sources ``collide_*.cu`` (:data:`FRAGMENTS`). Each comes as:
 
 * the periodic instances (no masks);
 * the masked instances, the kernel's mask pipeline: per cell the uint8
@@ -14,40 +19,54 @@ D2Q9, D3Q15, D3Q19 and D3Q27:
   rewrites), and the bool ``no_streaming_mask`` freezes populations at
   their destination.
 
-They are bound by device memory: D3Q19 in float32 moves 19*4 bytes in and
+BGK is bound by device memory: D3Q19 in float32 moves 19*4 bytes in and
 19*4 bytes out per cell, 152 B per lattice update; the masked instances
 add the 1-byte code (73 B per D2Q9 float32 update without a no-streaming
-mask). The emit-u instances also write the pre-collision velocity, the
-residual of the adjoint kernel (:mod:`.adjoint`).
+mask). The emit-u instances (BGK only) also write the pre-collision
+velocity, the residual of the BGK adjoint kernel (:mod:`.adjoint`). No
+other fragment has an adjoint kernel yet: a state that requires grad with
+such a spec raises here, and the simulation keeps the torch step for it.
 
 The sources are built and loaded by :mod:`.build`. :func:`stream_collide`
 runs the plain version only for a CPU tensor. For a CUDA tensor it
-launches a kernel or raises; a CUDA state that requires grad goes through
-:func:`.fused_step.fused_step`, the autograd route.
+launches a kernel or raises; a CUDA state that requires grad with the BGK
+spec goes through :func:`.fused_step.fused_step`, the autograd route.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from collections import Counter
 
 import numpy as np
 import torch
 
 from ..boundary import (HYBRID_OUTLET_TYPES, BounceBackBoundary,
                         EquilibriumBoundaryPU, combined_equilibrium_field)
-from ..collision import BGKCollision, bgk_relax
+from ..collision import (BGKCollision, KBCCollision, MRTCollision,
+                         NoCollision, RegularizedCollision,
+                         SmagorinskyCollision, TRTCollision, bgk_relax,
+                         kbc_relax, mrt_relax, regularize, smagorinsky_relax,
+                         trt_relax)
 from ..equilibrium import QuadraticEquilibrium, quadratic_feq
+from ..force import Guo, ShanChen, guo_source
 from ..streaming import stream
+from ...utils.moments import (HERMITE_MULTIINDICES, dellar_meq, hermite_meq,
+                             lallemand_meq)
+from ..utils_moments_shim import resolve_mrt_spec
 from .build import (DTYPES, KERNEL_STENCIL_NAMES, KERNEL_STENCILS,
                     check_launch, check_out, kernel_stencil_name,
                     launch_dims, open_library)
 from .hybrid_outlets import outlet_window
 
-__all__ = ["stream_collide", "stream_collide_plain", "load_library",
-           "gate_fused_params", "kernel_refusals", "check_masks",
+__all__ = ["stream_collide", "stream_collide_plain", "collide_plain",
+           "load_library", "load_fragment_library", "load_libraries",
+           "gate_fused_params", "kernel_refusals", "collision_spec_of",
+           "fragment_of", "pack_spec", "PackedSpec", "check_masks",
            "checked_table", "table_arrays", "PackedTable",
-           "kernel_stencil_name", "KERNEL_STENCILS", "KINDS", "MAX_CODES"]
+           "kernel_stencil_name", "KERNEL_STENCILS", "KINDS", "MAX_CODES",
+           "FRAGMENTS"]
 
 # boundary kinds of the per-code table, in the order of csrc/stencils.cuh's
 # Kind enum
@@ -55,6 +74,30 @@ KINDS = ("collide", "bounce_back", "equilibrium_pu", "equilibrium_pu_field",
          "identity")
 MAX_CODES = 8   # mask codes 0..7: code 0 collides, up to 7 boundaries
 MAX_Q = 27      # the table's values per code
+
+_ALL = ("d2q9", "d3q15", "d3q19", "d3q27")
+# fragment -> (csrc source, the stencils it is compiled for); the fragment
+# of a spec is its kind, or "mrt_<meq_kind>"
+FRAGMENTS = {
+    "none": ("collide_basic", _ALL),
+    "bgk_force": ("collide_basic", _ALL),
+    "trt": ("collide_basic", _ALL),
+    "reg": ("collide_moments", _ALL),
+    "smag": ("collide_moments", _ALL),
+    "mrt_from_feq": ("collide_mrt", ("d3q19",)),
+    "mrt_lallemand": ("collide_mrt", ("d2q9",)),
+    "mrt_dellar": ("collide_mrt", ("d2q9",)),
+    "mrt_hermite27": ("collide_mrt", ("d3q27",)),
+    "kbc": ("collide_kbc", ("d2q9", "d3q27")),
+}
+# the parity of each moment under e -> -e that the MRT fragment's closed
+# forms assume (csrc/collide_mrt.cu, moment_parity)
+MRT_PARITY = {
+    "lallemand": (1, -1, -1, 1, 1, 1, -1, -1, 1),
+    "dellar": (1, -1, -1, 1, 1, 1, 1, -1, -1),
+    "hermite27": tuple(1 - 2 * (sum(idx) % 2)
+                       for idx in HERMITE_MULTIINDICES),
+}
 
 
 # ----------------------------------------------------------------------
@@ -81,28 +124,175 @@ def _replace_boundaries(f: torch.Tensor, fpost: torch.Tensor, opposite,
     return fpost
 
 
-def stream_collide_plain(f: torch.Tensor, e: np.ndarray, w: np.ndarray,
-                         opposite: np.ndarray, cs: float, tau_inv: float,
-                         ncm: torch.Tensor = None, nsm: torch.Tensor = None,
-                         table=None, feq_field: torch.Tensor = None,
-                         emit_u: bool = False):
-    """One BGK collide-and-stream step in plain PyTorch: the quadratic
-    equilibrium, BGK relaxation, the boundary codes of ``table`` where
-    ``ncm`` holds them (:func:`_replace_boundaries`), then a per-q
-    ``torch.roll`` with the populations of ``nsm`` frozen. With ``emit_u``
-    it returns ``(out, u)``, u = j / rho the pre-collision velocity
-    ``[d, *grid]``."""
+def collide_plain(f: torch.Tensor, spec, e: np.ndarray, w: np.ndarray,
+                  opposite: np.ndarray, cs: float) -> torch.Tensor:
+    """The post-collision state of the collision ``spec`` in plain torch:
+    per fragment, the formula of lettuce_tpu's jnp operator on the
+    quadratic equilibrium of ``f``."""
+    kind = spec[0]
+    if kind == "none":
+        return f
     et = torch.as_tensor(np.asarray(e), dtype=f.dtype, device=f.device)
     wt = torch.as_tensor(np.asarray(w), dtype=f.dtype, device=f.device)
     rho = torch.sum(f, dim=0, keepdim=True)
     u = torch.tensordot(et.T, f, dims=1) / rho
+    if kind == "bgk_force":
+        _, tau_inv, accel, k_ueq, src_pref = spec
+        a = torch.as_tensor(accel, dtype=f.dtype, device=f.device)
+        u = u + k_ueq * a.reshape((-1,) + (1,) * (f.dim() - 1)) / rho
+        out = bgk_relax(f, quadratic_feq(et, wt, cs, rho, u), tau_inv)
+        if src_pref is not None:
+            out = out + guo_source(et, wt, cs, u, a, src_pref)
+        return out
+    if kind == "mrt":
+        _, M, Minv, taus, meq_kind = spec
+        M = torch.as_tensor(M, dtype=f.dtype, device=f.device)
+        Minv = torch.as_tensor(Minv, dtype=f.dtype, device=f.device)
+        m = torch.tensordot(M, f, dims=1)
+        if meq_kind == "from_feq":
+            # the exact image of feq, through f-space
+            f_rt = torch.tensordot(Minv, m, dims=1)
+            rho_rt = torch.sum(f_rt, dim=0, keepdim=True)
+            u_rt = torch.tensordot(et.T, f_rt, dims=1) / rho_rt
+            meq = torch.tensordot(M, quadratic_feq(et, wt, cs, rho_rt, u_rt),
+                                  dims=1)
+        else:
+            meq = {"lallemand": lallemand_meq, "dellar": dellar_meq,
+                   "hermite27": hermite_meq}[meq_kind](m)
+        m = mrt_relax(m, meq, torch.as_tensor(taus, dtype=f.dtype))
+        return torch.tensordot(Minv, m, dims=1)
     feq = quadratic_feq(et, wt, cs, rho, u)
-    fpost = bgk_relax(f, feq, tau_inv)
+    if kind == "bgk":
+        return bgk_relax(f, feq, spec[1])
+    if kind == "trt":
+        return trt_relax(f, feq, opposite, spec[1], spec[2])
+    if kind == "reg":
+        return regularize(f, feq, et, wt, cs, spec[1])
+    if kind == "smag":
+        return smagorinsky_relax(f, feq, rho, et, cs, spec[1], spec[2])
+    if kind == "kbc":
+        return kbc_relax(f, feq, e, spec[1])
+    raise ValueError(f"unknown collision spec {kind!r}")
+
+
+def stream_collide_plain(f: torch.Tensor, e: np.ndarray, w: np.ndarray,
+                         opposite: np.ndarray, cs: float, tau_inv: float,
+                         ncm: torch.Tensor = None, nsm: torch.Tensor = None,
+                         table=None, feq_field: torch.Tensor = None,
+                         emit_u: bool = False, collision_spec=None):
+    """One collide-and-stream step in plain PyTorch: the collision of
+    ``collision_spec`` (BGK with ``tau_inv`` when None,
+    :func:`collide_plain`), the boundary codes of ``table`` where ``ncm``
+    holds them (:func:`_replace_boundaries`), then a per-q ``torch.roll``
+    with the populations of ``nsm`` frozen. With ``emit_u`` (BGK only) it
+    returns ``(out, u)``, u = j / rho the pre-collision velocity
+    ``[d, *grid]``."""
+    spec = ("bgk", tau_inv) if collision_spec is None else collision_spec
+    if emit_u and spec[0] != "bgk":
+        raise ValueError(f"emit_u is BGK only (the BGK adjoint's "
+                         f"residual), not {spec[0]!r}")
+    fpost = collide_plain(f, spec, e, w, opposite, cs)
     if ncm is not None:
         fpost = _replace_boundaries(f, fpost, opposite, ncm, table,
                                     feq_field)
     out = stream(fpost, e, nsm)
-    return (out, u) if emit_u else out
+    if not emit_u:
+        return out
+    et = torch.as_tensor(np.asarray(e), dtype=f.dtype, device=f.device)
+    u = torch.tensordot(et.T, f, dims=1) / torch.sum(f, dim=0, keepdim=True)
+    return out, u
+
+
+# ----------------------------------------------------------------------
+# the collision spec and its kernel parameters
+# ----------------------------------------------------------------------
+def fragment_of(spec) -> str:
+    """The kernel fragment of a collision spec: its kind, or
+    ``mrt_<meq_kind>``."""
+    return f"mrt_{spec[4]}" if spec[0] == "mrt" else spec[0]
+
+
+def _mrt_params(spec, opposite) -> np.ndarray:
+    """The MRT fragment's kernel parameters: C = M^-1 diag(1/tau) M folded
+    by opposite-pair parity into its even block ce (rows: the rest and the
+    first member of each pair; columns: the rest and the pair sums) and odd
+    block co (pair differences), then for a closed-form equilibrium
+    A = M^-1 diag(1/tau) on the same rows (ae, ao). Raises
+    NotImplementedError when C does not commute with the opposite
+    permutation or a moment lacks the parity the kernel assumes."""
+    _, M, Minv, taus, meq_kind = spec
+    M = np.asarray(M, dtype=np.float64)
+    Minv = np.asarray(Minv, dtype=np.float64)
+    s = 1.0 / np.asarray(taus, dtype=np.float64)
+    C = Minv @ (s[:, None] * M)
+    perm = np.asarray(opposite)
+    if not np.allclose(C[np.ix_(perm, perm)], C, atol=1e-11):
+        raise NotImplementedError(
+            "the MRT matrix does not commute with the opposite permutation")
+    firsts = [a for a in range(len(perm)) if a < perm[a]]
+    pairs = [(a, perm[a]) for a in firsts]
+    reps = [0] + firsts
+    ce = np.array([[C[r, 0]] + [0.5 * (C[r, a] + C[r, b]) for a, b in pairs]
+                   for r in reps])
+    co = np.array([[0.5 * (C[a, x] - C[a, y]) for x, y in pairs]
+                   for a in firsts])
+    parts = [ce.ravel(), co.ravel()]
+    if meq_kind != "from_feq":
+        parity = np.asarray(MRT_PARITY[meq_kind], dtype=np.float64)
+        if not np.allclose(M[:, perm], M * parity[:, None], atol=1e-11):
+            raise NotImplementedError(
+                f"the {meq_kind} moments lack the parity the kernel assumes")
+        A = Minv * s[None, :]
+        if not np.allclose(A[perm], A * parity[None, :], atol=1e-11):
+            raise NotImplementedError(
+                f"the {meq_kind} relaxation breaks the moment parity")
+        parts += [A[reps].ravel(), A[firsts].ravel()]
+    return np.ascontiguousarray(np.concatenate(parts), dtype=np.float64)
+
+
+class PackedSpec(tuple):
+    """A collision spec with its kernel fragment (``fragment``), the
+    stencil instance it was packed for (``stencil``) and the float64 array
+    the fragment's C entry reads (``params``). It compares and iterates as
+    the spec."""
+
+    def __new__(cls, spec, stencil, params):
+        self = super().__new__(cls, spec)
+        self.fragment = fragment_of(spec)
+        self.stencil = stencil
+        self.params = params
+        return self
+
+
+def pack_spec(spec, e, w, opposite) -> PackedSpec:
+    """``spec`` packed for the stencil (e, w, opposite); a spec already
+    packed for it is returned as it is. Raises NotImplementedError when no
+    kernel instance takes it."""
+    name = kernel_stencil_name(e, w, opposite)
+    if isinstance(spec, PackedSpec) and spec.stencil == name:
+        return spec
+    fragment = fragment_of(spec)
+    if fragment == "bgk":
+        params = np.asarray([spec[1]], dtype=np.float64)
+    else:
+        if fragment not in FRAGMENTS:
+            raise NotImplementedError(f"no CUDA fragment {fragment!r}")
+        if name not in FRAGMENTS[fragment][1]:
+            raise NotImplementedError(
+                f"the {fragment!r} fragment is compiled for "
+                f"{', '.join(FRAGMENTS[fragment][1])}, not {name}")
+        kind = spec[0]
+        if kind == "bgk_force":
+            _, tau_inv, accel, k_ueq, src_pref = spec
+            a = list(accel) + [0.0] * (3 - len(accel))
+            params = [tau_inv, k_ueq, float(src_pref is not None),
+                      0.0 if src_pref is None else src_pref, *a]
+        elif kind == "mrt":
+            params = _mrt_params(spec, opposite)
+        else:  # none, trt, reg, smag, kbc: the spec's scalars
+            params = spec[1:]
+        params = np.ascontiguousarray(params, dtype=np.float64)
+    return PackedSpec(spec, name, params)
 
 
 # ----------------------------------------------------------------------
@@ -130,6 +320,37 @@ def load_library() -> ctypes.CDLL:
                 fn.argtypes = [pointer] * n_tensors + masks + grid + tail
                 fn.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def load_fragment_library(source: str) -> ctypes.CDLL:
+    """Build (if needed) and load the library of the collision fragments
+    ``csrc/<source>.cu`` (a source of :data:`FRAGMENTS`), with
+    ``argtypes`` set on every entry."""
+    lib = open_library(source)
+    pointer = ctypes.c_void_p
+    grid = [ctypes.c_int64] * 3
+    tail = [pointer, ctypes.c_double, ctypes.c_int, pointer]
+    for fragment, (src, names) in FRAGMENTS.items():
+        if src != source:
+            continue
+        for name in names:
+            for suffix, _ in DTYPES.values():
+                fn = getattr(lib, f"lt_collide_{fragment}_{name}_{suffix}")
+                fn.argtypes = [pointer] * 2 + grid + tail
+                fn.restype = ctypes.c_int
+                fn = getattr(lib, f"lt_collide_{fragment}_masked_{name}_"
+                                  f"{suffix}")
+                fn.argtypes = [pointer] * 7 + grid + tail
+                fn.restype = ctypes.c_int
+    return lib
+
+
+def load_libraries() -> None:
+    """Build (if needed) and load every kernel library of the step."""
+    load_library()
+    for source in sorted({src for src, _ in FRAGMENTS.values()}):
+        load_fragment_library(source)
 
 
 def table_arrays(table) -> tuple:
@@ -205,27 +426,33 @@ def stream_collide(f: torch.Tensor, e: np.ndarray, w: np.ndarray,
                    opposite: np.ndarray, cs: float, tau_inv: float,
                    ncm: torch.Tensor = None, nsm: torch.Tensor = None,
                    table=None, feq_field: torch.Tensor = None,
-                   out: torch.Tensor = None, u_out: torch.Tensor = None):
-    """One fused BGK collide-and-stream step ``f -> out``.
+                   out: torch.Tensor = None, u_out: torch.Tensor = None,
+                   collision_spec=None):
+    """One fused collide-and-stream step ``f -> out``.
 
-    ``f`` is ``[q, X, Y]`` or ``[q, X, Y, Z]``. On a CPU tensor this is
-    :func:`stream_collide_plain`; on a CUDA tensor it launches a kernel
-    (allocating ``out`` when none is given) or raises. ``out`` must not be
-    ``f``: the kernel pushes to neighbours. With ``ncm`` (the uint8 code
-    per cell) and its ``table`` the masked kernel runs, with the optional
-    ``nsm`` and ``feq_field``. With ``u_out`` (``[d, *grid]``) the emit-u
-    kernel also writes the pre-collision velocity there, and the call
-    returns ``(out, u_out)``.
+    ``f`` is ``[q, X, Y]`` or ``[q, X, Y, Z]``. The collision is
+    ``collision_spec`` (a spec or a :class:`PackedSpec`), or BGK with
+    ``tau_inv`` when it is None. On a CPU tensor this is
+    :func:`stream_collide_plain`; on a CUDA tensor it launches the
+    fragment's kernel (allocating ``out`` when none is given) or raises.
+    ``out`` must not be ``f``: the kernel pushes to neighbours. With
+    ``ncm`` (the uint8 code per cell) and its ``table`` the masked kernel
+    runs, with the optional ``nsm`` and ``feq_field``. With ``u_out``
+    (``[d, *grid]``, BGK only) the emit-u kernel also writes the
+    pre-collision velocity there, and the call returns ``(out, u_out)``.
 
     A CUDA state that requires grad, with grad mode on, goes through
-    :func:`.fused_step.fused_step` (fresh output, adjoint kernel backward);
-    ``out`` and ``u_out`` cannot be given then.
+    :func:`.fused_step.fused_step` (fresh output, adjoint kernel backward)
+    for BGK, and raises for any other spec, which has no adjoint kernel
+    yet; ``out`` and ``u_out`` cannot be given then.
     """
+    spec = ("bgk", tau_inv) if collision_spec is None else collision_spec
     emit_u = u_out is not None
     masks = dict(ncm=ncm, nsm=nsm, table=table, feq_field=feq_field)
     if f.device.type == "cpu":
         result = stream_collide_plain(f, e, w, opposite, cs, tau_inv,
-                                      emit_u=emit_u, **masks)
+                                      emit_u=emit_u, collision_spec=spec,
+                                      **masks)
         if emit_u:
             result, u = result
             u_out.copy_(u)
@@ -234,13 +461,22 @@ def stream_collide(f: torch.Tensor, e: np.ndarray, w: np.ndarray,
     if f.device.type != "cuda":
         raise ValueError(f"stream_collide runs on cpu or cuda tensors, "
                          f"got {f.device}")
+    bgk = spec[0] == "bgk"
     if f.requires_grad and torch.is_grad_enabled():
+        if not bgk:
+            raise NotImplementedError(
+                f"no adjoint kernel for the {spec[0]!r} collision yet "
+                f"(K3b/K3d): run a state that requires grad on the torch "
+                f"step")
         if out is not None or emit_u:
             raise ValueError("out and u_out would bypass autograd: a state "
                              "that requires grad takes neither")
         from .fused_step import fused_step
         return fused_step(f, e=e, w=w, opposite=opposite, cs=cs,
-                          tau_inv=tau_inv, **masks)
+                          tau_inv=spec[1], **masks)
+    if emit_u and not bgk:
+        raise ValueError(f"emit_u is BGK only (the BGK adjoint's "
+                         f"residual), not {spec[0]!r}")
     name = kernel_stencil_name(e, w, opposite)
     n0, n1, n2 = launch_dims(f, e)
     out = check_out(out, f, f.shape, "out", f)
@@ -257,30 +493,99 @@ def stream_collide(f: torch.Tensor, e: np.ndarray, w: np.ndarray,
                      None if nsm is None else nsm.data_ptr(),
                      None if feq_field is None else feq_field.data_ptr(),
                      table.kinds.ctypes.data, table.values.ctypes.data]
+    suffix = DTYPES[f.dtype][0]
+    stream_ptr = torch.cuda.current_stream(f.device).cuda_stream
+    if bgk:
+        lib = load_library()
+        variant = ("masked_" if masked else "") + ("emit_u_" if emit_u
+                                                   else "")
+        launch = getattr(lib, f"lt_stream_collide_{variant}{name}_{suffix}")
+        rc = launch(*pointers, n0, n1, n2, float(spec[1]), float(cs),
+                    f.device.index, stream_ptr)
+        check_launch(lib, rc, f"stream_collide ({variant or 'periodic_'}"
+                              f"{name})")
+        counter = f"{variant}launches"
+        setattr(stream_collide, counter, getattr(stream_collide, counter) + 1)
+        return (out, u_out) if emit_u else out
+    spec = pack_spec(spec, e, w, opposite)  # alive until the call returns
+    lib = load_fragment_library(FRAGMENTS[spec.fragment][0])
+    variant = "masked_" if masked else ""
+    launch = getattr(lib, f"lt_collide_{spec.fragment}_{variant}{name}_"
+                          f"{suffix}")
+    rc = launch(*pointers, n0, n1, n2, spec.params.ctypes.data, float(cs),
+                f.device.index, stream_ptr)
+    check_launch(lib, rc, f"stream_collide ({spec.fragment}, "
+                          f"{variant or 'periodic_'}{name})")
+    stream_collide.fragment_launches[variant + spec.fragment] += 1
+    return out
 
-    lib = load_library()
-    variant = ("masked_" if masked else "") + ("emit_u_" if emit_u else "")
-    launch = getattr(lib, f"lt_stream_collide_{variant}{name}_"
-                          f"{DTYPES[f.dtype][0]}")
-    rc = launch(*pointers, n0, n1, n2, float(tau_inv), float(cs),
-                f.device.index,
-                torch.cuda.current_stream(f.device).cuda_stream)
-    check_launch(lib, rc, f"stream_collide ({variant or 'periodic_'}"
-                          f"{name})")
-    counter = f"{variant}launches"
-    setattr(stream_collide, counter, getattr(stream_collide, counter) + 1)
-    return (out, u_out) if emit_u else out
 
-
-stream_collide.launches = 0                # periodic primal launches
-stream_collide.emit_u_launches = 0         # periodic emit-u launches
-stream_collide.masked_launches = 0         # masked primal launches
-stream_collide.masked_emit_u_launches = 0  # masked emit-u launches
+stream_collide.launches = 0                # periodic BGK primal launches
+stream_collide.emit_u_launches = 0         # periodic BGK emit-u launches
+stream_collide.masked_launches = 0         # masked BGK primal launches
+stream_collide.masked_emit_u_launches = 0  # masked BGK emit-u launches
+# launches of the other fragments, by fragment ("trt", "masked_trt", ...)
+stream_collide.fragment_launches = Counter()
 
 
 # ----------------------------------------------------------------------
 # the simulation gate
 # ----------------------------------------------------------------------
+def collision_spec_of(simulation: "Simulation") -> tuple:
+    """``(spec, reason)``: the kernel's collision spec for the
+    simulation's collision, as lettuce_tpu's gate builds it, or ``(None,
+    reason)`` when the collision has no kernel fragment."""
+    collision = simulation.collision
+    flow = simulation.flow
+    name = type(collision).__name__
+
+    def tau_or_units(tau):
+        return float(tau if tau is not None
+                     else flow.units.relaxation_parameter_lu)
+
+    if isinstance(collision, BGKCollision):
+        tau_inv = float(1.0 / collision.tau)
+        force = collision.force
+        if force is None:
+            return ("bgk", tau_inv), None
+        accel = getattr(force, "acceleration", None)
+        if accel is None or accel.ndim != 1:
+            return None, (f"force '{type(force).__name__}' has a per-node "
+                          f"acceleration: the forced-BGK fragment takes a "
+                          f"uniform one")
+        if isinstance(force, Guo):
+            src_pref = float(1.0 - 1.0 / (2.0 * force.tau))
+        elif isinstance(force, ShanChen):
+            src_pref = None
+        else:
+            return None, (f"force '{type(force).__name__}' has no CUDA "
+                          f"fragment")
+        return ("bgk_force", tau_inv,
+                tuple(float(a) for a in accel.cpu().tolist()),
+                float(force.ueq_scaling_factor), src_pref), None
+    if isinstance(collision, NoCollision):
+        return ("none",), None
+    if isinstance(collision, TRTCollision):
+        return ("trt", float(collision.tau_plus),
+                float(collision.tau_minus)), None
+    if isinstance(collision, SmagorinskyCollision):
+        if collision.force is not None:
+            return None, ("collision 'SmagorinskyCollision' with a force has "
+                          "no CUDA fragment")
+        return ("smag", float(collision.tau),
+                float(collision.constant)), None
+    if isinstance(collision, RegularizedCollision):
+        return ("reg", tau_or_units(collision.tau)), None
+    if isinstance(collision, MRTCollision):
+        try:
+            return resolve_mrt_spec(collision), None
+        except NotImplementedError as refusal:
+            return None, f"collision '{name}': {refusal}"
+    if isinstance(collision, KBCCollision):
+        return ("kbc", tau_or_units(collision.tau)), None
+    return None, f"collision '{name}' has no CUDA fragment"
+
+
 def kernel_refusals(simulation: "Simulation") -> list:
     """Why a Simulation cannot run on the kernels, one reason per
     component (an empty list when it can). The capability probe prints
@@ -301,11 +606,16 @@ def kernel_refusals(simulation: "Simulation") -> list:
             and isinstance(equilibrium, QuadraticEquilibrium)):
         reasons.append(f"equilibrium '{type(equilibrium).__name__}' does "
                        f"not support the CUDA kernel")
-    collision = simulation.collision
-    if not (collision.native_available()
-            and isinstance(collision, BGKCollision)):
-        reasons.append(f"collision '{type(collision).__name__}' does not "
-                       f"support the CUDA kernel")
+    spec, reason = collision_spec_of(simulation)
+    if reason is not None:
+        reasons.append(reason)
+    elif isinstance(flow.stencil, KERNEL_STENCILS):
+        stencil = flow.stencil
+        try:
+            pack_spec(spec, stencil.e, stencil.w, stencil.opposite)
+        except NotImplementedError as refusal:
+            reasons.append(f"collision '{type(simulation.collision).__name__}"
+                           f"': {refusal}")
     boundaries = simulation.boundaries[1:]
     if len(boundaries) >= MAX_CODES:
         reasons.append(f"{len(boundaries)} boundaries: the kernel's table "
@@ -334,8 +644,10 @@ def gate_fused_params(simulation: "Simulation") -> tuple:
 
     Returns ``(params, hybrid)``. ``params`` are the keyword arguments of
     :func:`stream_collide`, :func:`.adjoint.stream_collide_adjoint` and
-    :func:`.fused_step.fused_step`: the stencil tables, ``cs`` and
-    ``tau_inv``, and with boundaries the masks (``ncm``, ``nsm``, None
+    :func:`.fused_step.fused_step`: the stencil tables, ``cs``, the
+    ``collision_spec`` (a :class:`PackedSpec`, packed here once) and
+    ``tau_inv`` (its 1/tau for BGK, else None), and with boundaries the
+    masks (``ncm``, ``nsm``, None
     when no population is frozen), the per-code ``table`` (a
     :class:`PackedTable`, checked and packed here once) and the combined
     per-node ``feq_field`` (or None). ``hybrid`` is a tuple of
@@ -349,9 +661,12 @@ def gate_fused_params(simulation: "Simulation") -> tuple:
         raise NotImplementedError("; ".join(reasons))
     flow = simulation.flow
     stencil = flow.stencil
+    spec = pack_spec(collision_spec_of(simulation)[0], stencil.e, stencil.w,
+                     stencil.opposite)
     params = dict(e=stencil.e, w=stencil.w, opposite=stencil.opposite,
                   cs=float(stencil.cs),
-                  tau_inv=float(1.0 / simulation.collision.tau))
+                  tau_inv=spec[1] if spec[0] == "bgk" else None,
+                  collision_spec=spec)
     ncm = simulation.no_collision_mask
     if ncm is None:
         return params, ()

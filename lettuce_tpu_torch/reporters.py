@@ -16,10 +16,11 @@ import numpy as np
 import torch
 
 from .simulation import Reporter
+from .utils.utility import torch_gradient
 
 __all__ = ["Observable", "MaximumVelocity", "IncompressibleKineticEnergy",
-           "Mass", "ObservableReporter", "ErrorReporter",
-           "mean_analytic_error"]
+           "Enstrophy", "EnergySpectrum", "Mass", "ObservableReporter",
+           "ErrorReporter", "mean_analytic_error"]
 
 
 class Observable(ABC):
@@ -49,6 +50,62 @@ class IncompressibleKineticEnergy(Observable):
         kin_e = flow.units.convert_incompressible_energy_to_pu(
             torch.sum(flow.incompressible_energy()))
         return kin_e * dx ** flow.stencil.d
+
+
+class Enstrophy(Observable):
+    """Integral of squared vorticity (6th-order FD; periodic domains
+    only)."""
+
+    def __call__(self, f: Optional[torch.Tensor] = None):
+        flow = self.flow if f is None else self.flow.view(f)
+        u = flow.units.convert_velocity_to_pu(flow.u())
+        dx = flow.units.convert_length_to_pu(1.0)
+        grad_u0 = torch_gradient(u[0], dx=dx, order=6)
+        grad_u1 = torch_gradient(u[1], dx=dx, order=6)
+        vorticity = torch.sum((grad_u0[1] - grad_u1[0]) ** 2)
+        if flow.stencil.d == 3:
+            grad_u2 = torch_gradient(u[2], dx=dx, order=6)
+            vorticity = vorticity + torch.sum(
+                (grad_u2[1] - grad_u1[2]) ** 2
+                + (grad_u0[2] - grad_u2[0]) ** 2)
+        return vorticity * dx ** flow.stencil.d
+
+
+class EnergySpectrum(Observable):
+    """Shell-binned kinetic energy spectrum via FFT."""
+
+    def __init__(self, flow: "Flow"):
+        super().__init__(flow)
+        self.dx = flow.units.convert_length_to_pu(1.0)
+        self.dimensions = flow.resolution
+        frequencies = [np.fft.fftfreq(dim, d=1 / dim)
+                       for dim in self.dimensions]
+        wavenumbers = np.stack(np.meshgrid(*frequencies, indexing="ij"))
+        wavenorms = np.linalg.norm(wavenumbers, axis=0)
+
+        if flow.stencil.d == 3:
+            self.norm = self.dimensions[0] * np.sqrt(2 * np.pi) / self.dx ** 2
+        else:
+            self.norm = self.dimensions[0] / self.dx
+
+        self.wavenumbers = np.arange(int(np.max(wavenorms)))
+        self.wavemask = torch.as_tensor(
+            (wavenorms[..., None] > self.wavenumbers - 0.5)
+            & (wavenorms[..., None] <= self.wavenumbers + 0.5),
+            device=flow.context.device)
+
+    def __call__(self, f: Optional[torch.Tensor] = None):
+        flow = self.flow if f is None else self.flow.view(f)
+        return self.spectrum_from_u(flow.u())
+
+    def spectrum_from_u(self, u):
+        u = self.flow.units.convert_velocity_to_pu(u)
+        d = self.flow.stencil.d
+        uh = torch.stack([torch.fft.fftn(u[i], dim=tuple(range(d)))
+                          for i in range(d)]) / self.norm
+        ekin = torch.sum(0.5 * (uh.imag ** 2 + uh.real ** 2), dim=0)
+        ek = ekin[..., None] * self.wavemask.to(ekin.dtype)
+        return ek.sum(dim=tuple(range(d)))
 
 
 class Mass(Observable):

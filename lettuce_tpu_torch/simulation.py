@@ -8,17 +8,21 @@ steps and returns MLUPS.
 Two step paths:
   * ``"torch"``: the plain tensor step (collision, boundaries, per-q roll),
     differentiable by ordinary autograd;
-  * ``"cuda"``: the fused CUDA stream-collide kernel (masked when the flow
-    has boundaries), chosen on a CUDA context with ``use_native`` when
-    every component supports it. Outlets ride it through the window
-    replay of ``ops/cuda/hybrid_outlets.py`` (``'cuda+hybrid'``). The
-    capability probe makes host-side checks only (component types, the
-    state's dtype, the outlets' replay windows), the same ones the kernel
-    gate raises on, and prints its reason when it keeps the torch step; a
-    build or launch error is never caught. Its differentiable step
-    (``make_step_fn``, ``make_segment_fn``, and ``__call__`` on a state
-    that requires grad) is ``fused_step``: the emit-u kernel forward, the
-    adjoint kernel backward, then the replay under autograd.
+  * ``"cuda"``: the fused CUDA stream-collide kernel with the
+    collision's fragment (masked when the flow has boundaries), chosen on
+    a CUDA context with ``use_native`` when every component supports it.
+    Outlets ride it through the window replay of
+    ``ops/cuda/hybrid_outlets.py`` (``'cuda+hybrid'``). The capability
+    probe makes host-side checks only (component types, the collision
+    spec, the state's dtype, the outlets' replay windows), the same ones
+    the kernel gate raises on, and prints its reason when it keeps the
+    torch step; a build or launch error is never caught. For BGK its
+    differentiable step (``make_step_fn``, ``make_segment_fn``, and
+    ``__call__`` on a state that requires grad) is ``fused_step``: the
+    emit-u kernel forward, the adjoint kernel backward, then the replay
+    under autograd. Every other collision has no adjoint kernel yet, so
+    its differentiable step is the torch step, and the simulation prints
+    why when one is asked for.
 
 No step ever writes into a tensor that a caller holds: the kernel path's
 throughput loop ping-pongs between two buffers the simulation allocated
@@ -42,7 +46,7 @@ from .ops.cuda import adjoint
 from .ops.cuda.fused_step import fused_step
 from .ops.cuda.hybrid_outlets import build_hybrid_fixup, nsm_outside_regions
 from .ops.cuda.stream_collide import (checked_table, gate_fused_params,
-                                      kernel_refusals, load_library,
+                                      kernel_refusals, load_libraries,
                                       stream_collide)
 from .ops.streaming import compose_step
 
@@ -109,9 +113,10 @@ class Simulation:
         self._step = self._torch_step
         self._step_kind = "torch"
         self._fixup = None
+        self._grad_refusal = None
         if self.context.use_native and self._native_supported():
             # a build error surfaces here, never later
-            load_library()
+            load_libraries()
             adjoint.load_library()
             self._use_kernel()
 
@@ -121,10 +126,10 @@ class Simulation:
     def _native_supported(self) -> bool:
         """Capability probe: a CUDA device, and no reason of
         ``kernel_refusals`` (the checks the kernel gate raises on: float32
-        or float64 state, a compiled stencil, the quadratic equilibrium,
-        BGK collision, boundaries with a kind in the kernel's table or an
-        outlet the window replay can rewrite). Prints each reason that
-        keeps the torch step."""
+        or float64 state, a compiled stencil, the quadratic equilibrium, a
+        collision with a compiled fragment, boundaries with a kind in the
+        kernel's table or an outlet the window replay can rewrite). Prints
+        each reason that keeps the torch step."""
         if self.context.device.type != "cuda":
             return False  # a CPU context runs the torch step
         reasons = kernel_refusals(self)
@@ -138,7 +143,9 @@ class Simulation:
         without the no-streaming mask when every frozen population lies
         in planes the replay rewrites. ``_buffers`` are the two state
         buffers the throughput loop steps between (out of place); they
-        are never handed out."""
+        are never handed out. The differentiable step is ``fused_step``
+        for BGK; for any other collision it stays the torch step, with
+        the reason in ``_grad_refusal``."""
         params, hybrid = gate_fused_params(self)
         self._fixup = None
         if hybrid:
@@ -151,11 +158,26 @@ class Simulation:
                     params["feq_field"])
         self._kernel_params = params
         self._buffers = [None, None]
-        if self._fixup is None:
+        kind = params["collision_spec"][0]
+        self._grad_refusal = None
+        if kind != "bgk":
+            self._step = self._torch_step
+            self._grad_refusal = (f"no adjoint kernel for the {kind!r} "
+                                  f"collision yet: K3b/K3d")
+        elif self._fixup is None:
             self._step = partial(fused_step, **params)
         else:
             self._step = partial(fused_step, fixup=self._fixup, **params)
         self._step_kind = "cuda"
+
+    def _differentiable_step(self):
+        """The step that autograd goes through, printing why it is the
+        torch step on a kernel path whose collision has no adjoint
+        kernel."""
+        if self._grad_refusal is not None:
+            print(f"native was requested, but {self._grad_refusal}; the "
+                  f"differentiable step runs the torch step.")
+        return self._step
 
     def _torch_step(self, f: torch.Tensor) -> torch.Tensor:
         """One collide-and-stream step in plain torch."""
@@ -185,10 +207,14 @@ class Simulation:
         between the simulation's two buffers, and its last step writes a
         fresh tensor, so neither ``f`` nor any tensor returned earlier is
         written."""
-        if (self._step_kind != "cuda"
-                or (f.requires_grad and torch.is_grad_enabled())):
+        if self._step_kind != "cuda":
             for _ in range(n):
                 f = self._step(f)
+            return f
+        if f.requires_grad and torch.is_grad_enabled():
+            step = self._differentiable_step()
+            for _ in range(n):
+                f = step(f)
             return f
         for i in range(n):
             f = self._cuda_step(f, None if i == n - 1
@@ -199,9 +225,10 @@ class Simulation:
         """One collide-and-stream step as a function ``f -> f'`` for custom
         loops (learned collisions, differentiable rollouts): on the kernel
         path the differentiable ``fused_step`` bound to the kernel
-        parameters, else the torch step. It returns a fresh tensor and
-        never writes into its input."""
-        return self._step
+        parameters, else (and for a collision without an adjoint kernel,
+        with the reason printed) the torch step. It returns a fresh tensor
+        and never writes into its input."""
+        return self._differentiable_step()
 
     def make_segment_fn(self, num_steps: int,
                         checkpoint_every: Optional[int] = None):
@@ -216,7 +243,7 @@ class Simulation:
         O(num_steps) to O(num_steps / k + k) at about twice the forward
         cost. The remainder steps run plainly. Pick k ~ sqrt(num_steps).
         """
-        step = self._step
+        step = self._differentiable_step()
         num_steps = int(num_steps)
 
         def run(f, n):

@@ -1,10 +1,11 @@
-"""Shared numerical utilities: the periodic finite-difference gradient."""
+"""Shared numerical utilities: the periodic finite-difference gradient, the
+Jacobi Poisson solver of the pressure initialisation, and ``append_axes``."""
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["torch_gradient"]
+__all__ = ["torch_gradient", "torch_jacobi", "append_axes"]
 
 # Fornberg (1988) central-difference weights for the first derivative.
 _FD_WEIGHTS = {
@@ -31,3 +32,31 @@ def torch_gradient(f: torch.Tensor, dx=1, order: int = 2) -> torch.Tensor:
             acc = acc + weight * torch.roll(f, shift, dims=axis)
         components.append(acc / dx)
     return torch.stack(components)
+
+
+def _laplacian_neighbors(p: torch.Tensor, dim: int) -> torch.Tensor:
+    acc = torch.zeros_like(p)
+    for axis in range(dim):
+        acc = acc + torch.roll(p, 1, dims=axis) + torch.roll(p, -1, dims=axis)
+    return acc
+
+
+def torch_jacobi(f, p, dx, dim, tol_abs=1e-10, max_num_steps=100000):
+    """Jacobi solver for the Poisson equation ``lap p = f`` on a periodic
+    grid, iterating until the mean squared residual drops below
+    ``tol_abs`` or ``max_num_steps`` sweeps have run (at least one sweep).
+    The residual is read on the host after every sweep, so the iterate
+    that stops is the one ``lettuce_tpu``'s ``jax_jacobi`` stops at."""
+    dx2 = dx * dx
+    n_nb = 2 * dim
+    for _ in range(max_num_steps):
+        p = -(f * dx2 - _laplacian_neighbors(p, dim)) / n_nb
+        residual = f - (_laplacian_neighbors(p, dim) - n_nb * p) / dx2
+        if not float(torch.mean(residual ** 2)) > tol_abs:
+            break
+    return p
+
+
+def append_axes(array: torch.Tensor, n: int) -> torch.Tensor:
+    """``array`` with ``n`` trailing axes of length 1."""
+    return array.reshape(tuple(array.shape) + (1,) * n)

@@ -57,7 +57,7 @@ def test_rejects_bad_choices():
         cli.main(["--precision", "quadruple", "benchmark"])
     assert err.value.code == 2
     with pytest.raises(SystemExit) as err:
-        cli.main(["benchmark", "-f", "poiseuille2d", "--device", "cpu"])
+        cli.main(["benchmark", "-f", "cylinder2d", "--device", "cpu"])
     assert err.value.code == 2
 
 

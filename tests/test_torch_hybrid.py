@@ -323,7 +323,8 @@ def test_probe_and_gate_agree(name, capsys):
 def test_probe_names_every_component(capsys):
     flow = obstacle(ltt, _cpu(), lambda pkg, flow: [
         pkg.PeriodicPressureBC(flow, 1e-3, pkg.BGKCollision(0.8))])
-    ok, printed, gate = _probe(flow, ltt.NoCollision(), capsys)
+    ok, printed, gate = _probe(flow, ltt.SmagorinskyCollision(
+        0.8, force=ltt.Guo(flow, 0.8, [1e-5, 0.0])), capsys)
     assert not ok and not gate
-    assert "collision 'NoCollision'" in printed
+    assert "collision 'SmagorinskyCollision'" in printed
     assert "boundary 'PeriodicPressureBC'" in printed

@@ -177,7 +177,7 @@ def test_probe_keeps_torch_step_for_16_bit_state(dtype, monkeypatch,
     def no_build():
         raise AssertionError("the kernel library was loaded")
 
-    monkeypatch.setattr(simulation_module, "load_library", no_build)
+    monkeypatch.setattr(simulation_module, "load_libraries", no_build)
     monkeypatch.setattr(simulation_module.adjoint, "load_library", no_build)
     sim = ltt.Simulation(flow, ltt.BGKCollision(0.6), [])
     assert sim._step_kind == "torch"
