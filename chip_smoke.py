@@ -18,8 +18,11 @@ backward, and the Ghia lid-driven cavity gate through the masked kernel,
 and profiles the bounded path; then drives the collision-model path: every
 collision fragment against its plain version, the JAX suite's fragment
 cells at full size, the TGV3D KBC and Poiseuille gates, every fragment on
-the obstacle, the probe's refusals and the decaying turbulence. Every
-failed check exits non-zero; nothing is caught.
+the obstacle, the probe's refusals and the decaying turbulence; then the
+gradients of the fragments: every emit-u fragment instance and fragment
+adjoint against its plain version, the gradient cells at full width in
+full and split mode, and two obstacle gradients. Every failed check exits
+non-zero; nothing is caught.
 
 Phases:
   0. the card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
@@ -102,14 +105,38 @@ Phases:
      steps, each masked kernel timed against its plain version; the probe
      keeps the torch step, with its reason, for an MRT transform without
      a closed form, Smagorinsky with a force and a per-node acceleration;
-     a TRT state that requires grad runs the torch step and launches no
-     BGK gradient kernel;
+     a TRT state that requires grad launches the emit-u TRT fragment and
+     the TRT adjoint (3 each for 3 steps) and prints nothing;
  18. decaying turbulence, D3Q19 Smagorinsky 256^3 float32: the kernel path
      against the torch step over 4 steps, 20 steps losing energy
-     monotonically.
+     monotonically;
+ 19. every new instance against its plain version at the grids of phase 2,
+     float32 to 5e-6 and float64 to 1e-12 (adjoints to that of the plain's
+     largest magnitude): the emit-u trt, reg and mrt_from_feq instances,
+     periodic and masked; the adjoint of every full-mode spec (trt, matvec
+     for reg and mrt_from_feq, smag, none) periodic, masked and with the
+     no-streaming mask alone (split mode's entry), and BGK's nsm-only
+     path; one launch each;
+ 20. the gradient cells at full width, float32 (trt3d_256_d3q19,
+     mrt3d_256_d3q19, reg3d_256_d3q27, smagorinsky_d3q19 256^3: full mode;
+     kbc_d3q27 128^3, mrt_lallemand_d2q9 and bgk_guo_d2q9 2048^2: split
+     mode, benchmarks/bench_adjoint.py:102-126): make_segment_fn(8) with 8
+     forward fragment and 8 adjoint launches, the 2-step gradient against
+     autograd of the torch step along the kernels' trajectory to 1e-5
+     (KBC's float32 gradient is too ill-conditioned to follow the torch
+     step's own), fwd+bwd MLUPS (3 repeats after a
+     warm-up), and per launch the forward and adjoint kernels against
+     their plain versions by CUDA events (plus split mode's pointwise VJP);
+ 21. obstacle2d_2048 with the regularized collision (masked emit-u reg,
+     masked matvec adjoint, replay) and with KBC (masked kbc, the streaming
+     transpose, the pointwise VJP, replay): the 8-step gradient against
+     autograd of the torch step along the kernels' trajectory to 1e-5,
+     both kernels per launch.
 
-Prints, before the last line, one JSON line describing the kernels, and
-last ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
+Prints, before the last line, one JSON line describing the kernels (with
+each launch's bound: its bytes over an H100 SXM's 3.35 TB/s and its
+operations over 67 TFLOP/s float32, the larger), and last
+``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
 """
 
 import json
@@ -151,6 +178,20 @@ BYTES_PER_UPDATE = 19 * 4 * 2  # D3Q19 float32: q populations in and out
 # emit-u: q in, q + d out; adjoint: q + d in, q out
 GRAD_BYTES_PER_UPDATE = (19 * 2 + 3) * 4
 SEGMENT_STEPS = 8
+# the least time the card could take (bound_ms in the kernels line): an
+# H100 SXM's published HBM3 rate and float32 rate outside the tensor cores
+# (NVIDIA's H100 datasheet), against the bytes each launch
+# must move (inputs read once, outputs written once) and its operations
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# operations per population of each kernel, counted from csrc/ (a
+# multiply-add counts two; approximate, and far below the bytes' time)
+OPS_PER_POPULATION = {
+    "bgk": 10, "emit_u": 11, "none": 0, "bgk_force": 14, "trt": 12,
+    "reg": 16, "smag": 20, "mrt_from_feq": 31, "mrt_lallemand": 40,
+    "mrt_dellar": 40, "mrt_hermite27": 66, "kbc": 40, "adjoint_bgk": 14,
+    "adjoint_trt": 16, "adjoint_matvec": 40, "adjoint_smag": 30,
+    "adjoint_none": 0}
 
 
 def check(condition, message):
@@ -192,7 +233,7 @@ def phase1_build():
     beg = time.perf_counter()
     paths = build.build_libraries()
     sc.load_libraries()
-    adjoint.load_library()
+    adjoint.load_libraries()
     seconds = time.perf_counter() - beg
     print(f"phase 1: kernel libraries "
           f"{', '.join(path.name for path in paths.values())} "
@@ -407,6 +448,7 @@ def reset_launch_counts():
     adjoint.stream_collide_adjoint.launches = 0
     adjoint.stream_collide_adjoint.masked_launches = 0
     sc.stream_collide.fragment_launches.clear()
+    adjoint.stream_collide_adjoint.fragment_launches.clear()
 
 
 def scaled_err(got, want):
@@ -711,10 +753,12 @@ def phase9_masked_kernels_vs_plain():
     return worst_fwd, worst_emit, worst_adjoint
 
 
-def obstacle_simulation(use_native, nx=2048, ny=1024, outlet=None):
+def obstacle_simulation(use_native, nx=2048, ny=1024, outlet=None,
+                        make_collision=None):
     """``obstacle2d_2048`` of benchmarks/run_benchmarks.py:76-88,136 on
     the card: a cylinder in a 2048x1024 D2Q9 float32 channel. ``outlet``
-    (a boundary class name) replaces its anti-bounce-back outlet."""
+    (a boundary class name) replaces its anti-bounce-back outlet,
+    ``make_collision(flow)`` its BGK collision."""
     import lettuce_tpu_torch as lt
 
     class Channel(lt.Obstacle):
@@ -733,8 +777,11 @@ def obstacle_simulation(use_native, nx=2048, ny=1024, outlet=None):
     r = 0.05 * ny
     flow.mask = (x - 0.25 * nx) ** 2 + (y - 0.5 * ny) ** 2 < r ** 2
     flow.initialize()
-    return lt.Simulation(
-        flow, lt.BGKCollision(tau=flow.units.relaxation_parameter_lu), [])
+    if make_collision is None:
+        return lt.Simulation(
+            flow, lt.BGKCollision(tau=flow.units.relaxation_parameter_lu),
+            [])
+    return lt.Simulation(flow, make_collision(flow), [])
 
 
 def probe_on_card():
@@ -1216,6 +1263,11 @@ def fragment_launches():
     return dict(sc.stream_collide.fragment_launches)
 
 
+def adjoint_fragment_launches():
+    from lettuce_tpu_torch.ops.cuda import adjoint
+    return dict(adjoint.stream_collide_adjoint.fragment_launches)
+
+
 def phase13_fragments_vs_plain():
     """Every K1c instance (fragment x stencil x dtype, periodic and masked)
     against its plain version on the card at the grids of phase 2."""
@@ -1367,7 +1419,10 @@ def phase14_fragment_cells(card, saxpy_gbps):
               f" {gbps:.1f} GB/s, {gbps / saxpy_gbps:.1%} of the saxpy "
               f"({card})")
         results[key] = dict(cell=cell, mlups=mlups, launches=launched[key],
-                            err=err, kernel_ms=kernel_ms, plain_ms=plain_ms)
+                            err=err, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                            cells=cells, bytes=bytes_per_update
+                            + (1 if key.startswith("masked_") else 0),
+                            q=flow.stencil.q)
         del simulation, flow, f, out, got
         torch.cuda.empty_cache()
     return results
@@ -1545,9 +1600,11 @@ def masked_sweep(card):
                       f"kernel vs plain {err1:.3e} (atol 5e-6); kernel "
                       f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms per "
                       f"step ({card})")
+                q = stencil.q
                 results[key] = dict(launches=launched[key],
                                     err=max(err, err1), kernel_ms=kernel_ms,
-                                    plain_ms=plain_ms)
+                                    plain_ms=plain_ms, cells=f[0].numel(),
+                                    bytes=2 * q * 4 + 1, q=q)
                 del sims, f, out
                 torch.cuda.empty_cache()
     return results
@@ -1558,8 +1615,8 @@ def probe_fragments():
     transform without a closed form (the stand-in for the cumulant
     collision, which the port does not have yet), Smagorinsky with a
     force and a per-node acceleration; a TRT state that requires grad runs
-    the torch step and launches no BGK gradient kernel, while the forward
-    outside autograd launches the TRT fragment."""
+    the emit-u TRT fragment and the TRT adjoint (K3b) and prints nothing,
+    and the forward outside autograd launches the TRT fragment."""
     import contextlib
     import io
     import lettuce_tpu_torch as lt
@@ -1602,30 +1659,32 @@ def probe_fragments():
         check(bool(torch.isfinite(sim.flow.f).all()), f"{name}: not finite")
 
     sim, _ = probed(tgv3d, lambda flow: lt.TRTCollision(0.6, 1.1))
-    check(sim.step_path == "cuda x1", f"TRT: {sim.step_path}")
+    check(sim.step_path == "cuda x1" and sim.adjoint_mode == "full",
+          f"TRT: {sim.step_path}, {sim.adjoint_mode}")
     f0 = sim.flow.f.detach().clone().requires_grad_(True)
     printed = io.StringIO()
     reset_launch_counts()
     with contextlib.redirect_stdout(printed):
         segment = sim.make_segment_fn(3)
-    (grad,) = torch.autograd.grad((segment(f0) ** 2).sum(), f0)
+        (grad,) = torch.autograd.grad((segment(f0) ** 2).sum(), f0)
     torch.cuda.synchronize()
     grad_launches = (launch_counts(), masked_launch_counts(),
-                     fragment_launches())
-    check(grad_launches == ((0, 0, 0), (0, 0, 0), {}),
-          f"TRT gradient launched kernels: {grad_launches}")
+                     fragment_launches(), adjoint_fragment_launches())
+    check(grad_launches == ((0, 0, 0), (0, 0, 0), {"emit_u_trt": 3},
+                            {"trt": 3}),
+          f"TRT gradient launches: {grad_launches}")
     check(bool(torch.isfinite(grad).all()) and grad.abs().max().item() > 0,
           "TRT gradient not finite or zero")
     reason = printed.getvalue().strip()
-    check("no adjoint kernel for the 'trt' collision yet" in reason,
-          f"TRT gradient: reason {reason!r}")
+    check(reason == "", f"TRT gradient printed {reason!r}")
+    reset_launch_counts()
     sim(3)
     check(fragment_launches() == {"trt": 3},
           f"TRT forward launches {fragment_launches()}")
     print(f"phase 17: TRT with a state that requires grad: launches "
-          f"(BGK periodic, BGK masked, fragments) {grad_launches}, "
-          f"{reason!r}; the forward outside autograd launched "
-          f"{fragment_launches()}")
+          f"(BGK periodic, BGK masked, fragments, fragment adjoints) "
+          f"{grad_launches}, nothing printed; the forward outside autograd "
+          f"launched {fragment_launches()}")
 
 
 def phase17_probe_and_masked(card):
@@ -1680,6 +1739,431 @@ def phase18_decaying_turbulence(card):
     return err
 
 
+# ----------------------------------------------------------------------
+# the gradients of the collision fragments: the emit-u fragment instances
+# (K1d), their adjoints (K3b) and split mode (K3d)
+# ----------------------------------------------------------------------
+ADJOINT_FRAGMENTS_SOURCE = "lettuce_tpu_torch/csrc/adjoint_fragments.cu"
+# the adjoint specs of lettuce_tpu/ops/pallas/adjoint.py::_adjoint_kernel
+ADJOINT_SPEC_REPLACES = {"none": 257, "smag": 299, "trt": 423, "matvec": 434}
+# the emit-u body of the TPU kernel, fragment-independent
+EMIT_U_REPLACES = "lettuce_tpu/ops/pallas/stream_collide.py:1535"
+
+
+def perturbed(f, seed, rel=1e-2):
+    """``f`` times (1 + rel U(-1, 1)), seeded numpy noise: off equilibrium,
+    where KBC's guard is no subgradient choice (phase 13's reason)."""
+    noise = np.random.default_rng(seed).uniform(-1, 1, tuple(f.shape))
+    return (f * (1 + rel * torch.as_tensor(noise, dtype=f.dtype,
+                                           device=f.device))).contiguous()
+
+
+def adjoint_key(spec):
+    """The fragment-adjoint counter key of a spec's backward kernel (split
+    mode: the identity's)."""
+    return "none" if spec.mode == "split" else spec.adjoint[0]
+
+
+def phase19_gradient_instances_vs_plain():
+    """Every new instance against its plain version at the grids of phase
+    2, float32 to 5e-6 and float64 to 1e-12 (adjoints scaled by the
+    plain's largest magnitude): the emit-u instances of trt, reg and
+    mrt_from_feq, periodic and masked (phase 9's codes and frozen planes);
+    the adjoint of every full-mode spec (trt, matvec for reg and
+    mrt_from_feq, smag, none) periodic, masked and with the no-streaming
+    mask alone (the nsm-only entry split mode runs), and BGK's nsm-only
+    path. One launch each."""
+    import lettuce_tpu_torch as lt
+    from lettuce_tpu_torch.ops.cuda import adjoint
+    import lettuce_tpu_torch.ops.cuda.stream_collide as sc
+    worst = {}
+    seed = 400
+    for stencil, shape in phase2_cases():
+        name = type(stencil).__name__
+        d = stencil.d
+        args = (stencil.e, stencil.w, stencil.opposite, stencil.cs, None)
+        for dtype in (torch.float32, torch.float64):
+            context = lt.Context(device="cuda", dtype=dtype, use_native=False)
+            flow = lt.TaylorGreenVortex(context, list(shape), 1600, 0.05,
+                                        stencil=stencil,
+                                        initialize_fneq=False)
+            collisions = fragment_collisions(flow, FRAGMENT_TAU)
+            collisions["bgk"] = lt.BGKCollision(FRAGMENT_TAU)
+            for fragment, collision in collisions.items():
+                spec = fragment_spec(flow, collision)
+                if spec.mode == "split":
+                    continue  # K1c forward (phase 13), the none adjoint here
+                seed += 1
+                f, _ = tgv_state(stencil, shape, dtype, seed)
+                masks = bounded_case(stencil, shape, dtype, seed)[1]
+                g = torch.as_tensor(np.random.default_rng(seed)
+                                    .standard_normal(tuple(f.shape)),
+                                    dtype=dtype, device="cuda")
+                errs = []
+                if fragment in ("trt", "reg", "mrt_from_feq"):
+                    for variant, mk in (("emit_u_", {}),
+                                        ("masked_emit_u_", masks)):
+                        key = variant + fragment
+                        u = torch.empty((d, *shape), dtype=dtype,
+                                        device="cuda")
+                        before = fragment_launches().get(key, 0)
+                        out, _ = sc.stream_collide(f, *args, **mk, u_out=u,
+                                                   collision_spec=spec)
+                        torch.cuda.synchronize()
+                        launched = fragment_launches().get(key, 0) - before
+                        ref, u_ref = sc.stream_collide_plain(
+                            f, *args, **mk, collision_spec=spec, emit_u=True)
+                        err = max((out - ref).abs().max().item(),
+                                  (u - u_ref).abs().max().item())
+                        check(launched == 1, f"{key} {name}: {launched} "
+                                             f"launches")
+                        check(bool(torch.isfinite(out).all()
+                                   and torch.isfinite(u).all()),
+                              f"{key} {name} {dtype}: not finite")
+                        check(err <= ATOL[dtype],
+                              f"{key} {name} {dtype}: max error {err}")
+                        worst[key] = max(worst.get(key, 0.0), err)
+                        errs.append(f"{variant}fwd {err:.2e}")
+                _, u = sc.stream_collide_plain(f, *args, collision_spec=spec,
+                                               emit_u=True) \
+                    if spec.residual == "u" else (None, None)
+                res = {"u": u, "f": f, None: None}[spec.residual]
+                kind = spec.adjoint[0]
+                for variant, mk in (("", {}), ("masked_", masks),
+                                    ("frozen_", {"nsm": masks["nsm"]})):
+                    if kind == "bgk" and variant != "frozen_":
+                        continue  # phases 6 and 9
+                    key = variant + kind
+                    before = (adjoint_fragment_launches().get(key, 0),
+                              masked_launch_counts()[2])
+                    ct = adjoint.stream_collide_adjoint(g, res, *args, **mk,
+                                                        collision_spec=spec)
+                    torch.cuda.synchronize()
+                    after = (adjoint_fragment_launches().get(key, 0),
+                             masked_launch_counts()[2])
+                    launched = after[kind == "bgk"] - before[kind == "bgk"]
+                    ref = adjoint.stream_collide_adjoint_plain(
+                        g, res, *args, **mk, collision_spec=spec)
+                    err, scale = scaled_err(ct, ref)
+                    check(launched == 1, f"adjoint {key} {name}: {launched} "
+                                         f"launches")
+                    check(bool(torch.isfinite(ct).all()),
+                          f"adjoint {key} {name} {dtype}: not finite")
+                    check(err <= GRAD_RTOL[dtype] * scale,
+                          f"adjoint {key} ({fragment}) {name} {dtype}: "
+                          f"{err} of {scale}")
+                    worst["adjoint_" + key] = max(
+                        worst.get("adjoint_" + key, 0.0), err)
+                    errs.append(f"adjoint {variant or 'periodic_'}{kind} "
+                                f"{err / scale:.2e}")
+                print(f"phase 19: {fragment} {name} "
+                      f"{'x'.join(map(str, shape))} {str(dtype)[6:]}: "
+                      f"{', '.join(errs)} (atol {ATOL[dtype]:.0e}; adjoints "
+                      f"relative, rtol {GRAD_RTOL[dtype]:.0e})")
+    return worst
+
+
+def gradient_cells():
+    """The gradient cells, uncut, float32: (cell, flow factory, collision
+    factory, mode). The full-mode cells are the fragment cells of
+    benchmarks/run_benchmarks.py:129-171 and bench_adjoint.py's
+    smagorinsky_d3q19; the split-mode ones bench_adjoint.py:102-126's."""
+    import lettuce_tpu_torch as lt
+    by_name = {cell: (make_flow, make_collision)
+               for cell, _, make_flow, make_collision in fragment_cells()}
+
+    def tgv(stencil, n):
+        def make(context):
+            return lt.TaylorGreenVortex(context, n, 1600, 0.05,
+                                        stencil=stencil,
+                                        initialize_fneq=False)
+        return make
+
+    def tau(flow):
+        return flow.units.relaxation_parameter_lu
+
+    return [
+        ("trt3d_256_d3q19", *by_name["trt3d_256_d3q19"], "full"),
+        ("mrt3d_256_d3q19", *by_name["mrt3d_256_d3q19"], "full"),
+        ("reg3d_256_d3q27", *by_name["reg3d_256_d3q27"], "full"),
+        ("smagorinsky_d3q19", tgv(lt.D3Q19(), 256),
+         lambda flow: lt.SmagorinskyCollision(tau(flow)), "full"),
+        ("kbc_d3q27", tgv(lt.D3Q27(), 128),
+         lambda flow: lt.KBCCollision(tau(flow)), "split"),
+        ("mrt_lallemand_d2q9", tgv(lt.D2Q9(), [2048, 2048]),
+         lambda flow: lt.MRTCollision(
+             lt.D2Q9Lallemand(flow.stencil, flow.context), [1.1] * 9,
+             flow.context), "split"),
+        ("bgk_guo_d2q9", tgv(lt.D2Q9(), [2048, 2048]),
+         lambda flow: lt.BGKCollision(0.8, force=lt.Guo(flow, 0.8,
+                                                        [1e-5, 0.0])),
+         "split"),
+    ]
+
+
+def kernel_pair(params, f, g):
+    """The step's forward and adjoint kernels as the Function runs them
+    (emit-u or primal; the spec's adjoint, or split mode's streaming
+    transpose), their plain versions, and split mode's pointwise VJP:
+    (forward, forward plain, adjoint, adjoint plain, prestream VJP or
+    None, residual). Outputs go to preallocated buffers."""
+    from lettuce_tpu_torch.ops.cuda import adjoint
+    import lettuce_tpu_torch.ops.cuda.stream_collide as sc
+    spec = params["collision_spec"]
+    out = torch.empty_like(f)
+    ct = torch.empty_like(f)
+    if spec.residual == "u":
+        d = np.asarray(params["e"]).shape[1]
+        res = torch.empty((d, *f.shape[1:]), dtype=f.dtype, device=f.device)
+        sc.stream_collide(f, **params, out=out, u_out=res)
+
+        def forward():
+            sc.stream_collide(f, **params, out=out, u_out=res)
+
+        def forward_plain():
+            return sc.stream_collide_plain(f, **params, emit_u=True)
+    else:
+        res = f if spec.residual == "f" else None
+
+        def forward():
+            sc.stream_collide(f, **params, out=out)
+
+        def forward_plain():
+            return sc.stream_collide_plain(f, **params)
+    if spec.mode == "full":
+        def backward():
+            adjoint.stream_collide_adjoint(g, res, **params, out=ct)
+
+        def backward_plain():
+            return adjoint.stream_collide_adjoint_plain(g, res, **params)
+        vjp = None
+    else:
+        streaming = dict(e=params["e"], w=params["w"],
+                         opposite=params["opposite"], cs=params["cs"],
+                         tau_inv=None, nsm=params.get("nsm"),
+                         collision_spec=adjoint.NONE_SPEC)
+
+        def backward():
+            adjoint.stream_collide_adjoint(g, None, **streaming, out=ct)
+
+        def backward_plain():
+            return adjoint.stream_collide_adjoint_plain(g, None, **streaming)
+
+        def vjp():
+            adjoint.prestream_vjp(
+                f, ct, e=params["e"], w=params["w"],
+                opposite=params["opposite"], cs=params["cs"],
+                collision_spec=spec, ncm=params.get("ncm"),
+                table=params.get("table"),
+                feq_field=params.get("feq_field"))
+    return forward, forward_plain, backward, backward_plain, vjp, out, ct, res
+
+
+def torch_step_gradient(simulation, f0, steps):
+    """The gradient of sum(f_n^2) by autograd of the simulation's torch
+    step, linearised along the kernel path's own trajectory f_0 .. f_n:
+    the VJP of the torch step at each f_i, chained backwards. Along the
+    torch step's own trajectory instead, float32 roundoff in the forward
+    moves the states by ~1e-7, and where the Jacobian is ill-conditioned
+    (KBC's entropic stabiliser: in float32 the torch step's own gradient
+    is ~1e-3 from its float64 gradient on the CPU) that difference, not
+    the backward, would dominate; the forward kernels are held to their
+    plain versions in phases 13, 14 and 19."""
+    step = simulation.make_step_fn()
+    states = [f0.detach()]
+    with torch.no_grad():
+        for _ in range(steps):
+            states.append(step(states[-1]))
+    ct = 2 * states.pop()
+    for x in reversed(states):
+        x = x.clone().requires_grad_(True)
+        (ct,) = torch.autograd.grad(simulation._torch_step(x), x, ct)
+    return ct
+
+
+def gradient_cell(card, saxpy_gbps, cell, simulation, seed, repeats,
+                  reference_steps):
+    """One gradient cell: the 8-step gradient through make_segment_fn with
+    its launch counts, the gradient over ``reference_steps`` against
+    autograd of the torch step (torch_step_gradient), fwd+bwd MLUPS (3
+    repeats after a warm-up), and per launch the forward and adjoint
+    kernels against their plain versions by CUDA events, in turns."""
+    flow = simulation.flow
+    params = simulation._kernel_params
+    spec = params["collision_spec"]
+    masked = params.get("ncm") is not None
+    variant = "masked_" if masked else ""
+    fwd_key = variant + ("emit_u_" if spec.residual == "u" else "") \
+        + spec.fragment
+    adj_key = variant * (spec.mode == "full") + adjoint_key(spec)
+    f0 = perturbed(flow.f.detach(), seed).requires_grad_(True)
+    cells = f0[0].numel()
+
+    def grad_of(seg, x=f0):
+        (grad,) = torch.autograd.grad((seg(x) ** 2).sum(), x)
+        return grad
+
+    segment = simulation.make_segment_fn(SEGMENT_STEPS)
+    reset_launch_counts()
+    grad = grad_of(segment)
+    torch.cuda.synchronize()
+    launches = (fragment_launches(), adjoint_fragment_launches())
+    check(launches == ({fwd_key: SEGMENT_STEPS}, {adj_key: SEGMENT_STEPS})
+          and launch_counts() == (0, 0, 0)
+          and masked_launch_counts() == (0, 0, 0),
+          f"{cell}: launches {launches} for an {SEGMENT_STEPS}-step gradient")
+    check(bool(torch.isfinite(grad).all()) and grad.abs().max().item() > 0,
+          f"{cell}: gradient not finite or zero")
+    del grad
+    # the gradient against autograd of the torch step
+    got = grad_of(simulation.make_segment_fn(reference_steps))
+    ref = torch_step_gradient(simulation, f0, reference_steps)
+    err_g, scale_g = scaled_err(got, ref)
+    del got, ref
+    torch.cuda.empty_cache()
+    check(err_g <= GRAD_RTOL[torch.float32] * scale_g,
+          f"{cell}: gradient vs autograd of the torch step {err_g} of "
+          f"{scale_g}")
+    # fwd+bwd MLUPS
+    grad_of(segment)
+    torch.cuda.synchronize()
+    beg = time.perf_counter()
+    for _ in range(3):
+        grad_of(segment)
+    torch.cuda.synchronize()
+    seconds = (time.perf_counter() - beg) / 3
+    mlups = cells * SEGMENT_STEPS / seconds / 1e6
+    torch.cuda.empty_cache()
+    # the kernels per launch against their plain versions, on the
+    # perturbed state; KBC on the flow's own state: its stabiliser's guard
+    # (gamma -> 2 below 1e-15) is a jump, random noise puts some cell at
+    # gamma ~ 0, and float32 roundoff there moves a population by
+    # 2 beta dh (5.9e-4 on the obstacle with 1 % noise)
+    f = (flow.f if spec.fragment == "kbc" else f0).detach().contiguous()
+    g = torch.as_tensor(np.random.default_rng(seed).standard_normal(
+        tuple(f.shape)), dtype=f.dtype, device="cuda")
+    (forward, forward_plain, backward, backward_plain, vjp, out, ct,
+     res) = kernel_pair(params, f, g)
+    forward()
+    ref = forward_plain()
+    torch.cuda.synchronize()
+    if spec.residual == "u":
+        ref, ref_u = ref
+        err_f = max((out - ref).abs().max().item(),
+                    (res - ref_u).abs().max().item())
+        del ref_u
+    else:
+        err_f = (out - ref).abs().max().item()
+    del ref
+    backward()
+    ref = backward_plain()
+    torch.cuda.synchronize()
+    err_a, scale_a = scaled_err(ct, ref)
+    del ref
+    torch.cuda.empty_cache()
+    check(err_f <= ATOL[torch.float32], f"{cell} forward kernel vs plain: "
+                                        f"{err_f}")
+    check(err_a <= GRAD_RTOL[torch.float32] * scale_a,
+          f"{cell} adjoint kernel vs plain: {err_a} of {scale_a}")
+    fwd_ms, fwd_plain_ms, fwd_turns = time_in_turns(
+        forward, forward_plain, kernel_repeats=repeats, plain_repeats=2)
+    adj_ms, adj_plain_ms, adj_turns = time_in_turns(
+        backward, backward_plain, kernel_repeats=repeats, plain_repeats=2)
+    vjp_ms = None if vjp is None else cuda_ms(vjp, 3)
+    q, d = np.asarray(params["e"]).shape
+    code = 1 if masked else 0
+    fwd_bytes = (2 * q + (d if spec.residual == "u" else 0)) * 4 + code
+    # split mode's streaming transpose reads no code and no residual
+    adj_bytes = ((2 * q + {"u": d, "f": q, None: 0}[spec.residual]) * 4
+                 + code if spec.mode == "full" else 2 * q * 4)
+    print(f"phase {20 if not masked else 21}: {cell} ({spec.mode} mode, "
+          f"{fwd_key} + {adj_key}), {simulation.step_path}: "
+          f"{SEGMENT_STEPS}-step gradient launches {launches}; "
+          f"{reference_steps}-step gradient vs autograd of the torch step "
+          f"along the kernels' trajectory "
+          f"{err_g:.3e} of {scale_g:.3e} ({err_g / scale_g:.2e}, rtol 1e-5); "
+          f"fwd+bwd {mlups:.1f} MLUPS ({seconds * 1e3:.2f} ms per gradient); "
+          f"per launch, CUDA events: forward {fwd_turns[1]:.4f} / "
+          f"{fwd_turns[2]:.4f} ms (plain {fwd_turns[0]:.4f} / "
+          f"{fwd_turns[3]:.4f}; {fwd_bytes} B/update, "
+          f"{fwd_bytes * cells / fwd_ms / 1e6 / saxpy_gbps:.1%} of the "
+          f"saxpy), adjoint {adj_turns[1]:.4f} / {adj_turns[2]:.4f} ms "
+          f"(plain {adj_turns[0]:.4f} / {adj_turns[3]:.4f}; {adj_bytes} "
+          f"B/update, {adj_bytes * cells / adj_ms / 1e6 / saxpy_gbps:.1%} "
+          f"of the saxpy)"
+          + ("" if vjp_ms is None else
+             f", split mode's pointwise VJP in torch {vjp_ms:.4f} ms")
+          + f"; kernel vs plain: forward {err_f:.3e}, adjoint "
+          f"{err_a / scale_a:.2e} relative ({card})")
+    del f0, f, g, out, ct, res, segment
+    torch.cuda.empty_cache()
+    fragment = spec.fragment
+    forward_entry = dict(
+        key=fwd_key, launches=SEGMENT_STEPS, err=err_f, ms=fwd_ms,
+        plain_ms=fwd_plain_ms, cells=cells, bytes=fwd_bytes,
+        ops=q * OPS_PER_POPULATION["emit_u" if spec.residual == "u"
+                                   and fragment == "bgk" else fragment],
+        fragment=fragment, emit_u=spec.residual == "u")
+    adjoint_entry = dict(
+        key=adj_key, launches=SEGMENT_STEPS, err=err_a, ms=adj_ms,
+        plain_ms=adj_plain_ms, cells=cells, bytes=adj_bytes,
+        ops=q * OPS_PER_POPULATION["adjoint_" + adjoint_key(spec)],
+        spec=adjoint_key(spec))
+    return dict(cell=cell, mode=spec.mode, mlups=mlups, err=err_g,
+                scale=scale_g, forward=forward_entry, adjoint=adjoint_entry,
+                vjp_ms=vjp_ms)
+
+
+def phase20_gradient_cells(card, saxpy_gbps):
+    """The gradient cells at full width (gradient_cells): each through
+    Simulation.make_segment_fn(8) with 8 forward fragment launches and 8
+    adjoint launches, the gradient over 2 steps against autograd of the
+    torch step, fwd+bwd MLUPS, and both kernels per launch."""
+    import lettuce_tpu_torch as lt
+    results = []
+    for seed, (cell, make_flow, make_collision, mode) in enumerate(
+            gradient_cells(), start=500):
+        context = lt.Context(device="cuda", dtype=torch.float32,
+                             use_native=True)
+        flow = make_flow(context)
+        simulation = lt.Simulation(flow, make_collision(flow), [])
+        check(simulation.step_path == "cuda x1"
+              and simulation.adjoint_mode == mode,
+              f"{cell}: {simulation.step_path!r}, {simulation.adjoint_mode}")
+        results.append(gradient_cell(card, saxpy_gbps, cell, simulation,
+                                     seed, repeats=20, reference_steps=2))
+        del simulation, flow
+        torch.cuda.empty_cache()
+    return results
+
+
+def phase21_obstacle_gradients(card, saxpy_gbps):
+    """obstacle2d_2048 through the masked kernels and the replay with the
+    regularized collision (full mode: masked emit-u reg, masked matvec
+    adjoint) and with KBC (split mode: masked kbc, the streaming
+    transpose, the pointwise VJP): the 8-step gradient against autograd of
+    the torch step, and both kernels per launch."""
+    import lettuce_tpu_torch as lt
+    results = []
+    for seed, (cell, make_collision, mode) in enumerate((
+            ("obstacle2d_2048_reg",
+             lambda flow: lt.RegularizedCollision(
+                 flow.units.relaxation_parameter_lu), "full"),
+            ("obstacle2d_2048_kbc",
+             lambda flow: lt.KBCCollision(
+                 flow.units.relaxation_parameter_lu), "split")), start=600):
+        simulation = obstacle_simulation(True, make_collision=make_collision)
+        check(simulation.step_path == "cuda+hybrid x1"
+              and simulation.adjoint_mode == mode,
+              f"{cell}: {simulation.step_path}, {simulation.adjoint_mode}")
+        results.append(gradient_cell(card, saxpy_gbps, cell, simulation,
+                                     seed, repeats=200,
+                                     reference_steps=SEGMENT_STEPS))
+        del simulation
+        torch.cuda.empty_cache()
+    return results
+
+
 def ptxas_summary():
     """Registers and spills per kernel instance from the build's ptxas
     report: one line per source, the full table in
@@ -1723,8 +2207,29 @@ def ptxas_summary():
     return rows
 
 
+def bound(cells, bytes_per_update, ops_per_update):
+    """(bound_ms, bound_by): the larger of the launch's bytes over the
+    card's memory rate and its operations over its float32 rate."""
+    by_bytes = cells * bytes_per_update / HBM_BYTES_PER_S * 1e3
+    by_ops = cells * ops_per_update / FP32_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
+def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, cells,
+                 bytes_per_update, ops_per_update, **extra):
+    """One kernel of the kernels line; no single PyTorch call computes a
+    fused LBM step or its adjoint, so library_ms is null."""
+    bound_ms, bound_by = bound(cells, bytes_per_update, ops_per_update)
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None, **extra}
+
+
 def main():
     import lettuce_tpu_torch.ops.cuda.stream_collide as sc
+    beg = time.perf_counter()
     card = phase0_card()
     build_s = phase1_build()
     worst = phase2_kernel_vs_plain()
@@ -1744,76 +2249,81 @@ def main():
     phase16_poiseuille()
     masked = phase17_probe_and_masked(card)
     phase18_decaying_turbulence(card)
-    print(f"build {build_s:.2f} s")
+    worst_gradients = phase19_gradient_instances_vs_plain()
+    gradient_runs = (phase20_gradient_cells(card, saxpy_gbps)
+                     + phase21_obstacle_gradients(card, saxpy_gbps))
+    print(f"build {build_s:.2f} s; whole run {time.perf_counter() - beg:.1f} "
+          f"s")
     print(card)
     emit_ms, emit_plain_ms = grad_path["timings"]["emit_u"]
     adj_ms, adj_plain_ms = grad_path["timings"]["adjoint"]
-    print(json.dumps({"kernels": [{
-        "name": "stream_collide",
-        "route": "cuda",
-        "source": KERNEL_SOURCE,
-        "replaces": REPLACES,
-        "launches": main_path["launches"],
-        "max_abs_err": max(worst, main_path["err"]),
-        "ms": main_path["kernel_ms"],
-        "plain_ms": main_path["plain_ms"],
-    }, {
-        "name": "stream_collide_emit_u",
-        "route": "cuda",
-        "source": KERNEL_SOURCE,
-        "replaces": REPLACES,
-        "launches": grad_path["launches"][1],
-        "max_abs_err": max(worst_emit, grad_path["err_emit"]),
-        "ms": emit_ms,
-        "plain_ms": emit_plain_ms,
-    }, {
-        "name": "stream_collide_adjoint",
-        "route": "cuda",
-        "source": ADJOINT_SOURCE,
-        "replaces": ADJOINT_REPLACES,
-        "launches": grad_path["launches"][2],
-        "max_abs_err": max(worst_adjoint, grad_path["err_adjoint"]),
-        "ms": adj_ms,
-        "plain_ms": adj_plain_ms,
-    }, {
-        "name": "stream_collide_masked",
-        "route": "cuda",
-        "source": KERNEL_SOURCE,
-        "replaces": MASKED_REPLACES,
-        "launches": obstacle["launches"],
-        "max_abs_err": max(worst_masked[0], obstacle["err"], cavity_err),
-        "ms": obstacle["kernel_ms"],
-        "plain_ms": obstacle["plain_ms"],
-    }, {
-        "name": "stream_collide_masked_emit_u",
-        "route": "cuda",
-        "source": KERNEL_SOURCE,
-        "replaces": MASKED_REPLACES,
-        "launches": obstacle["grad_launches"][1],
-        "max_abs_err": max(worst_masked[1], obstacle["err_emit"]),
-        "ms": obstacle["emit_ms"],
-        "plain_ms": obstacle["emit_plain_ms"],
-    }, {
-        "name": "stream_collide_adjoint_masked",
-        "route": "cuda",
-        "source": ADJOINT_SOURCE,
-        "replaces": ADJOINT_MASKED_REPLACES,
-        "launches": obstacle["grad_launches"][2],
-        "max_abs_err": max(worst_masked[2], obstacle["err_adjoint"]),
-        "ms": obstacle["adjoint_ms"],
-        "plain_ms": obstacle["adjoint_plain_ms"],
-    }] + [{
-        "name": f"stream_collide_{key}",
-        "route": "cuda",
-        "source": "lettuce_tpu_torch/csrc/"
-                  f"{sc.FRAGMENTS[key.removeprefix('masked_')][0]}.cu",
-        "replaces": "lettuce_tpu/ops/pallas/stream_collide.py:"
-                    f"{FRAGMENT_REPLACES[key.removeprefix('masked_')]}",
-        "launches": run["launches"],
-        "max_abs_err": max(run["err"], worst_fragments[key]),
-        "ms": run["kernel_ms"],
-        "plain_ms": run["plain_ms"],
-    } for key, run in sorted({**masked, **cells}.items())]}))
+    main_cells, obstacle_cells = 256 ** 3, 2048 * 1024
+    kernels = [
+        kernel_entry("stream_collide", KERNEL_SOURCE, REPLACES,
+                     main_path["launches"], max(worst, main_path["err"]),
+                     main_path["kernel_ms"], main_path["plain_ms"],
+                     main_cells, BYTES_PER_UPDATE,
+                     19 * OPS_PER_POPULATION["bgk"]),
+        kernel_entry("stream_collide_emit_u", KERNEL_SOURCE, REPLACES,
+                     grad_path["launches"][1],
+                     max(worst_emit, grad_path["err_emit"]), emit_ms,
+                     emit_plain_ms, main_cells, GRAD_BYTES_PER_UPDATE,
+                     19 * OPS_PER_POPULATION["emit_u"]),
+        kernel_entry("stream_collide_adjoint", ADJOINT_SOURCE,
+                     ADJOINT_REPLACES, grad_path["launches"][2],
+                     max(worst_adjoint, grad_path["err_adjoint"]), adj_ms,
+                     adj_plain_ms, main_cells, GRAD_BYTES_PER_UPDATE,
+                     19 * OPS_PER_POPULATION["adjoint_bgk"]),
+        kernel_entry("stream_collide_masked", KERNEL_SOURCE, MASKED_REPLACES,
+                     obstacle["launches"],
+                     max(worst_masked[0], obstacle["err"], cavity_err),
+                     obstacle["kernel_ms"], obstacle["plain_ms"],
+                     obstacle_cells, MASKED_BYTES_PER_UPDATE,
+                     9 * OPS_PER_POPULATION["bgk"]),
+        kernel_entry("stream_collide_masked_emit_u", KERNEL_SOURCE,
+                     MASKED_REPLACES, obstacle["grad_launches"][1],
+                     max(worst_masked[1], obstacle["err_emit"]),
+                     obstacle["emit_ms"], obstacle["emit_plain_ms"],
+                     obstacle_cells, MASKED_BYTES_PER_UPDATE + 2 * 4,
+                     9 * OPS_PER_POPULATION["emit_u"]),
+        kernel_entry("stream_collide_adjoint_masked", ADJOINT_SOURCE,
+                     ADJOINT_MASKED_REPLACES, obstacle["grad_launches"][2],
+                     max(worst_masked[2], obstacle["err_adjoint"],
+                         worst_gradients.get("adjoint_frozen_bgk", 0.0)),
+                     obstacle["adjoint_ms"], obstacle["adjoint_plain_ms"],
+                     obstacle_cells, MASKED_BYTES_PER_UPDATE + 2 * 4,
+                     9 * OPS_PER_POPULATION["adjoint_bgk"]),
+    ] + [
+        kernel_entry(
+            f"stream_collide_{key}",
+            "lettuce_tpu_torch/csrc/"
+            f"{sc.FRAGMENTS[key.removeprefix('masked_')][0]}.cu",
+            "lettuce_tpu/ops/pallas/stream_collide.py:"
+            f"{FRAGMENT_REPLACES[key.removeprefix('masked_')]}",
+            run["launches"], max(run["err"], worst_fragments[key]),
+            run["kernel_ms"], run["plain_ms"], run["cells"], run["bytes"],
+            run["q"] * OPS_PER_POPULATION[key.removeprefix("masked_")])
+        for key, run in sorted({**masked, **cells}.items())]
+    for run in gradient_runs:
+        fwd, adj = run["forward"], run["adjoint"]
+        if fwd["emit_u"]:  # the K1d fragment instances of this PR
+            kernels.append(kernel_entry(
+                f"stream_collide_{fwd['key']}[{run['cell']}]",
+                f"lettuce_tpu_torch/csrc/{sc.FRAGMENTS[fwd['fragment']][0]}"
+                ".cu", EMIT_U_REPLACES, fwd["launches"],
+                max(fwd["err"], worst_gradients.get(fwd["key"], 0.0)),
+                fwd["ms"], fwd["plain_ms"], fwd["cells"], fwd["bytes"],
+                fwd["ops"], cell=run["cell"]))
+        kernels.append(kernel_entry(
+            f"stream_collide_adjoint_{adj['key']}[{run['cell']}]",
+            ADJOINT_FRAGMENTS_SOURCE,
+            f"lettuce_tpu/ops/pallas/adjoint.py:"
+            f"{ADJOINT_SPEC_REPLACES[adj['spec']]}", adj["launches"],
+            max(adj["err"], worst_gradients.get("adjoint_" + adj["key"],
+                                                0.0)),
+            adj["ms"], adj["plain_ms"], adj["cells"], adj["bytes"],
+            adj["ops"], cell=run["cell"], mode=run["mode"]))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -5,7 +5,8 @@
 // Replaces the "none", "bgk_force" and "trt" fragments of
 // lettuce_tpu/ops/pallas/stream_collide.py::_make_collide (:520, :592-676,
 // :712-732), in the periodic and the masked kernel of stream_collide.cuh,
-// for D2Q9, D3Q15, D3Q19 and D3Q27 in float32 and float64.
+// for D2Q9, D3Q15, D3Q19 and D3Q27 in float32 and float64; TRT also as
+// emit-u instances (K1d), the forward of its adjoint (adjoint_fragments.cu).
 //
 // What bounds them: device memory, as for BGK (q populations in and out
 // per cell, 152 B per D3Q19 float32 update); each adds a few flops per
@@ -188,6 +189,10 @@ LT_COLLIDE_ENTRIES(trt, d2q9, lt::Trt, D2Q9)
 LT_COLLIDE_ENTRIES(trt, d3q15, lt::Trt, D3Q15)
 LT_COLLIDE_ENTRIES(trt, d3q19, lt::Trt, D3Q19)
 LT_COLLIDE_ENTRIES(trt, d3q27, lt::Trt, D3Q27)
+LT_COLLIDE_EMIT_U_ENTRIES(trt, d2q9, lt::Trt, D2Q9)
+LT_COLLIDE_EMIT_U_ENTRIES(trt, d3q15, lt::Trt, D3Q15)
+LT_COLLIDE_EMIT_U_ENTRIES(trt, d3q19, lt::Trt, D3Q19)
+LT_COLLIDE_EMIT_U_ENTRIES(trt, d3q27, lt::Trt, D3Q27)
 LT_ERROR_STRING_ENTRY
 
 }  // extern "C"

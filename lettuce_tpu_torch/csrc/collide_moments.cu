@@ -5,7 +5,8 @@
 // Replaces the "reg" and "smag" fragments of
 // lettuce_tpu/ops/pallas/stream_collide.py::_make_collide (:747-798,
 // :800-841), in the periodic and the masked kernel of stream_collide.cuh,
-// for D2Q9, D3Q15, D3Q19 and D3Q27 in float32 and float64.
+// for D2Q9, D3Q15, D3Q19 and D3Q27 in float32 and float64; the regularized
+// also as emit-u instances (K1d), the forward of its adjoint.
 //
 // What bounds them: device memory at small q; the D3Q27 regularized
 // fragment is the heaviest here, ~180 flops per cell. The design keeps
@@ -213,6 +214,10 @@ LT_COLLIDE_ENTRIES(reg, d2q9, lt::Reg, D2Q9)
 LT_COLLIDE_ENTRIES(reg, d3q15, lt::Reg, D3Q15)
 LT_COLLIDE_ENTRIES(reg, d3q19, lt::Reg, D3Q19)
 LT_COLLIDE_ENTRIES(reg, d3q27, lt::Reg, D3Q27)
+LT_COLLIDE_EMIT_U_ENTRIES(reg, d2q9, lt::Reg, D2Q9)
+LT_COLLIDE_EMIT_U_ENTRIES(reg, d3q15, lt::Reg, D3Q15)
+LT_COLLIDE_EMIT_U_ENTRIES(reg, d3q19, lt::Reg, D3Q19)
+LT_COLLIDE_EMIT_U_ENTRIES(reg, d3q27, lt::Reg, D3Q27)
 LT_COLLIDE_ENTRIES(smag, d2q9, lt::Smag, D2Q9)
 LT_COLLIDE_ENTRIES(smag, d3q15, lt::Smag, D3Q15)
 LT_COLLIDE_ENTRIES(smag, d3q19, lt::Smag, D3Q19)

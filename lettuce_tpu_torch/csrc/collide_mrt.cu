@@ -8,7 +8,8 @@
 // Replaces the "mrt" fragment of
 // lettuce_tpu/ops/pallas/stream_collide.py::_make_collide (:843-995), in
 // the periodic and the masked kernel of stream_collide.cuh, in float32 and
-// float64.
+// float64; from_feq also as emit-u instances (K1d), the forward of its
+// adjoint (adjoint_fragments.cu's matvec).
 //
 // What bounds it: the matrix-vector products. The matrices are known only
 // at run time, so they are kernel parameters (the parameter bank, read at
@@ -246,6 +247,7 @@ using MrtHermite = Mrt<S, T, kHermite>;
 extern "C" {
 
 LT_COLLIDE_ENTRIES(mrt_from_feq, d3q19, lt::MrtFromFeq, D3Q19)
+LT_COLLIDE_EMIT_U_ENTRIES(mrt_from_feq, d3q19, lt::MrtFromFeq, D3Q19)
 LT_COLLIDE_ENTRIES(mrt_lallemand, d2q9, lt::MrtLallemand, D2Q9)
 LT_COLLIDE_ENTRIES(mrt_dellar, d2q9, lt::MrtDellar, D2Q9)
 LT_COLLIDE_ENTRIES(mrt_hermite27, d3q27, lt::MrtHermite, D3Q27)

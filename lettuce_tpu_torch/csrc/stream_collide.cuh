@@ -12,8 +12,11 @@
 // masked kernel's collide branch (MaskedStore, with frozen populations);
 // the replacement branch of the masked kernel is the same for all.
 //
-// The emit-u instances are BGK only: emit-u is the residual of the BGK
-// adjoint kernel (adjoint.cu).
+// The emit-u instances (BGK, and through LT_COLLIDE_EMIT_U_ENTRIES the TRT,
+// regularized and folded MRT fragments) also write the pre-collision
+// velocity u = j / rho, the residual of their adjoint kernels (adjoint.cu,
+// adjoint_fragments.cu). It is the same for every fragment
+// (lettuce_tpu/ops/pallas/stream_collide.py:1535-1542).
 
 #pragma once
 
@@ -415,6 +418,32 @@ int launch_masked(const void* f, void* out, void* u_out, const void* ncm,
     return lt::launch_masked<C, false>(f, out, nullptr, ncm, nsm, feq_field, \
                                        kinds, values, n0, n1, n2,            \
                                        C::load(params, cs), device, stream); \
+  }
+
+// The emit-u entries of a collision fragment: periodic and masked, float32
+// and float64, also writing the pre-collision u to u_out [d, *grid].
+#define LT_COLLIDE_EMIT_U_ENTRIES(FRAG, STENCIL, POLICY, S)                   \
+  LT_COLLIDE_EMIT_U_ENTRY(FRAG, STENCIL, POLICY, S, f32, float)               \
+  LT_COLLIDE_EMIT_U_ENTRY(FRAG, STENCIL, POLICY, S, f64, double)
+
+#define LT_COLLIDE_EMIT_U_ENTRY(FRAG, STENCIL, POLICY, S, SUFFIX, T)          \
+  int lt_collide_##FRAG##_emit_u_##STENCIL##_##SUFFIX(                        \
+      const void* f, void* out, void* u_out, int64_t n0, int64_t n1,         \
+      int64_t n2, const double* params, double cs, int device,               \
+      void* stream) {                                                         \
+    using C = POLICY<lt::S, T>;                                               \
+    return lt::launch<C, true>(f, out, u_out, n0, n1, n2,                     \
+                               C::load(params, cs), device, stream);          \
+  }                                                                           \
+  int lt_collide_##FRAG##_masked_emit_u_##STENCIL##_##SUFFIX(                 \
+      const void* f, void* out, void* u_out, const void* ncm,                \
+      const void* nsm, const void* feq_field, const int32_t* kinds,          \
+      const double* values, int64_t n0, int64_t n1, int64_t n2,              \
+      const double* params, double cs, int device, void* stream) {           \
+    using C = POLICY<lt::S, T>;                                               \
+    return lt::launch_masked<C, true>(f, out, u_out, ncm, nsm, feq_field,    \
+                                      kinds, values, n0, n1, n2,             \
+                                      C::load(params, cs), device, stream);  \
   }
 
 #define LT_ERROR_STRING_ENTRY                                                 \

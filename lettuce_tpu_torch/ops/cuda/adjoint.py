@@ -1,31 +1,53 @@
-"""Adjoint of the fused BGK collide-and-stream step: the hand-written CUDA
-kernels and their plain PyTorch version.
+"""Adjoint of the fused collide-and-stream step: the hand-written CUDA
+kernels, their plain PyTorch version, and the VJP of the pointwise
+pre-streaming map that split mode composes after them.
 
-The kernels (``lettuce_tpu_torch/csrc/adjoint.cu``) replace
-``lettuce_tpu/ops/pallas/adjoint.py::_adjoint_kernel`` for the
-``("bgk", tau_inv)`` spec with the emitted-u residual, in float32 and
-float64, for D2Q9, D3Q15, D3Q19 and D3Q27: the periodic instances, and the
-masked instances that route the cotangent through the boundary codes and
-the no-streaming mask of the forward's masked kernel. Given the cotangent
-``g`` of a step's output and the pre-collision velocity ``u`` that the
-step's forward emitted (:func:`.stream_collide.stream_collide` with
-``u_out``), it returns the cotangent of the step's input, the exact
-vector-Jacobian product::
+The kernels replace ``lettuce_tpu/ops/pallas/adjoint.py::_adjoint_kernel``
+in float32 and float64, for D2Q9, D3Q15, D3Q19 and D3Q27, periodic and
+masked: ``csrc/adjoint.cu`` for the ``("bgk", tau_inv)`` spec (K3a, K3c)
+and ``csrc/adjoint_fragments.cu`` for the other adjoint specs
+(:data:`ADJOINT_FRAGMENTS`, K3b). The adjoint spec of a forward collision
+is packed with it (:func:`.stream_collide.adjoint_collision_spec`,
+:class:`.stream_collide.PackedSpec`). Given the cotangent ``g`` of a
+step's output and the forward's residual (the pre-collision velocity u
+the emit-u forward wrote, or the step's input f), a kernel returns the
+cotangent of the step's input, the exact vector-Jacobian product::
 
     h_q(x) = g_q(x + e_q)  (periodic), or with frozen populations
     h_q(x) = (nsm_q(x + e_q) ? 0 : g_q(x + e_q)) + (nsm_q(x) ? g_q(x) : 0),
-    t = tau_inv h,
+    t = M^T h, the transposed relaxation of f' = f - M (f - feq(f)):
+        bgk     t = tau_inv h,
+        trt     t_q = (cp + cm) h_q + (cp - cm) h_opp(q),
+                cp = 1 / (2 tau_plus), cm = 1 / (2 tau_minus),
+        matvec  t = C^T h (the folded MRT, the regularized),
+        smag    t = s h, s = 1 / tau_eff per cell,
     S0 = sum_q w_q t_q,  S1_a = sum_q w_q e_qa t_q,
     S2_ab = sum_q w_q e_qa e_qb t_q,
     A = S0 (1 - u.u / (2 cs^2)) + u.S1 / cs^2 + u.S2.u / (2 cs^4),
     B_a = (S1_a - u_a S0 + (S2 u)_a / cs^2) / cs^2,
-    ct_q = h_q - t_q + (A - u.B) + e_q.B      on collide cells,
-    ct_q = h_opp(q)                           on bounce-back cells,
-    ct_q = 0                                  on equilibrium cells,
-    ct_q = h_q                                on identity cells.
+    ct_q = h_q - t_q + (A - u.B) + e_q.B (+ X_q)   on collide cells,
+    ct_q = h_q                                     for the identity (none),
+    ct_q = h_opp(q)                                on bounce-back cells,
+    ct_q = 0                                       on equilibrium cells,
+    ct_q = h_q                                     on identity cells.
 
-It is bound by device memory: D3Q19 in float32 reads 19 + 3 fields and
-writes 19, 164 B per lattice update (plus the 1-byte code when masked).
+Smagorinsky's X_q differentiates the forward's two-step fixed point for
+tau_eff (lettuce_tpu's adjoint.py:299-422): with d = f - feq, D = d.h,
+Pi_ab = sum_q e_qa e_qb d_q, P = |Pi|^2 and R = P / (4 cs^4 rho^2),
+X_q = D s^2 (dtau/dR) (e_q.Pi.e_q - cs^2 tr Pi - 2 e_q.Pi u + u.Pi.u -
+P / rho) / (2 cs^4 rho^2); it reads the state f, not u.
+
+Split mode (KBC, the closed-form MRT bases, forced BGK: no closed-form
+Jacobian) runs the ``none`` kernel with the no-streaming re-route but no
+boundary routing (the streaming transpose S^T), then
+:func:`prestream_vjp`, the VJP of the pointwise pre-streaming map
+(P^T, the collision and the boundary codes), as lettuce_tpu's
+``build_adjoint_step`` does with ``jax.vjp``.
+
+The kernels are bound by device memory: D3Q19 in float32 reads 19 + 3
+fields and writes 19, 164 B per lattice update with the u residual, 228 B
+with the f residual, 152 B for ``none`` (plus the 1-byte code when
+masked).
 
 :func:`stream_collide_adjoint` runs the plain version only for a CPU
 tensor. For a CUDA tensor it launches a kernel or raises.
@@ -35,16 +57,24 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from collections import Counter
 
 import numpy as np
 import torch
 
 from .build import (DTYPES, KERNEL_STENCIL_NAMES, check_launch, check_out,
                     kernel_stencil_name, launch_dims, open_library)
-from .stream_collide import checked_table
+from .stream_collide import (check_nsm, checked_table, pack_spec,
+                             prestream_plain)
 
 __all__ = ["stream_collide_adjoint", "stream_collide_adjoint_plain",
-           "load_library"]
+           "prestream_vjp", "load_library", "load_fragment_library",
+           "load_libraries", "ADJOINT_FRAGMENTS", "NONE_SPEC"]
+
+# the adjoint specs of csrc/adjoint_fragments.cu, each on every stencil
+ADJOINT_FRAGMENTS = ("none", "trt", "matvec", "smag")
+# the identity's spec: split mode's streaming transpose
+NONE_SPEC = ("none",)
 
 
 # ----------------------------------------------------------------------
@@ -66,38 +96,10 @@ def _pull(g: torch.Tensor, e: np.ndarray, nsm) -> torch.Tensor:
     return torch.stack(h)
 
 
-def check_bgk(collision_spec) -> None:
-    """Raise NotImplementedError unless ``collision_spec`` is None or the
-    BGK spec: the adjoint here is BGK's, and must never stand in for
-    another collision's."""
-    if collision_spec is not None and collision_spec[0] != "bgk":
-        raise NotImplementedError(
-            f"no adjoint kernel for the {collision_spec[0]!r} collision yet "
-            f"(K3b/K3d)")
-
-
-def stream_collide_adjoint_plain(g: torch.Tensor, u: torch.Tensor,
-                                 e: np.ndarray, w: np.ndarray,
-                                 opposite: np.ndarray, cs: float,
-                                 tau_inv: float, ncm: torch.Tensor = None,
-                                 nsm: torch.Tensor = None, table=None,
-                                 feq_field: torch.Tensor = None,
-                                 collision_spec=None) -> torch.Tensor:
-    """The closed-form VJP of one BGK collide-and-stream step in plain
-    PyTorch (``collision_spec`` None or BGK; any other raises): the
-    cotangent pulled by ``torch.roll`` along -e (re-routed
-    where ``nsm`` froze populations), then the transposed collision
-    Jacobian from the weighted moments of t and the pre-collision velocity
-    ``u`` (the formulas of the module docstring), and the boundary codes
-    of ``table`` where ``ncm`` holds them. ``feq_field`` is unused (an
-    equilibrium replacement is constant in f); it is taken so that one
-    parameter set serves the forward and the adjoint."""
-    check_bgk(collision_spec)
-    e = np.asarray(e)
-    et = torch.as_tensor(e, dtype=g.dtype, device=g.device)
-    wt = torch.as_tensor(np.asarray(w), dtype=g.dtype, device=g.device)
-    h = _pull(g, e, nsm)
-    t = tau_inv * h
+def _equilibrium_transpose(h, t, u, et, wt, cs):
+    """h - t + (A' + e.B): the transposed Jacobian of f' = f - M (f -
+    feq(f)) for t = M^T h, from the weighted moments of t and the
+    pre-collision velocity u (the module docstring's formulas)."""
     inv_cs2 = 1.0 / (cs * cs)
     we = (wt[:, None] * et).T                               # [d, q]
     s0 = torch.tensordot(wt, t, dims=1)                     # [...]
@@ -111,7 +113,83 @@ def stream_collide_adjoint_plain(g: torch.Tensor, u: torch.Tensor,
               + 0.5 * inv_cs2 * inv_cs2 * torch.sum(u * su, dim=0))
     b = inv_cs2 * (s1 - u * s0 + inv_cs2 * su)              # [d, ...]
     a_prime = a_term - torch.sum(u * b, dim=0)
-    ct = h - t + a_prime + torch.tensordot(et, b, dims=1)
+    return h - t + a_prime + torch.tensordot(et, b, dims=1)
+
+
+def _smagorinsky_transpose(h, f, et, wt, cs, tau0, constant):
+    """J^T h for the Smagorinsky collision at the state f: the BGK shape
+    with t = s h, s = 1 / tau_eff, plus X (the module docstring), for the
+    forward's two-step fixed point tau_{k+1} = tau0 + 3 C^2 R / tau_k^2."""
+    inv_cs2 = 1.0 / (cs * cs)
+    rho = torch.sum(f, dim=0)
+    u = torch.tensordot(et.T, f, dims=1) / rho
+    u2 = torch.sum(u * u, dim=0)
+    eu = torch.tensordot(et, u, dims=1)                     # [q, ...]
+    shape = (-1,) + (1,) * (f.dim() - 1)
+    feq = wt.reshape(shape) * rho * (1 + inv_cs2 * eu
+                                     + 0.5 * inv_cs2 * inv_cs2 * eu * eu
+                                     - 0.5 * inv_cs2 * u2)
+    d = f - feq
+    D = torch.sum(d * h, dim=0)
+    ee = et[:, :, None] * et[:, None, :]                    # [q, d, d]
+    pi = torch.tensordot(ee.permute(1, 2, 0), d, dims=1)    # [d, d, ...]
+    P = torch.sum(pi * pi, dim=(0, 1))
+    tr_pi = torch.diagonal(pi, dim1=0, dim2=1).sum(-1)
+    R = P * (0.25 * inv_cs2 * inv_cs2) / (rho * rho)
+    a_c = 3.0 * constant * constant
+    tau1 = tau0 + a_c * R / (tau0 * tau0)
+    dtau1 = a_c / (tau0 * tau0)
+    tau2 = tau0 + a_c * R / (tau1 * tau1)
+    dtau2 = a_c / (tau1 * tau1) - 2.0 * a_c * R / (tau1 ** 3) * dtau1
+    s = 1.0 / tau2
+    pi_u = torch.einsum("ab...,b...->a...", pi, u)
+    base = -(cs * cs) * tr_pi - P / rho + torch.sum(u * pi_u, dim=0)
+    c0 = D * s * s * dtau2 * (0.5 * inv_cs2 * inv_cs2) / (rho * rho)
+    e_pi_e = torch.einsum("qab,ab...->q...", ee, pi)
+    x = c0 * (base + e_pi_e - 2.0 * torch.tensordot(et, pi_u, dims=1))
+    return _equilibrium_transpose(h, s * h, u, et, wt, cs) + x
+
+
+def stream_collide_adjoint_plain(g: torch.Tensor, res: torch.Tensor,
+                                 e: np.ndarray, w: np.ndarray,
+                                 opposite: np.ndarray, cs: float,
+                                 tau_inv: float, ncm: torch.Tensor = None,
+                                 nsm: torch.Tensor = None, table=None,
+                                 feq_field: torch.Tensor = None,
+                                 collision_spec=None) -> torch.Tensor:
+    """The closed-form VJP of one collide-and-stream step in plain
+    PyTorch, for the adjoint spec of ``collision_spec`` (BGK with
+    ``tau_inv`` when None; a split-mode spec raises): the cotangent pulled
+    by ``torch.roll`` along -e (re-routed where ``nsm`` froze
+    populations), the transposed collision Jacobian of the module
+    docstring at the residual ``res`` (u ``[d, *grid]`` for bgk, trt and
+    matvec, the state f for smag, unused for none), and the boundary codes
+    of ``table`` where ``ncm`` holds them. ``feq_field`` is unused (an
+    equilibrium replacement is constant in f); it is taken so that one
+    parameter set serves the forward and the adjoint."""
+    adjoint = _adjoint_of(collision_spec, tau_inv, e, w, opposite)
+    kind = adjoint[0]
+    e = np.asarray(e)
+    et = torch.as_tensor(e, dtype=g.dtype, device=g.device)
+    wt = torch.as_tensor(np.asarray(w), dtype=g.dtype, device=g.device)
+    h = _pull(g, e, nsm)
+    if kind == "none":
+        ct = h
+    elif kind == "smag":
+        ct = _smagorinsky_transpose(h, res, et, wt, cs, adjoint[1],
+                                    adjoint[2])
+    else:
+        if kind == "bgk":
+            t = adjoint[1] * h
+        elif kind == "trt":
+            cp, cm = 0.5 / adjoint[1], 0.5 / adjoint[2]
+            opp = torch.as_tensor(np.asarray(opposite), device=g.device)
+            t = (cp + cm) * h + (cp - cm) * h[opp]
+        else:  # matvec: t = C^T h
+            ct_matrix = torch.as_tensor(np.asarray(adjoint[1]),
+                                        dtype=g.dtype, device=g.device)
+            t = torch.tensordot(ct_matrix, h, dims=1)
+        ct = _equilibrium_transpose(h, t, res, et, wt, cs)
     if ncm is None:
         return ct
     # identity off code 0, as the forward (codes outside the table too)
@@ -127,13 +205,45 @@ def stream_collide_adjoint_plain(g: torch.Tensor, u: torch.Tensor,
     return ct
 
 
+def _packed(collision_spec, tau_inv, e, w, opposite):
+    return pack_spec(("bgk", tau_inv) if collision_spec is None
+                     else collision_spec, e, w, opposite)
+
+
+def _adjoint_of(collision_spec, tau_inv, e, w, opposite) -> tuple:
+    """The adjoint spec of a forward spec; raises for a split-mode one."""
+    spec = _packed(collision_spec, tau_inv, e, w, opposite)
+    if spec.mode == "split":
+        raise ValueError(f"the {spec.fragment!r} collision has no "
+                         f"closed-form adjoint: its gradient runs split "
+                         f"mode (the 'none' adjoint, then prestream_vjp)")
+    return spec.adjoint
+
+
+def prestream_vjp(f: torch.Tensor, h: torch.Tensor, *, e, w, opposite,
+                  cs: float, collision_spec, ncm=None, table=None,
+                  feq_field=None) -> torch.Tensor:
+    """Split mode's P^T: the VJP of the pointwise pre-streaming map
+    (:func:`.stream_collide.prestream_plain`: the collision of
+    ``collision_spec`` and the boundary codes) at the state ``f``, applied
+    to the streaming-transposed cotangent ``h``. The map is recomputed
+    here, under autograd, and its graph is freed on return, so a rollout
+    never holds more than one step's graph."""
+    with torch.enable_grad():
+        x = f.detach().requires_grad_(True)
+        fpost = prestream_plain(x, collision_spec, e, w, opposite, cs, ncm,
+                                table, feq_field)
+        (ct,) = torch.autograd.grad(fpost, x, h)
+    return ct
+
+
 # ----------------------------------------------------------------------
 # the wrapper
 # ----------------------------------------------------------------------
 @functools.cache
 def load_library() -> ctypes.CDLL:
-    """Build (if needed) and load the adjoint library, with ``argtypes``
-    set on every entry."""
+    """Build (if needed) and load the BGK adjoint library, with
+    ``argtypes`` set on every entry."""
     lib = open_library("adjoint")
     pointer = ctypes.c_void_p
     for name in KERNEL_STENCIL_NAMES:
@@ -151,65 +261,134 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
-def stream_collide_adjoint(g: torch.Tensor, u: torch.Tensor, e: np.ndarray,
-                           w: np.ndarray, opposite: np.ndarray, cs: float,
-                           tau_inv: float, ncm: torch.Tensor = None,
+@functools.cache
+def load_fragment_library() -> ctypes.CDLL:
+    """Build (if needed) and load the library of the other adjoint specs
+    (``csrc/adjoint_fragments.cu``), with ``argtypes`` set on every
+    entry."""
+    lib = open_library("adjoint_fragments")
+    pointer = ctypes.c_void_p
+    tail = ([ctypes.c_int64] * 3
+            + [pointer, ctypes.c_double, ctypes.c_int, pointer])
+    for fragment in ADJOINT_FRAGMENTS:
+        for name in KERNEL_STENCIL_NAMES:
+            for suffix, _ in DTYPES.values():
+                fn = getattr(lib, f"lt_adjoint_{fragment}_{name}_{suffix}")
+                fn.argtypes = [pointer] * 3 + tail
+                fn.restype = ctypes.c_int
+                # masks: ncm (or null), nsm (or null), host kinds (or null)
+                fn = getattr(lib, f"lt_adjoint_{fragment}_masked_{name}_"
+                                  f"{suffix}")
+                fn.argtypes = [pointer] * 6 + tail
+                fn.restype = ctypes.c_int
+    return lib
+
+
+def load_libraries() -> None:
+    """Build (if needed) and load both adjoint libraries."""
+    load_library()
+    load_fragment_library()
+
+
+def _check_residual(res, g, shape, what):
+    if (res is None or res.device != g.device or res.dtype != g.dtype
+            or tuple(res.shape) != tuple(shape) or not res.is_contiguous()):
+        raise ValueError(f"the {what} residual must be a contiguous tensor "
+                         f"of shape {tuple(shape)} on g's device in g's "
+                         f"dtype")
+
+
+def stream_collide_adjoint(g: torch.Tensor, res: torch.Tensor,
+                           e: np.ndarray, w: np.ndarray,
+                           opposite: np.ndarray, cs: float, tau_inv: float,
+                           ncm: torch.Tensor = None,
                            nsm: torch.Tensor = None, table=None,
                            feq_field: torch.Tensor = None,
                            out: torch.Tensor = None,
                            collision_spec=None) -> torch.Tensor:
     """The cotangent of one step's input from the cotangent ``g``
-    (``[q, *grid]``) of its output and its pre-collision velocity ``u``
-    (``[d, *grid]``). With ``ncm`` and ``table`` (and ``nsm``) the masked
-    kernel routes it as the forward's masked kernel ran; ``feq_field`` is
+    (``[q, *grid]``) of its output and the forward's residual ``res``: the
+    pre-collision velocity u (``[d, *grid]``) for BGK, TRT and the
+    ``matvec`` specs, the step's input f for Smagorinsky, None for the
+    identity. ``collision_spec`` is the forward's (BGK with ``tau_inv``
+    when None); its adjoint spec selects the kernel, and a split-mode spec
+    raises ValueError (split mode is ``fused_step``'s: this function with
+    :data:`NONE_SPEC`, then :func:`prestream_vjp`). With ``ncm`` and
+    ``table`` (and ``nsm``) the masked kernel routes the cotangent as the
+    forward's masked kernel ran; with ``nsm`` alone the masked kernel
+    re-routes frozen populations and routes no code. ``feq_field`` is
     checked as the forward checks it, and never read.
 
     On a CPU tensor this is :func:`stream_collide_adjoint_plain`; on a
     CUDA tensor it launches a kernel (allocating ``out`` when none is
     given) or raises. ``out`` must not be ``g``: the kernel pulls from
-    neighbours. ``collision_spec`` is None or BGK: no other collision has
-    an adjoint kernel yet, and one raises NotImplementedError.
+    neighbours.
     """
-    check_bgk(collision_spec)
+    spec = _packed(collision_spec, tau_inv, e, w, opposite)
     masks = dict(ncm=ncm, nsm=nsm, table=table, feq_field=feq_field)
     if g.device.type == "cpu":
-        result = stream_collide_adjoint_plain(g, u, e, w, opposite, cs,
-                                              tau_inv, **masks)
+        result = stream_collide_adjoint_plain(g, res, e, w, opposite, cs,
+                                              tau_inv, collision_spec=spec,
+                                              **masks)
         return result if out is None else out.copy_(result)
     if g.device.type != "cuda":
         raise ValueError(f"stream_collide_adjoint runs on cpu or cuda "
                          f"tensors, got {g.device}")
+    fragment = _adjoint_of(spec, None, e, w, opposite)[0]
     name = kernel_stencil_name(e, w, opposite)
     n0, n1, n2 = launch_dims(g, e)
-    d = np.asarray(e).shape[1]
-    if (u.device != g.device or u.dtype != g.dtype
-            or tuple(u.shape) != (d, *g.shape[1:]) or not u.is_contiguous()):
-        raise ValueError(f"u must be a contiguous tensor of shape "
-                         f"{(d, *g.shape[1:])} on g's device in g's dtype")
-    out = check_out(out, g, g.shape, "out", g, u)
-    pointers = [g.data_ptr(), u.data_ptr(), out.data_ptr()]
-    masked = ncm is not None
-    if masked:
+    if spec.residual == "u":
+        d = np.asarray(e).shape[1]
+        _check_residual(res, g, (d, *g.shape[1:]), "u")
+    elif spec.residual == "f":
+        _check_residual(res, g, g.shape, "state")
+    else:
+        res = None
+    out = check_out(out, g, g.shape, "out", g,
+                    *([] if res is None else [res]))
+    pointers = [g.data_ptr(), None if res is None else res.data_ptr(),
+                out.data_ptr()]
+    if ncm is not None:
         # alive until the call returns; the field is checked, never read
         table = checked_table(g, ncm, nsm, table, feq_field)
         pointers += [ncm.data_ptr(),
                      None if nsm is None else nsm.data_ptr(),
                      table.kinds.ctypes.data]
-
-    lib = load_library()
-    variant = "masked_" if masked else ""
-    launch = getattr(lib, f"lt_stream_collide_adjoint_{variant}{name}_"
-                          f"{DTYPES[g.dtype][0]}")
-    rc = launch(*pointers, n0, n1, n2, float(tau_inv), float(cs),
-                g.device.index,
-                torch.cuda.current_stream(g.device).cuda_stream)
-    check_launch(lib, rc, f"stream_collide_adjoint ({variant}{name})")
-    if masked:
-        stream_collide_adjoint.masked_launches += 1
+        variant = "masked_"
+    elif nsm is not None:
+        # frozen populations only: the masked kernel with no code table
+        check_nsm(g, nsm)
+        pointers += [None, nsm.data_ptr(), None]
+        variant = "frozen_"
     else:
-        stream_collide_adjoint.launches += 1
+        variant = ""
+    suffix = DTYPES[g.dtype][0]
+    entry = "masked_" if variant else ""
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    if fragment == "bgk":
+        lib = load_library()
+        launch = getattr(lib, f"lt_stream_collide_adjoint_{entry}{name}_"
+                              f"{suffix}")
+        rc = launch(*pointers, n0, n1, n2, float(spec[1]), float(cs),
+                    g.device.index, stream)
+        check_launch(lib, rc, f"stream_collide_adjoint ({variant}{name})")
+        if variant:
+            stream_collide_adjoint.masked_launches += 1
+        else:
+            stream_collide_adjoint.launches += 1
+        return out
+    lib = load_fragment_library()
+    launch = getattr(lib, f"lt_adjoint_{fragment}_{entry}{name}_{suffix}")
+    rc = launch(*pointers, n0, n1, n2, spec.adjoint_params.ctypes.data,
+                float(cs), g.device.index, stream)
+    check_launch(lib, rc, f"stream_collide_adjoint ({fragment}, "
+                          f"{variant or 'periodic_'}{name})")
+    stream_collide_adjoint.fragment_launches[variant + fragment] += 1
     return out
 
 
-stream_collide_adjoint.launches = 0         # periodic launches
-stream_collide_adjoint.masked_launches = 0  # masked launches
+stream_collide_adjoint.launches = 0         # periodic BGK launches
+stream_collide_adjoint.masked_launches = 0  # masked BGK launches
+# launches of the other adjoint specs, by variant and spec ("trt",
+# "masked_matvec", "frozen_none", ...)
+stream_collide_adjoint.fragment_launches = Counter()

@@ -37,9 +37,10 @@ __all__ = ["SOURCES", "find_nvcc", "library_path", "ptxas_log",
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 # csrc/<name>.cu, one library each: the BGK step (K1a, K1d, K1b), its
-# adjoint (K3a, K3c), and the other collision fragments (K1c)
+# adjoint (K3a, K3c), the other collision fragments (K1c, with emit-u
+# instances), and their adjoints (K3b, K3d's streaming transpose)
 SOURCES = ("stream_collide", "adjoint", "collide_basic", "collide_moments",
-           "collide_mrt", "collide_kbc")
+           "collide_mrt", "collide_kbc", "adjoint_fragments")
 _BUILD_DIR = (Path(__file__).resolve().parents[3] / "build"
               / "lettuce_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

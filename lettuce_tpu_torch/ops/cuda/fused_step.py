@@ -1,21 +1,37 @@
 """The differentiable fused step: a ``torch.autograd.Function`` whose
-forward is the emit-u stream-collide kernel and whose backward is the
-adjoint kernel, periodic or masked.
+forward is the collision fragment's stream-collide kernel and whose
+backward is its adjoint kernel, periodic or masked, for every collision
+spec the kernels take.
 
 It is the counterpart of the ``custom_vjp`` of
-``lettuce_tpu/ops/pallas/stream_collide.py::build_fused_step``. When the
-input needs a gradient, the forward also emits the pre-collision velocity
-u and saves only that (d fields instead of the q of the state); otherwise
-it runs the primal kernel and saves nothing. The backward hands the
-contiguous cotangent, u and the forward's masks and table to the adjoint
-kernel. On CPU tensors both wrappers run their plain versions, so the same
-wiring runs without a card.
+``lettuce_tpu/ops/pallas/stream_collide.py::build_fused_step`` and its
+backward rules (:2103-2192). The packed spec (:class:`.stream_collide.
+PackedSpec`) says what the forward saves and how the backward runs:
+
+* full mode, u residual (BGK, TRT, the folded MRT, the regularized): the
+  forward runs the fragment's emit-u kernel and saves only the
+  pre-collision velocity u (d fields instead of the q of the state); the
+  backward runs the spec's adjoint kernel on it;
+* full mode, f residual (Smagorinsky, whose Jacobian needs rho and the
+  deviations): the forward runs the primal kernel and saves its input;
+* full mode, no residual (the identity);
+* split mode (KBC, the closed-form MRT bases, forced BGK): the forward
+  runs the primal kernel and saves its input; the backward runs the
+  ``none`` adjoint kernel with the no-streaming re-route and no boundary
+  routing (the streaming transpose), then the VJP of the pointwise
+  pre-streaming map (:func:`.adjoint.prestream_vjp`, recomputed from the
+  saved input).
+
+Without a gradient the forward runs the primal kernel and saves nothing.
+On CPU tensors every wrapper runs its plain version, so the same wiring
+runs without a card.
 
 A flow with outlets composes the window replay after the Function under
 ordinary autograd (``fixup``): the replay's in-place write gives the
 planes it rewrites a zero cotangent on the kernel's side, which is the
 split of ``build_fused_step``'s hybrid backward, and its own graph saves
-its window.
+its window. Full mode keeps the u residual there: the port's replay is
+plain torch and needs no state from the kernel's side.
 
 Every call returns a freshly allocated output: it never writes into its
 input or into an earlier output, which autograd could not notice.
@@ -27,8 +43,8 @@ import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
-from .adjoint import check_bgk, stream_collide_adjoint
-from .stream_collide import stream_collide
+from .adjoint import NONE_SPEC, prestream_vjp, stream_collide_adjoint
+from .stream_collide import pack_spec, stream_collide
 
 __all__ = ["fused_step"]
 
@@ -39,7 +55,11 @@ class _FusedStep(torch.autograd.Function):
     def forward(ctx, f, params):
         f = f.contiguous()
         ctx.params = params
-        if not ctx.needs_input_grad[0]:
+        spec = params["collision_spec"]
+        if not ctx.needs_input_grad[0] or spec.residual is None:
+            return stream_collide(f, **params)
+        if spec.residual == "f":
+            ctx.save_for_backward(f)
             return stream_collide(f, **params)
         d = np.asarray(params["e"]).shape[1]
         u = torch.empty((d, *f.shape[1:]), dtype=f.dtype, device=f.device)
@@ -50,23 +70,39 @@ class _FusedStep(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, grad_out):
-        (u,) = ctx.saved_tensors
-        return (stream_collide_adjoint(grad_out.contiguous(), u,
-                                       **ctx.params), None)
+        params = ctx.params
+        spec = params["collision_spec"]
+        g = grad_out.contiguous()
+        saved = ctx.saved_tensors  # unpacked once: checkpoint allows no more
+        res = saved[0] if saved else None
+        if spec.mode == "full":
+            return stream_collide_adjoint(g, res, **params), None
+        h = stream_collide_adjoint(
+            g, None, e=params["e"], w=params["w"],
+            opposite=params["opposite"], cs=params["cs"], tau_inv=None,
+            nsm=params["nsm"], collision_spec=NONE_SPEC)
+        return prestream_vjp(res, h, e=params["e"], w=params["w"],
+                             opposite=params["opposite"], cs=params["cs"],
+                             collision_spec=spec, ncm=params["ncm"],
+                             table=params["table"],
+                             feq_field=params["feq_field"]), None
 
 
 def fused_step(f: torch.Tensor, *, e, w, opposite, cs: float,
-               tau_inv: float, collision_spec=None, ncm=None, nsm=None,
-               table=None, feq_field=None, fixup=None) -> torch.Tensor:
-    """One differentiable BGK collide-and-stream step ``f -> f'`` through
-    the kernels (or their plain versions on CPU tensors), with the static
-    kernel parameters of :func:`.stream_collide.gate_fused_params`, and
-    the window replay ``fixup`` of :mod:`.hybrid_outlets` after the kernel
-    when the flow has outlets. A ``collision_spec`` other than BGK raises
-    NotImplementedError: its adjoint kernel is not there yet."""
-    check_bgk(collision_spec)
+               tau_inv: float = None, collision_spec=None, ncm=None,
+               nsm=None, table=None, feq_field=None,
+               fixup=None) -> torch.Tensor:
+    """One differentiable collide-and-stream step ``f -> f'`` through the
+    kernels (or their plain versions on CPU tensors), with the static
+    kernel parameters of :func:`.stream_collide.gate_fused_params` (the
+    collision ``collision_spec``, BGK with ``tau_inv`` when None), and the
+    window replay ``fixup`` of :mod:`.hybrid_outlets` after the kernel
+    when the flow has outlets. The spec's ``mode`` (``'full'`` or
+    ``'split'``) says how its backward runs."""
+    spec = pack_spec(("bgk", tau_inv) if collision_spec is None
+                     else collision_spec, e, w, opposite)
     out = _FusedStep.apply(f, dict(
         e=e, w=w, opposite=opposite, cs=cs, tau_inv=tau_inv,
-        collision_spec=collision_spec, ncm=ncm, nsm=nsm, table=table,
+        collision_spec=spec, ncm=ncm, nsm=nsm, table=table,
         feq_field=feq_field))
     return out if fixup is None else fixup(f, out)

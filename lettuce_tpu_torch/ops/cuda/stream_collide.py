@@ -22,15 +22,17 @@ fragment sources ``collide_*.cu`` (:data:`FRAGMENTS`). Each comes as:
 BGK is bound by device memory: D3Q19 in float32 moves 19*4 bytes in and
 19*4 bytes out per cell, 152 B per lattice update; the masked instances
 add the 1-byte code (73 B per D2Q9 float32 update without a no-streaming
-mask). The emit-u instances (BGK only) also write the pre-collision
-velocity, the residual of the BGK adjoint kernel (:mod:`.adjoint`). No
-other fragment has an adjoint kernel yet: a state that requires grad with
-such a spec raises here, and the simulation keeps the torch step for it.
+mask). The emit-u instances (:data:`EMIT_U_FRAGMENTS`: BGK, TRT,
+regularized and the folded MRT) also write the pre-collision velocity, the
+residual of their adjoint kernels (:mod:`.adjoint`). :func:`pack_spec`
+packs a spec's adjoint once beside it (:class:`PackedSpec`): the
+transposed relaxation of the full-mode adjoint kernels, or split mode for
+a collision whose Jacobian has no closed-form kernel.
 
 The sources are built and loaded by :mod:`.build`. :func:`stream_collide`
 runs the plain version only for a CPU tensor. For a CUDA tensor it
-launches a kernel or raises; a CUDA state that requires grad with the BGK
-spec goes through :func:`.fused_step.fused_step`, the autograd route.
+launches a kernel or raises. A state that requires grad, on either
+device, goes through :func:`.fused_step.fused_step`, the autograd route.
 """
 
 from __future__ import annotations
@@ -61,12 +63,13 @@ from .build import (DTYPES, KERNEL_STENCIL_NAMES, KERNEL_STENCILS,
 from .hybrid_outlets import outlet_window
 
 __all__ = ["stream_collide", "stream_collide_plain", "collide_plain",
-           "load_library", "load_fragment_library", "load_libraries",
-           "gate_fused_params", "kernel_refusals", "collision_spec_of",
-           "fragment_of", "pack_spec", "PackedSpec", "check_masks",
+           "prestream_plain", "load_library", "load_fragment_library",
+           "load_libraries", "gate_fused_params", "kernel_refusals",
+           "collision_spec_of", "fragment_of", "pack_spec", "PackedSpec",
+           "adjoint_collision_spec", "check_masks", "check_nsm",
            "checked_table", "table_arrays", "PackedTable",
            "kernel_stencil_name", "KERNEL_STENCILS", "KINDS", "MAX_CODES",
-           "FRAGMENTS"]
+           "FRAGMENTS", "EMIT_U_FRAGMENTS"]
 
 # boundary kinds of the per-code table, in the order of csrc/stencils.cuh's
 # Kind enum
@@ -90,6 +93,9 @@ FRAGMENTS = {
     "mrt_hermite27": ("collide_mrt", ("d3q27",)),
     "kbc": ("collide_kbc", ("d2q9", "d3q27")),
 }
+# the fragments with emit-u instances: those whose adjoint kernel reads the
+# pre-collision u (lettuce_tpu's build_adjoint_step :770-772)
+EMIT_U_FRAGMENTS = ("bgk", "trt", "reg", "mrt_from_feq")
 # the parity of each moment under e -> -e that the MRT fragment's closed
 # forms assume (csrc/collide_mrt.cu, moment_parity)
 MRT_PARITY = {
@@ -175,26 +181,42 @@ def collide_plain(f: torch.Tensor, spec, e: np.ndarray, w: np.ndarray,
     raise ValueError(f"unknown collision spec {kind!r}")
 
 
+def prestream_plain(f: torch.Tensor, spec, e: np.ndarray, w: np.ndarray,
+                    opposite: np.ndarray, cs: float, ncm: torch.Tensor = None,
+                    table=None, feq_field: torch.Tensor = None
+                    ) -> torch.Tensor:
+    """The kernel's pointwise pre-streaming map in plain PyTorch: the
+    collision of ``spec`` (:func:`collide_plain`), then the boundary codes
+    of ``table`` where ``ncm`` holds them (:func:`_replace_boundaries`)."""
+    fpost = collide_plain(f, spec, e, w, opposite, cs)
+    if ncm is None:
+        return fpost
+    return _replace_boundaries(f, fpost, opposite, ncm, table, feq_field)
+
+
+def _check_emit_u(spec) -> None:
+    if fragment_of(spec) not in EMIT_U_FRAGMENTS:
+        raise ValueError(f"emit_u is for {', '.join(EMIT_U_FRAGMENTS)} (the "
+                         f"residual of their adjoint kernels), not "
+                         f"{fragment_of(spec)!r}")
+
+
 def stream_collide_plain(f: torch.Tensor, e: np.ndarray, w: np.ndarray,
                          opposite: np.ndarray, cs: float, tau_inv: float,
                          ncm: torch.Tensor = None, nsm: torch.Tensor = None,
                          table=None, feq_field: torch.Tensor = None,
                          emit_u: bool = False, collision_spec=None):
-    """One collide-and-stream step in plain PyTorch: the collision of
-    ``collision_spec`` (BGK with ``tau_inv`` when None,
-    :func:`collide_plain`), the boundary codes of ``table`` where ``ncm``
-    holds them (:func:`_replace_boundaries`), then a per-q ``torch.roll``
-    with the populations of ``nsm`` frozen. With ``emit_u`` (BGK only) it
-    returns ``(out, u)``, u = j / rho the pre-collision velocity
-    ``[d, *grid]``."""
+    """One collide-and-stream step in plain PyTorch: the pre-streaming map
+    of ``collision_spec`` (BGK with ``tau_inv`` when None,
+    :func:`prestream_plain`), then a per-q ``torch.roll`` with the
+    populations of ``nsm`` frozen. With ``emit_u`` (a fragment of
+    :data:`EMIT_U_FRAGMENTS`) it returns ``(out, u)``, u = j / rho the
+    pre-collision velocity ``[d, *grid]``."""
     spec = ("bgk", tau_inv) if collision_spec is None else collision_spec
-    if emit_u and spec[0] != "bgk":
-        raise ValueError(f"emit_u is BGK only (the BGK adjoint's "
-                         f"residual), not {spec[0]!r}")
-    fpost = collide_plain(f, spec, e, w, opposite, cs)
-    if ncm is not None:
-        fpost = _replace_boundaries(f, fpost, opposite, ncm, table,
-                                    feq_field)
+    if emit_u:
+        _check_emit_u(spec)
+    fpost = prestream_plain(f, spec, e, w, opposite, cs, ncm, table,
+                            feq_field)
     out = stream(fpost, e, nsm)
     if not emit_u:
         return out
@@ -212,23 +234,17 @@ def fragment_of(spec) -> str:
     return f"mrt_{spec[4]}" if spec[0] == "mrt" else spec[0]
 
 
-def _mrt_params(spec, opposite) -> np.ndarray:
-    """The MRT fragment's kernel parameters: C = M^-1 diag(1/tau) M folded
-    by opposite-pair parity into its even block ce (rows: the rest and the
-    first member of each pair; columns: the rest and the pair sums) and odd
-    block co (pair differences), then for a closed-form equilibrium
-    A = M^-1 diag(1/tau) on the same rows (ae, ao). Raises
-    NotImplementedError when C does not commute with the opposite
-    permutation or a moment lacks the parity the kernel assumes."""
-    _, M, Minv, taus, meq_kind = spec
-    M = np.asarray(M, dtype=np.float64)
-    Minv = np.asarray(Minv, dtype=np.float64)
-    s = 1.0 / np.asarray(taus, dtype=np.float64)
-    C = Minv @ (s[:, None] * M)
+def _fold_pairs(C: np.ndarray, opposite, what: str) -> list:
+    """``[ce, co]``, the f-space matrix C folded by opposite-pair parity
+    (flattened): the even block ce (rows: the rest and the first member of
+    each pair; columns: the rest and the pair sums) and the odd block co
+    (pair differences), as csrc/collide_mrt.cu's ``apply_c`` reads them.
+    Raises NotImplementedError when C does not commute with the opposite
+    permutation, which the fold needs."""
     perm = np.asarray(opposite)
     if not np.allclose(C[np.ix_(perm, perm)], C, atol=1e-11):
         raise NotImplementedError(
-            "the MRT matrix does not commute with the opposite permutation")
+            f"{what} does not commute with the opposite permutation")
     firsts = [a for a in range(len(perm)) if a < perm[a]]
     pairs = [(a, perm[a]) for a in firsts]
     reps = [0] + firsts
@@ -236,7 +252,31 @@ def _mrt_params(spec, opposite) -> np.ndarray:
                    for r in reps])
     co = np.array([[0.5 * (C[a, x] - C[a, y]) for x, y in pairs]
                    for a in firsts])
-    parts = [ce.ravel(), co.ravel()]
+    return [ce.ravel(), co.ravel()]
+
+
+def _mrt_matrix(spec) -> np.ndarray:
+    """C = M^-1 diag(1/tau) M of an MRT spec."""
+    _, M, Minv, taus, _ = spec
+    s = 1.0 / np.asarray(taus, dtype=np.float64)
+    return (np.asarray(Minv, dtype=np.float64)
+            @ (s[:, None] * np.asarray(M, dtype=np.float64)))
+
+
+def _mrt_params(spec, opposite) -> np.ndarray:
+    """The MRT fragment's kernel parameters: C = M^-1 diag(1/tau) M folded
+    by opposite-pair parity (:func:`_fold_pairs`), then for a closed-form
+    equilibrium A = M^-1 diag(1/tau) on the same rows (ae, ao). Raises
+    NotImplementedError when C does not commute with the opposite
+    permutation or a moment lacks the parity the kernel assumes."""
+    _, M, Minv, taus, meq_kind = spec
+    M = np.asarray(M, dtype=np.float64)
+    Minv = np.asarray(Minv, dtype=np.float64)
+    s = 1.0 / np.asarray(taus, dtype=np.float64)
+    perm = np.asarray(opposite)
+    firsts = [a for a in range(len(perm)) if a < perm[a]]
+    reps = [0] + firsts
+    parts = _fold_pairs(_mrt_matrix(spec), opposite, "the MRT matrix")
     if meq_kind != "from_feq":
         parity = np.asarray(MRT_PARITY[meq_kind], dtype=np.float64)
         if not np.allclose(M[:, perm], M * parity[:, None], atol=1e-11):
@@ -250,24 +290,74 @@ def _mrt_params(spec, opposite) -> np.ndarray:
     return np.ascontiguousarray(np.concatenate(parts), dtype=np.float64)
 
 
+def adjoint_collision_spec(spec, e, w, cs) -> tuple:
+    """The adjoint spec of the forward collision ``spec``, as
+    lettuce_tpu's ``adjoint_collision_spec`` derives it: an f-linear
+    collision f' = f - C (f - feq) transposes as ``("matvec", C^T)`` (the
+    folded MRT ``from_feq``, C = M^-1 diag(1/tau) M, and the regularized,
+    C = I - (1 - 1/tau) P with the static projection
+    P_ij = w_i ((e_i.e_j)^2 - cs^2 |e_j|^2) / (2 cs^4)); BGK, TRT,
+    Smagorinsky and the identity keep their spec; every other collision
+    (forced BGK, KBC, the closed-form MRT bases) gives ``("split",)``: no
+    closed-form Jacobian, so its gradient runs split mode."""
+    kind = spec[0]
+    if kind == "mrt" and spec[4] == "from_feq":
+        return ("matvec", tuple(map(tuple, _mrt_matrix(spec).T)))
+    if kind == "reg":
+        e = np.asarray(e, dtype=np.float64)
+        w = np.asarray(w, dtype=np.float64)
+        cs2 = float(cs) ** 2
+        G = e @ e.T
+        P = ((G * G - cs2 * (e * e).sum(axis=1)[None, :])
+             * (w[:, None] / (2.0 * cs2 * cs2)))
+        C = np.eye(len(w)) - (1.0 - 1.0 / float(spec[1])) * P
+        return ("matvec", tuple(map(tuple, C.T)))
+    if kind in ("bgk", "trt", "smag", "none"):
+        return tuple(spec)
+    return ("split",)
+
+
 class PackedSpec(tuple):
     """A collision spec with its kernel fragment (``fragment``), the
-    stencil instance it was packed for (``stencil``) and the float64 array
-    the fragment's C entry reads (``params``). It compares and iterates as
-    the spec."""
+    stencil instance it was packed for (``stencil``), the float64 array
+    the fragment's C entry reads (``params``), and its adjoint: the spec
+    of :func:`adjoint_collision_spec` (``adjoint``), the float64 array its
+    kernel's C entry reads (``adjoint_params``; for ``matvec`` C^T folded
+    by opposite-pair parity), ``mode`` (``'full'``: one adjoint kernel;
+    ``'split'``: the ``none`` adjoint kernel, then the VJP of the
+    pre-streaming map) and ``residual``, what the forward saves for it
+    (``'u'`` the emitted pre-collision velocity, ``'f'`` the step's input,
+    or None). It compares and iterates as the spec."""
 
-    def __new__(cls, spec, stencil, params):
+    def __new__(cls, spec, stencil, params, adjoint, adjoint_params):
         self = super().__new__(cls, spec)
         self.fragment = fragment_of(spec)
         self.stencil = stencil
         self.params = params
+        self.adjoint = adjoint
+        self.adjoint_params = adjoint_params
+        self.mode = "split" if adjoint[0] == "split" else "full"
+        self.residual = {"bgk": "u", "trt": "u", "matvec": "u", "smag": "f",
+                         "none": None, "split": "f"}[adjoint[0]]
         return self
 
 
+def _pack_adjoint(spec, e, w, opposite, cs) -> tuple:
+    """(the adjoint spec, the float64 array its kernel reads)."""
+    adjoint = adjoint_collision_spec(spec, e, w, cs)
+    if adjoint[0] == "matvec":
+        params = np.concatenate(_fold_pairs(
+            np.asarray(adjoint[1]), opposite,
+            "the transposed relaxation matrix"))
+    else:  # bgk, trt, smag: the spec's scalars; none and split: none
+        params = adjoint[1:] or (0.0,)
+    return adjoint, np.ascontiguousarray(params, dtype=np.float64)
+
+
 def pack_spec(spec, e, w, opposite) -> PackedSpec:
-    """``spec`` packed for the stencil (e, w, opposite); a spec already
-    packed for it is returned as it is. Raises NotImplementedError when no
-    kernel instance takes it."""
+    """``spec`` packed for the stencil (e, w, opposite), with its adjoint;
+    a spec already packed for it is returned as it is. Raises
+    NotImplementedError when no kernel instance takes it."""
     name = kernel_stencil_name(e, w, opposite)
     if isinstance(spec, PackedSpec) and spec.stencil == name:
         return spec
@@ -292,7 +382,9 @@ def pack_spec(spec, e, w, opposite) -> PackedSpec:
         else:  # none, trt, reg, smag, kbc: the spec's scalars
             params = spec[1:]
         params = np.ascontiguousarray(params, dtype=np.float64)
-    return PackedSpec(spec, name, params)
+    cs = KERNEL_STENCILS[KERNEL_STENCIL_NAMES.index(name)].cs
+    return PackedSpec(spec, name, params,
+                      *_pack_adjoint(spec, e, w, opposite, cs))
 
 
 # ----------------------------------------------------------------------
@@ -334,15 +426,18 @@ def load_fragment_library(source: str) -> ctypes.CDLL:
     for fragment, (src, names) in FRAGMENTS.items():
         if src != source:
             continue
+        # (variant, tensors): periodic f, out (+ u); masked f, out (+ u),
+        # ncm, nsm, feq field, host kinds, host values
+        variants = [("", 2), ("masked_", 7)]
+        if fragment in EMIT_U_FRAGMENTS:
+            variants += [("emit_u_", 3), ("masked_emit_u_", 8)]
         for name in names:
             for suffix, _ in DTYPES.values():
-                fn = getattr(lib, f"lt_collide_{fragment}_{name}_{suffix}")
-                fn.argtypes = [pointer] * 2 + grid + tail
-                fn.restype = ctypes.c_int
-                fn = getattr(lib, f"lt_collide_{fragment}_masked_{name}_"
-                                  f"{suffix}")
-                fn.argtypes = [pointer] * 7 + grid + tail
-                fn.restype = ctypes.c_int
+                for variant, n_pointers in variants:
+                    fn = getattr(lib, f"lt_collide_{fragment}_{variant}"
+                                      f"{name}_{suffix}")
+                    fn.argtypes = [pointer] * n_pointers + grid + tail
+                    fn.restype = ctypes.c_int
     return lib
 
 
@@ -402,11 +497,8 @@ def check_masks(f: torch.Tensor, ncm, nsm, table, feq_field) -> None:
             or ncm.device != f.device or not ncm.is_contiguous()):
         raise ValueError(f"ncm must be a contiguous uint8 tensor of shape "
                          f"{tuple(f.shape[1:])} on {f.device}")
-    if nsm is not None and (
-            nsm.dtype != torch.bool or tuple(nsm.shape) != tuple(f.shape)
-            or nsm.device != f.device or not nsm.is_contiguous()):
-        raise ValueError(f"nsm must be a contiguous bool tensor of shape "
-                         f"{tuple(f.shape)} on {f.device}")
+    if nsm is not None:
+        check_nsm(f, nsm)
     if not 0 < len(table) <= MAX_CODES or table[0][0] != "collide":
         raise ValueError(f"the table needs code 0 'collide' and at most "
                          f"{MAX_CODES} codes")
@@ -420,6 +512,15 @@ def check_masks(f: torch.Tensor, ncm, nsm, table, feq_field) -> None:
             raise ValueError(f"an equilibrium_pu_field code needs a "
                              f"contiguous feq_field like f "
                              f"{tuple(f.shape)}, {f.dtype}")
+
+
+def check_nsm(f: torch.Tensor, nsm: torch.Tensor) -> None:
+    """Raise on a no-streaming mask the kernels do not take for a state
+    like ``f``."""
+    if (nsm.dtype != torch.bool or tuple(nsm.shape) != tuple(f.shape)
+            or nsm.device != f.device or not nsm.is_contiguous()):
+        raise ValueError(f"nsm must be a contiguous bool tensor of shape "
+                         f"{tuple(f.shape)} on {f.device}")
 
 
 def stream_collide(f: torch.Tensor, e: np.ndarray, w: np.ndarray,
@@ -438,17 +539,25 @@ def stream_collide(f: torch.Tensor, e: np.ndarray, w: np.ndarray,
     ``out`` must not be ``f``: the kernel pushes to neighbours. With
     ``ncm`` (the uint8 code per cell) and its ``table`` the masked kernel
     runs, with the optional ``nsm`` and ``feq_field``. With ``u_out``
-    (``[d, *grid]``, BGK only) the emit-u kernel also writes the
-    pre-collision velocity there, and the call returns ``(out, u_out)``.
+    (``[d, *grid]``, a fragment of :data:`EMIT_U_FRAGMENTS`) the emit-u
+    kernel also writes the pre-collision velocity there, and the call
+    returns ``(out, u_out)``.
 
-    A CUDA state that requires grad, with grad mode on, goes through
-    :func:`.fused_step.fused_step` (fresh output, adjoint kernel backward)
-    for BGK, and raises for any other spec, which has no adjoint kernel
-    yet; ``out`` and ``u_out`` cannot be given then.
+    A state that requires grad, with grad mode on, goes through
+    :func:`.fused_step.fused_step` with the same spec and masks (fresh
+    output, the spec's adjoint in the backward); ``out`` and ``u_out``
+    cannot be given then.
     """
     spec = ("bgk", tau_inv) if collision_spec is None else collision_spec
     emit_u = u_out is not None
     masks = dict(ncm=ncm, nsm=nsm, table=table, feq_field=feq_field)
+    if f.requires_grad and torch.is_grad_enabled():
+        if out is not None or emit_u:
+            raise ValueError("out and u_out would bypass autograd: a state "
+                             "that requires grad takes neither")
+        from .fused_step import fused_step
+        return fused_step(f, e=e, w=w, opposite=opposite, cs=cs,
+                          tau_inv=tau_inv, collision_spec=spec, **masks)
     if f.device.type == "cpu":
         result = stream_collide_plain(f, e, w, opposite, cs, tau_inv,
                                       emit_u=emit_u, collision_spec=spec,
@@ -461,22 +570,9 @@ def stream_collide(f: torch.Tensor, e: np.ndarray, w: np.ndarray,
     if f.device.type != "cuda":
         raise ValueError(f"stream_collide runs on cpu or cuda tensors, "
                          f"got {f.device}")
+    if emit_u:
+        _check_emit_u(spec)
     bgk = spec[0] == "bgk"
-    if f.requires_grad and torch.is_grad_enabled():
-        if not bgk:
-            raise NotImplementedError(
-                f"no adjoint kernel for the {spec[0]!r} collision yet "
-                f"(K3b/K3d): run a state that requires grad on the torch "
-                f"step")
-        if out is not None or emit_u:
-            raise ValueError("out and u_out would bypass autograd: a state "
-                             "that requires grad takes neither")
-        from .fused_step import fused_step
-        return fused_step(f, e=e, w=w, opposite=opposite, cs=cs,
-                          tau_inv=spec[1], **masks)
-    if emit_u and not bgk:
-        raise ValueError(f"emit_u is BGK only (the BGK adjoint's "
-                         f"residual), not {spec[0]!r}")
     name = kernel_stencil_name(e, w, opposite)
     n0, n1, n2 = launch_dims(f, e)
     out = check_out(out, f, f.shape, "out", f)
@@ -509,7 +605,7 @@ def stream_collide(f: torch.Tensor, e: np.ndarray, w: np.ndarray,
         return (out, u_out) if emit_u else out
     spec = pack_spec(spec, e, w, opposite)  # alive until the call returns
     lib = load_fragment_library(FRAGMENTS[spec.fragment][0])
-    variant = "masked_" if masked else ""
+    variant = ("masked_" if masked else "") + ("emit_u_" if emit_u else "")
     launch = getattr(lib, f"lt_collide_{spec.fragment}_{variant}{name}_"
                           f"{suffix}")
     rc = launch(*pointers, n0, n1, n2, spec.params.ctypes.data, float(cs),
@@ -517,14 +613,15 @@ def stream_collide(f: torch.Tensor, e: np.ndarray, w: np.ndarray,
     check_launch(lib, rc, f"stream_collide ({spec.fragment}, "
                           f"{variant or 'periodic_'}{name})")
     stream_collide.fragment_launches[variant + spec.fragment] += 1
-    return out
+    return (out, u_out) if emit_u else out
 
 
 stream_collide.launches = 0                # periodic BGK primal launches
 stream_collide.emit_u_launches = 0         # periodic BGK emit-u launches
 stream_collide.masked_launches = 0         # masked BGK primal launches
 stream_collide.masked_emit_u_launches = 0  # masked BGK emit-u launches
-# launches of the other fragments, by fragment ("trt", "masked_trt", ...)
+# launches of the other fragments, by variant and fragment ("trt",
+# "masked_trt", "emit_u_trt", "masked_emit_u_trt", ...)
 stream_collide.fragment_launches = Counter()
 
 

@@ -16,13 +16,14 @@ Two step paths:
     probe makes host-side checks only (component types, the collision
     spec, the state's dtype, the outlets' replay windows), the same ones
     the kernel gate raises on, and prints its reason when it keeps the
-    torch step; a build or launch error is never caught. For BGK its
+    torch step; a build or launch error is never caught. Its
     differentiable step (``make_step_fn``, ``make_segment_fn``, and
-    ``__call__`` on a state that requires grad) is ``fused_step``: the
-    emit-u kernel forward, the adjoint kernel backward, then the replay
-    under autograd. Every other collision has no adjoint kernel yet, so
-    its differentiable step is the torch step, and the simulation prints
-    why when one is asked for.
+    ``__call__`` on a state that requires grad) is ``fused_step`` for
+    every collision: the fragment's kernel forward, the adjoint kernel
+    backward (``adjoint_mode`` ``'full'``), or for a collision without a
+    closed-form Jacobian the streaming-transpose kernel and the VJP of the
+    pointwise pre-streaming map (``'split'``), then the replay under
+    autograd.
 
 No step ever writes into a tensor that a caller holds: the kernel path's
 throughput loop ping-pongs between two buffers the simulation allocated
@@ -113,11 +114,10 @@ class Simulation:
         self._step = self._torch_step
         self._step_kind = "torch"
         self._fixup = None
-        self._grad_refusal = None
         if self.context.use_native and self._native_supported():
             # a build error surfaces here, never later
             load_libraries()
-            adjoint.load_library()
+            adjoint.load_libraries()
             self._use_kernel()
 
     # ------------------------------------------------------------------
@@ -144,8 +144,7 @@ class Simulation:
         in planes the replay rewrites. ``_buffers`` are the two state
         buffers the throughput loop steps between (out of place); they
         are never handed out. The differentiable step is ``fused_step``
-        for BGK; for any other collision it stays the torch step, with
-        the reason in ``_grad_refusal``."""
+        with the gate's parameters and the replay."""
         params, hybrid = gate_fused_params(self)
         self._fixup = None
         if hybrid:
@@ -158,26 +157,11 @@ class Simulation:
                     params["feq_field"])
         self._kernel_params = params
         self._buffers = [None, None]
-        kind = params["collision_spec"][0]
-        self._grad_refusal = None
-        if kind != "bgk":
-            self._step = self._torch_step
-            self._grad_refusal = (f"no adjoint kernel for the {kind!r} "
-                                  f"collision yet: K3b/K3d")
-        elif self._fixup is None:
+        if self._fixup is None:
             self._step = partial(fused_step, **params)
         else:
             self._step = partial(fused_step, fixup=self._fixup, **params)
         self._step_kind = "cuda"
-
-    def _differentiable_step(self):
-        """The step that autograd goes through, printing why it is the
-        torch step on a kernel path whose collision has no adjoint
-        kernel."""
-        if self._grad_refusal is not None:
-            print(f"native was requested, but {self._grad_refusal}; the "
-                  f"differentiable step runs the torch step.")
-        return self._step
 
     def _torch_step(self, f: torch.Tensor) -> torch.Tensor:
         """One collide-and-stream step in plain torch."""
@@ -212,9 +196,8 @@ class Simulation:
                 f = self._step(f)
             return f
         if f.requires_grad and torch.is_grad_enabled():
-            step = self._differentiable_step()
             for _ in range(n):
-                f = step(f)
+                f = self._step(f)
             return f
         for i in range(n):
             f = self._cuda_step(f, None if i == n - 1
@@ -225,10 +208,9 @@ class Simulation:
         """One collide-and-stream step as a function ``f -> f'`` for custom
         loops (learned collisions, differentiable rollouts): on the kernel
         path the differentiable ``fused_step`` bound to the kernel
-        parameters, else (and for a collision without an adjoint kernel,
-        with the reason printed) the torch step. It returns a fresh tensor
-        and never writes into its input."""
-        return self._differentiable_step()
+        parameters (and the replay), else the torch step. It returns a
+        fresh tensor and never writes into its input."""
+        return self._step
 
     def make_segment_fn(self, num_steps: int,
                         checkpoint_every: Optional[int] = None):
@@ -243,7 +225,7 @@ class Simulation:
         O(num_steps) to O(num_steps / k + k) at about twice the forward
         cost. The remainder steps run plainly. Pick k ~ sqrt(num_steps).
         """
-        step = self._differentiable_step()
+        step = self._step
         num_steps = int(num_steps)
 
         def run(f, n):
@@ -269,6 +251,16 @@ class Simulation:
     @property
     def units(self):
         return self.flow.units
+
+    @property
+    def adjoint_mode(self) -> Optional[str]:
+        """How the kernel path's gradient runs: ``'full'`` (one adjoint
+        kernel per step), ``'split'`` (the streaming-transpose kernel, then
+        the VJP of the pointwise pre-streaming map), or None on the torch
+        step, whose gradient is autograd's."""
+        if self._step_kind != "cuda":
+            return None
+        return self._kernel_params["collision_spec"].mode
 
     @property
     def step_path(self) -> str:
