@@ -21,8 +21,11 @@ cells at full size, the TGV3D KBC and Poiseuille gates, every fragment on
 the obstacle, the probe's refusals and the decaying turbulence; then the
 gradients of the fragments: every emit-u fragment instance and fragment
 adjoint against its plain version, the gradient cells at full width in
-full and split mode, and two obstacle gradients. Every failed check exits
-non-zero; nothing is caught.
+full and split mode, and two obstacle gradients; then half-precision
+storage: every 16-bit instance (bfloat16 deviations, bfloat16 and float16
+states) against its plain version, the main path and the fragment cells
+under ``half_storage``, and 16-bit states through the CLI. Every failed
+check exits non-zero; nothing is caught.
 
 Phases:
   0. the card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
@@ -131,7 +134,29 @@ Phases:
      masked matvec adjoint, replay) and with KBC (masked kbc, the streaming
      transpose, the pointwise VJP, replay): the 8-step gradient against
      autograd of the torch step along the kernels' trajectory to 1e-5,
-     both kernels per launch.
+     both kernels per launch;
+ 22. every 16-bit instance (K1e: bfloat16 deviations g = f - w_q, every
+     fragment but the closed-form MRT bases; K1f: bfloat16 and float16
+     states, every fragment) against its plain version on the grids of
+     phase 2, periodic and masked (phase 9's codes and frozen planes), 3
+     steps each from the plain state of the step before: steps 1 and 3
+     within one storage ulp entrywise (deviations: plus 2^-23, KBC 2^-19,
+     the float32 roundoff of a rebuilt population), the worst ulps and the
+     fraction of entries that differ printed; launches equal steps;
+ 23. the main path under ``Simulation(half_storage=True)``: 20 + 200 steps
+     with one bf16-dev launch each, finite, mass to 1e-4; u after 10 steps
+     within 2 % of the float32 kernel path's; MLUPS, kernel and plain ms by
+     CUDA events in turns, GB/s at 76 B per update, the share of the saxpy;
+     ``rollout(20, [energy], interval=5)`` ends bitwise where
+     ``simulation(20)`` does;
+ 24. phase 14's cells under half storage (bf16-dev, the Poiseuille cell
+     masked): 20 + 100 steps with one launch each, kernel vs plain at the
+     cell's state, MLUPS, kernel and plain ms, the share of the saxpy;
+ 25. 16-bit states: ``benchmark -p half`` and ``benchmark --half-storage``
+     (TGV3D 256^3) in process; a float16 and a bfloat16 D3Q19 256^3 state
+     timed against plain; tests/test_native.py's D2Q9 bfloat16 and float16
+     sanity runs; an analytic MRT under half storage warns and runs at
+     full precision. Phase 1 fails if a 16-bit instance spills.
 
 Prints, before the last line, one JSON line describing the kernels (with
 each launch's bound: its bytes over an H100 SXM's 3.35 TB/s and its
@@ -448,6 +473,7 @@ def reset_launch_counts():
     adjoint.stream_collide_adjoint.launches = 0
     adjoint.stream_collide_adjoint.masked_launches = 0
     sc.stream_collide.fragment_launches.clear()
+    sc.stream_collide.half_launches.clear()
     adjoint.stream_collide_adjoint.fragment_launches.clear()
 
 
@@ -2164,6 +2190,499 @@ def phase21_obstacle_gradients(card, saxpy_gbps):
     return results
 
 
+# ----------------------------------------------------------------------
+# 16-bit storage: bfloat16 deviations (K1e) and 16-bit states (K1f)
+# ----------------------------------------------------------------------
+# the 16-bit instances of every forward fragment, computing in float32:
+# csrc/half_storage.cuh and csrc/half_*.cu
+HALF_STORAGE_SOURCE = "lettuce_tpu_torch/csrc/half_storage.cuh"
+# the deviation-storage paths of the TPU kernel (_moments :1260) and its
+# 16-bit state (:1492)
+DEV_REPLACES = "lettuce_tpu/ops/pallas/stream_collide.py:1260"
+HALF_REPLACES = "lettuce_tpu/ops/pallas/stream_collide.py:1492"
+# (state dtype, deviation storage) of each storage suffix
+HALF_STORAGES = {"bf16_dev": (torch.bfloat16, True),
+                 "bf16": (torch.bfloat16, False),
+                 "f16": (torch.float16, False)}
+HALF_KEYS = {torch.bfloat16: "bf16", torch.float16: "f16"}
+# one ulp of each 16-bit type at a magnitude in [2^k, 2^(k+1)): 2^(k - m)
+MANTISSA_BITS = {torch.bfloat16: 7, torch.float16: 10}
+# deviation storage rebuilds each population as g + w_q in float32 before
+# the collision (csrc/half_storage.cuh); the plain version decodes in
+# float64. Near a deviation's zero crossing the kernel's float32 roundoff
+# of a population (a few ulps of 2^-25) exceeds a bf16 ulp of the
+# deviation, so deviation storage adds this floor to one ulp.
+DEV_FLOOR = 2.0 ** -23
+# KBC's stabiliser amplifies that roundoff in the cells next to the
+# boundary codes, far from equilibrium (phase 13's reason), past that
+# floor on the masked trajectories. KBC takes this floor, below phase
+# 13's float32 ATOL.
+KBC_DEV_FLOOR = 2.0 ** -19
+# D3Q19 in 16 bits: q populations in and out, 2 bytes each
+HALF_BYTES_PER_UPDATE = 19 * 2 * 2
+
+
+def half_launches():
+    import lettuce_tpu_torch.ops.cuda.stream_collide as sc
+    return dict(sc.stream_collide.half_launches)
+
+
+def storage_state(f32, w, storage):
+    """A float32 state (or per-node field) in the 16-bit storage."""
+    import lettuce_tpu_torch.ops.cuda.stream_collide as sc
+    dtype, dev = HALF_STORAGES[storage]
+    return sc.encode_deviations(f32, w) if dev else f32.to(dtype)
+
+
+def storage_ulps(got, ref, floor=DEV_FLOOR):
+    """(the worst |got - ref| in ulps of the storage type at the larger
+    magnitude, the same with ``floor`` added to the ulp, the fraction of
+    entries that differ at all)."""
+    a, b = got.double(), ref.double()
+    m = torch.maximum(a.abs(), b.abs()).clamp_min(1e-30)
+    ulp = torch.exp2(torch.floor(torch.log2(m)) - MANTISSA_BITS[got.dtype])
+    if got.dtype == torch.float16:
+        ulp = ulp.clamp_min(2.0 ** -24)  # float16's least subnormal
+    err = (a - b).abs()
+    return ((err / ulp).max().item(), (err / (ulp + floor)).max().item(),
+            (err > 0).double().mean().item())
+
+
+def check_storage(got, ref, storage, what, floor=DEV_FLOOR):
+    """One storage ulp entrywise (deviations: plus ``floor``); returns
+    (worst ulps, fraction differing, max |got - ref|)."""
+    worst, worst_floored, differ = storage_ulps(got, ref, floor)
+    limit = worst_floored if storage == "bf16_dev" else worst
+    check(bool(torch.isfinite(got.float()).all()), f"{what}: not finite")
+    check(limit <= 1.0, f"{what}: {worst:.2f} ulps ({worst_floored:.2f} "
+                        f"with the floor)")
+    return worst, differ, (got.double() - ref.double()).abs().max().item()
+
+
+def phase22_half_instances_vs_plain():
+    """Every 16-bit instance (bf16-dev, bf16, f16; BGK and every K1c
+    fragment) against its plain version at the grids of phase 2: periodic
+    and masked (phase 9's codes, frozen planes), 3 steps from the TGV
+    state, each step from the plain state of the step before (a one-ulp
+    rounding difference would carry into the next input); steps 1 and 3
+    within one storage ulp entrywise; launches equal steps."""
+    import lettuce_tpu_torch as lt
+    import lettuce_tpu_torch.ops.cuda.stream_collide as sc
+    worst = {}
+    seed = 700
+    count = 0
+    for stencil, shape in phase2_cases():
+        name = type(stencil).__name__
+        context = lt.Context(device="cuda", dtype=torch.float32,
+                             use_native=False)
+        flow = lt.TaylorGreenVortex(context, list(shape), 1600, 0.05,
+                                    stencil=stencil, initialize_fneq=False)
+        collisions = {"bgk": lt.BGKCollision(FRAGMENT_TAU),
+                      **fragment_collisions(flow, FRAGMENT_TAU)}
+        for fragment, collision in collisions.items():
+            spec = fragment_spec(flow, collision)
+            args = (stencil.e, stencil.w, stencil.opposite, stencil.cs,
+                    spec[1] if fragment == "bgk" else None)
+            line = []
+            for storage, (dtype, dev) in HALF_STORAGES.items():
+                if dev and fragment in sc.DEV_REFUSED:
+                    continue
+                readings, most = [], 0.0
+                for masked in (False, True):
+                    seed += 1
+                    f32, _ = tgv_state(stencil, shape, torch.float32, seed)
+                    masks = {}
+                    if masked:
+                        masks = bounded_case(stencil, shape, torch.float32,
+                                             seed)[1]
+                        masks["feq_field"] = storage_state(
+                            masks["feq_field"], stencil.w, storage)
+                    key = (("masked_" if masked else "") + fragment
+                           + "_" + storage)
+                    before = half_launches().get(key, 0)
+                    x = storage_state(f32, stencil.w, storage)
+                    for step in (1, 2, 3):
+                        got = sc.stream_collide(x, *args, **masks,
+                                                collision_spec=spec,
+                                                dev_storage=dev)
+                        ref = sc.stream_collide_plain(x, *args, **masks,
+                                                      collision_spec=spec,
+                                                      dev_storage=dev)
+                        torch.cuda.synchronize()
+                        check(got.dtype == dtype, f"{key}: {got.dtype}")
+                        ulps, differ, err = check_storage(
+                            got, ref, storage, f"{key} {name} step {step}",
+                            KBC_DEV_FLOOR if fragment == "kbc"
+                            else DEV_FLOOR)
+                        if step != 2:
+                            readings.append(f"{ulps:.1f}")
+                            most = max(most, differ)
+                        w_ulps, w_err = worst.get(key, (0.0, 0.0))
+                        worst[key] = (max(w_ulps, ulps), max(w_err, err))
+                        x = ref
+                    launched = half_launches().get(key, 0) - before
+                    check(launched == 3, f"{key} {name}: {launched} "
+                                         f"launches for 3 steps")
+                    count += 1
+                line.append(f"{storage} {'/'.join(readings)} ulps, "
+                            f"{most:.1e} differ")
+            print(f"phase 22: {fragment} {name} {'x'.join(map(str, shape))}"
+                  f" (periodic 1/3, masked 1/3 steps): " + "; ".join(line))
+    print(f"phase 22: {count} runs of 3 steps, worst "
+          f"{max(u for u, _ in worst.values()):.2f} ulps (deviations: one "
+          f"bf16 ulp + {DEV_FLOOR:.2e}, KBC + {KBC_DEV_FLOOR:.2e})")
+    return worst
+
+
+def tgv256(context, half_storage=False, stencil=None):
+    """The main path's flow and Simulation (bench.py:60-73): D3Q19 BGK TGV
+    256^3, Re 1600, Ma 0.05, no f_neq."""
+    import lettuce_tpu_torch as lt
+    flow = lt.TaylorGreenVortex(context, 256, 1600, 0.05,
+                                stencil=stencil or lt.D3Q19(),
+                                initialize_fneq=False)
+    return lt.Simulation(
+        flow, lt.BGKCollision(tau=flow.units.relaxation_parameter_lu), [],
+        half_storage=half_storage)
+
+
+def half_kernel_timing(simulation, plain_repeats=3, kernel_repeats=200,
+                       floor=DEV_FLOOR):
+    """(kernel ms, plain ms, the four readings, max |kernel - plain|) of
+    the simulation's deviation kernel at its own encoded state, by CUDA
+    events in turns; one storage ulp checked."""
+    import lettuce_tpu_torch.ops.cuda.stream_collide as sc
+    params = simulation._half_params
+    g = simulation._encode(simulation.flow.f)
+    out = torch.empty_like(g)
+    ref = sc.stream_collide_plain(g, **params)
+    got = sc.stream_collide(g, **params, out=out)
+    torch.cuda.synchronize()
+    _, _, err = check_storage(got, ref, "bf16_dev",
+                              f"{simulation.step_path} deviations", floor)
+    del ref
+    buffers = [g, out]
+
+    def kernel():
+        sc.stream_collide(buffers[0], **params, out=buffers[1])
+        buffers.reverse()
+
+    kernel_ms, plain_ms, turns = time_in_turns(
+        kernel, lambda: sc.stream_collide_plain(g, **params),
+        kernel_repeats=kernel_repeats, plain_repeats=plain_repeats)
+    return kernel_ms, plain_ms, turns, err
+
+
+def phase23_half_main_path(card, saxpy_gbps):
+    """The main path under half storage: D3Q19 BGK TGV 256^3 through
+    Simulation(half_storage=True), 20 + 200 steps, one bf16-dev launch per
+    step; finite, mass conserved; u after 10 steps against the float32
+    kernel path's; MLUPS, kernel and plain ms by CUDA events in turns, GB/s
+    at 76 B per update and the share of phase 5's saxpy; rollout(20) ends
+    bitwise where simulation(20) does."""
+    import lettuce_tpu_torch as lt
+    context = lt.Context(device="cuda", dtype=torch.float32,
+                         use_native=True)
+    simulation = tgv256(context, half_storage=True)
+    check(simulation.step_path == "cuda x1"
+          and simulation.half_storage_engaged,
+          f"half main path: {simulation.step_path}, engaged "
+          f"{simulation.half_storage_engaged}")
+    flow = simulation.flow
+    mass0 = torch.sum(flow.f, dtype=torch.float64).item()
+
+    reset_launch_counts()
+    simulation(20)
+    mlups = simulation(200)
+    torch.cuda.synchronize()
+    launched = half_launches()
+    check(launched == {"bgk_bf16_dev": 220}
+          and launch_counts() == (0, 0, 0) and not fragment_launches(),
+          f"half main path launches {launched}, {launch_counts()}")
+    check(flow.f.dtype == torch.float32
+          and bool(torch.isfinite(flow.f).all()), "half state not finite")
+    drift = abs(torch.sum(flow.f, dtype=torch.float64).item() - mass0
+                ) / mass0
+    check(drift < 1e-4, f"half main path mass drift {drift}")
+    kernel_ms, plain_ms, turns, err = half_kernel_timing(simulation)
+    cells = 256 ** 3
+    gbps = HALF_BYTES_PER_UPDATE * cells / (kernel_ms * 1e-3) / 1e9
+    print(f"phase 23: D3Q19 BGK TGV 256^3 half storage (bf16 deviations), "
+          f"{simulation.step_path}: {mlups:.1f} MLUPS, 220 launches, mass "
+          f"drift {drift:.2e}; per step, CUDA events: kernel "
+          f"{turns[1]:.4f} / {turns[2]:.4f} ms "
+          f"({cells / kernel_ms / 1e3:.1f} MLUPS), plain {turns[0]:.4f} / "
+          f"{turns[3]:.4f} ms; max |kernel - plain| {err:.3e}; "
+          f"{HALF_BYTES_PER_UPDATE} B/update, {gbps:.1f} GB/s, "
+          f"{gbps / saxpy_gbps:.1%} of the saxpy ({card})")
+    del simulation, flow
+    torch.cuda.empty_cache()
+
+    # u after 10 steps against the float32 kernel path
+    u = []
+    for half in (False, True):
+        simulation = tgv256(context, half_storage=half)
+        simulation(10)
+        u.append(simulation.flow.u())
+        del simulation
+    u_drift = ((u[1] - u[0]).abs().max() / u[0].abs().max()).item()
+    check(u_drift < 0.02, f"half storage u drift {u_drift} after 10 steps")
+    del u
+    torch.cuda.empty_cache()
+
+    # rollout steps in deviations and ends where a call does
+    a, b = (tgv256(context, half_storage=True) for _ in range(2))
+    energy = lt.IncompressibleKineticEnergy(a.flow)
+    records = a.rollout(20, [energy], interval=5)
+    b(20)
+    check(tuple(records.shape) == (4, 1)
+          and bool(torch.isfinite(records).all()),
+          f"rollout records {tuple(records.shape)}")
+    check(torch.equal(a.flow.f, b.flow.f),
+          "rollout(20) under half storage differs from simulation(20)")
+    print(f"phase 23: u after 10 steps {u_drift:.3e} of max|u| from the "
+          f"float32 kernel path (bound 0.02); rollout(20, [energy], "
+          f"interval=5) bitwise equal to simulation(20), energy "
+          f"{records[0, 0].item():.6f} -> {records[-1, 0].item():.6f}")
+    del a, b, records
+    torch.cuda.empty_cache()
+    return dict(mlups=mlups, launches=launched["bgk_bf16_dev"], err=err,
+                kernel_ms=kernel_ms, plain_ms=plain_ms, cells=cells,
+                u_drift=u_drift)
+
+
+def phase24_half_fragment_cells(card, saxpy_gbps):
+    """Phase 14's cells (the five 256^3 fragment cells and the Poiseuille
+    2048^2 Guo cell, masked) under half storage: 20 + 100 steps with one
+    bf16-dev launch each, finite, mass conserved; kernel vs plain at the
+    cell's state; MLUPS, kernel and plain ms, the share of the saxpy."""
+    import lettuce_tpu_torch as lt
+    results = {}
+    for cell, key, make_flow, make_collision in fragment_cells():
+        context = lt.Context(device="cuda", dtype=torch.float32,
+                             use_native=True)
+        flow = make_flow(context)
+        simulation = lt.Simulation(flow, make_collision(flow), [],
+                                   half_storage=True)
+        check(simulation.step_path == "cuda x1"
+              and simulation.half_storage_engaged,
+              f"{cell} runs {simulation.step_path!r}, engaged "
+              f"{simulation.half_storage_engaged}")
+        mass0 = torch.sum(flow.f, dtype=torch.float64).item()
+        reset_launch_counts()
+        simulation(20)
+        mlups = simulation(100)
+        torch.cuda.synchronize()
+        launched = half_launches()
+        name = f"{key}_bf16_dev"
+        check(launched == {name: 120} and not fragment_launches(),
+              f"{cell}: half launches {launched} for 120 steps")
+        check(bool(torch.isfinite(flow.f).all()), f"{cell}: not finite")
+        drift = abs(torch.sum(flow.f, dtype=torch.float64).item() - mass0
+                    ) / mass0
+        check(drift < 1e-4, f"{cell}: mass drift {drift}")
+        kernel_ms, plain_ms, turns, err = half_kernel_timing(
+            simulation, kernel_repeats=50,
+            floor=KBC_DEV_FLOOR if key == "kbc" else DEV_FLOOR)
+        cells = flow.f[0].numel()
+        q = flow.stencil.q
+        masked = key.startswith("masked_")
+        bytes_per_update = 2 * q * 2 + (1 if masked else 0)
+        bound_ms = cells * bytes_per_update / (saxpy_gbps * 1e9) * 1e3
+        print(f"phase 24: {cell} ({name}), {simulation.step_path}: "
+              f"{mlups:.1f} MLUPS, mass drift {drift:.2e}; per step, CUDA "
+              f"events: kernel {turns[1]:.4f} / {turns[2]:.4f} ms "
+              f"({cells / kernel_ms / 1e3:.1f} MLUPS; saxpy bound "
+              f"{bound_ms:.4f} ms, {bound_ms / kernel_ms:.1%} of the saxpy),"
+              f" plain {turns[0]:.4f} / {turns[3]:.4f} ms; max |kernel - "
+              f"plain| {err:.3e}; {bytes_per_update} B/update ({card})")
+        results[name] = dict(cell=cell, mlups=mlups, launches=launched[name],
+                             err=err, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                             cells=cells, bytes=bytes_per_update, q=q,
+                             fragment=key.removeprefix("masked_"))
+        del simulation, flow
+        torch.cuda.empty_cache()
+    return results
+
+
+def phase25_half_state(card, saxpy_gbps):
+    """16-bit state (K1f) and the half-storage CLI on the card:
+    ``benchmark -p half`` (a bfloat16 TGV3D 256^3 state) and ``benchmark
+    --half-storage`` in process, each with its step path, storage and
+    MLUPS; a float16 D3Q19 256^3 state through Simulation, timed; the
+    D2Q9 bfloat16 and float16 sanity runs of tests/test_native.py:409-441
+    (10 steps, finite, mass to 2e-2); an analytic MRT under half storage
+    warns and runs at full precision."""
+    import contextlib
+    import io
+    import warnings
+    import lettuce_tpu_torch as lt
+    import lettuce_tpu_torch.ops.cuda.stream_collide as sc
+    from lettuce_tpu_torch import cli
+    steps = 50
+    runs = {}
+    for argv, key in ((["-p", "half"], "bgk_bf16"),
+                      (["-p", "single", "--half-storage"], "bgk_bf16_dev")):
+        reset_launch_counts()
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            rc = cli.main(["--device", "cuda", *argv[:2], "benchmark", "-r",
+                           "256", "-s", str(steps), "-f", "taylor3d",
+                           *argv[2:]])
+        out = printed.getvalue().strip().splitlines()[-1]
+        launched = half_launches()
+        check(rc == 0 and launched == {key: steps}
+              and "(cuda x1 path)" in out,
+              f"cli {' '.join(argv)}: rc {rc}, launches {launched}, {out!r}")
+        print(f"phase 25: cli benchmark {' '.join(argv)} -r 256 -s {steps} "
+              f"-f taylor3d: {out} ({card})")
+        runs[key] = launched[key]
+
+    # a float16 state at the main path's size, through the kernel path
+    context = lt.Context(device="cuda", dtype=torch.float16, use_native=True)
+    simulation = tgv256(context)
+    check(simulation.step_path == "cuda x1", "float16 main path not on the "
+                                             "kernel")
+    reset_launch_counts()
+    simulation(20)
+    mlups = simulation(100)
+    launched = half_launches()
+    check(launched == {"bgk_f16": 120}, f"float16 launches {launched}")
+    f = simulation.flow.f
+    check(f.dtype == torch.float16 and bool(torch.isfinite(f).all()),
+          "float16 state not finite")
+    params = simulation._kernel_params
+    out = torch.empty_like(f)
+    ref = sc.stream_collide_plain(f, **params)
+    got = sc.stream_collide(f, **params, out=out)
+    torch.cuda.synchronize()
+    _, _, err = check_storage(got, ref, "f16", "float16 256^3")
+    del ref
+    kernel_ms, plain_ms, turns = time_in_turns(
+        lambda: sc.stream_collide(f, **params, out=out),
+        lambda: sc.stream_collide_plain(f, **params), kernel_repeats=200,
+        plain_repeats=3)
+    cells = 256 ** 3
+    gbps = HALF_BYTES_PER_UPDATE * cells / (kernel_ms * 1e-3) / 1e9
+    print(f"phase 25: D3Q19 BGK TGV 256^3 float16 state, "
+          f"{simulation.step_path}: {mlups:.1f} MLUPS; per step, CUDA "
+          f"events: kernel {turns[1]:.4f} / {turns[2]:.4f} ms, plain "
+          f"{turns[0]:.4f} / {turns[3]:.4f} ms; max |kernel - plain| "
+          f"{err:.3e}; {gbps:.1f} GB/s, {gbps / saxpy_gbps:.1%} of the saxpy "
+          f"({card})")
+    f16 = dict(launches=launched["bgk_f16"], err=err, kernel_ms=kernel_ms,
+               plain_ms=plain_ms, cells=cells)
+    del simulation, f, out, got
+    torch.cuda.empty_cache()
+
+    # the bfloat16 state at 256^3 timed the same way (the CLI's state)
+    context = lt.Context(device="cuda", dtype=torch.bfloat16,
+                         use_native=True)
+    simulation = tgv256(context)
+    f = simulation.flow.f
+    params = simulation._kernel_params
+    out = torch.empty_like(f)
+    ref = sc.stream_collide_plain(f, **params)
+    got = sc.stream_collide(f, **params, out=out)
+    torch.cuda.synchronize()
+    _, _, err = check_storage(got, ref, "bf16", "bfloat16 256^3")
+    del ref
+    kernel_ms, plain_ms, turns = time_in_turns(
+        lambda: sc.stream_collide(f, **params, out=out),
+        lambda: sc.stream_collide_plain(f, **params), kernel_repeats=200,
+        plain_repeats=3)
+    gbps = HALF_BYTES_PER_UPDATE * cells / (kernel_ms * 1e-3) / 1e9
+    print(f"phase 25: D3Q19 BGK TGV 256^3 bfloat16 state: per step, CUDA "
+          f"events: kernel {turns[1]:.4f} / {turns[2]:.4f} ms, plain "
+          f"{turns[0]:.4f} / {turns[3]:.4f} ms; max |kernel - plain| "
+          f"{err:.3e}; {gbps:.1f} GB/s, {gbps / saxpy_gbps:.1%} of the saxpy "
+          f"({card})")
+    bf16 = dict(launches=runs["bgk_bf16"], err=err, kernel_ms=kernel_ms,
+                plain_ms=plain_ms, cells=cells)
+    del simulation, f, out, got
+    torch.cuda.empty_cache()
+
+    # tests/test_native.py:409-441 on the card
+    for dtype in (torch.bfloat16, torch.float16):
+        context = lt.Context(device="cuda", dtype=dtype, use_native=True)
+        flow = lt.TaylorGreenVortex(context, [16, 128], 100, 0.05,
+                                    stencil=lt.D2Q9(), initialize_fneq=False)
+        simulation = lt.Simulation(flow, lt.BGKCollision(
+            flow.units.relaxation_parameter_lu), [])
+        reset_launch_counts()
+        simulation(10)
+        key = f"bgk_{HALF_KEYS[dtype]}"
+        mass = flow.f.float().sum().item()
+        check(half_launches() == {key: 10}
+              and bool(torch.isfinite(flow.f.float()).all())
+              and abs(mass - 16 * 128) <= 2e-2 * 16 * 128,
+              f"{dtype} D2Q9 sanity: launches {half_launches()}, mass "
+              f"{mass}")
+        print(f"phase 25: D2Q9 16x128 {str(dtype)[6:]} state, "
+              f"{simulation.step_path}, 10 steps: finite, mass {mass:.3f} "
+              f"(2048 to 2e-2)")
+
+    # an analytic MRT: half storage warns and runs at full precision
+    context = lt.Context(device="cuda", dtype=torch.float32, use_native=True)
+    flow = lt.TaylorGreenVortex(context, [64, 96], 100, 0.05,
+                                stencil=lt.D2Q9(), initialize_fneq=False)
+    mrt = fragment_collisions(flow, FRAGMENT_TAU)["mrt_lallemand"]
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        simulation = lt.Simulation(flow, mrt, [], half_storage=True)
+    reasons = [str(w.message) for w in caught]
+    reset_launch_counts()
+    simulation(4)
+    check(not simulation.half_storage_engaged and not half_launches()
+          and fragment_launches() == {"mrt_lallemand": 4}
+          and any("not shift-invariant" in r for r in reasons),
+          f"analytic MRT under half storage: {reasons}, "
+          f"{fragment_launches()}, {half_launches()}")
+    print(f"phase 25: MRT Lallemand under half storage: {reasons[0]!r}; "
+          f"4 float32 mrt_lallemand launches")
+    return dict(bf16=bf16, f16=f16)
+
+
+
+def half_entries(worst_half, half_main, half_cells, half_state):
+    """The kernels-line entries of the 16-bit instances that a path runs:
+    the main path's bf16-dev BGK, the six bf16-dev fragment cells, and
+    the bf16 and f16 states' BGK at 256^3; max_abs_err also covers the
+    instance's phase 22 runs (all 174 instances are checked there)."""
+    import lettuce_tpu_torch.ops.cuda.stream_collide as sc
+
+    def source(fragment):
+        base = "stream_collide" if fragment == "bgk" else \
+            sc.FRAGMENTS[fragment][0]
+        return f"lettuce_tpu_torch/csrc/{sc.HALF_SOURCES[base]}.cu"
+
+    def err(name, value):
+        return max(value, worst_half.get(name, (0.0, 0.0))[1])
+
+    entries = [kernel_entry(
+        "stream_collide_bgk_bf16_dev", source("bgk"), DEV_REPLACES,
+        half_main["launches"], err("bgk_bf16_dev", half_main["err"]),
+        half_main["kernel_ms"], half_main["plain_ms"], half_main["cells"],
+        HALF_BYTES_PER_UPDATE, 19 * OPS_PER_POPULATION["bgk"],
+        storage="bf16_dev")]
+    for name, run in sorted(half_cells.items()):
+        entries.append(kernel_entry(
+            f"stream_collide_{name}", source(run["fragment"]), DEV_REPLACES,
+            run["launches"], err(name, run["err"]), run["kernel_ms"],
+            run["plain_ms"], run["cells"], run["bytes"],
+            run["q"] * OPS_PER_POPULATION[run["fragment"]],
+            storage="bf16_dev", cell=run["cell"]))
+    for storage in ("bf16", "f16"):
+        run = half_state[storage]
+        entries.append(kernel_entry(
+            f"stream_collide_bgk_{storage}", source("bgk"), HALF_REPLACES,
+            run["launches"], err(f"bgk_{storage}", run["err"]),
+            run["kernel_ms"], run["plain_ms"], run["cells"],
+            HALF_BYTES_PER_UPDATE, 19 * OPS_PER_POPULATION["bgk"],
+            storage=storage))
+    return entries
+
+
 def ptxas_summary():
     """Registers and spills per kernel instance from the build's ptxas
     report: one line per source, the full table in
@@ -2193,6 +2712,9 @@ def ptxas_summary():
                 per_source.append((kernel, int(m.group(1)), *spill))
                 kernel = None
         rows += [(source, *r) for r in per_source]
+        if source.startswith("half_"):
+            check(per_source and not any(r[2] or r[3] for r in per_source),
+                  f"{source}: an instance spills (or no ptxas report)")
         if per_source:
             regs = [r[1] for r in per_source]
             spills = [r for r in per_source if r[2] or r[3]]
@@ -2252,6 +2774,10 @@ def main():
     worst_gradients = phase19_gradient_instances_vs_plain()
     gradient_runs = (phase20_gradient_cells(card, saxpy_gbps)
                      + phase21_obstacle_gradients(card, saxpy_gbps))
+    worst_half = phase22_half_instances_vs_plain()
+    half_main = phase23_half_main_path(card, saxpy_gbps)
+    half_cells = phase24_half_fragment_cells(card, saxpy_gbps)
+    half_state = phase25_half_state(card, saxpy_gbps)
     print(f"build {build_s:.2f} s; whole run {time.perf_counter() - beg:.1f} "
           f"s")
     print(card)
@@ -2323,6 +2849,7 @@ def main():
                                                 0.0)),
             adj["ms"], adj["plain_ms"], adj["cells"], adj["bytes"],
             adj["ops"], cell=run["cell"], mode=run["mode"]))
+    kernels += half_entries(worst_half, half_main, half_cells, half_state)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

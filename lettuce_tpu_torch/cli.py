@@ -7,6 +7,8 @@ after the subcommand::
 
     python -m lettuce_tpu_torch.cli benchmark -r 256 -s 100 -f taylor3d \\
         --device cuda -p single
+    python -m lettuce_tpu_torch.cli benchmark -r 256 -s 100 -f taylor3d \\
+        -p single --half-storage
     python -m lettuce_tpu_torch.cli --device cuda convergence
 
 ``--device cuda`` without a card is an error: nothing falls back to the CPU.
@@ -41,8 +43,8 @@ def _add_global_options(parser: argparse.ArgumentParser, suppress: bool):
     parser.add_argument("-p", "--precision", choices=sorted(_PRECISIONS),
                         default=default("double"),
                         help="bfloat16, float32 or float64 state (default "
-                             "double; the CUDA kernel runs single and "
-                             "double).")
+                             "double; the CUDA kernels run all three, a "
+                             "bfloat16 state computing in float32).")
     parser.add_argument("--use-native", dest="use_native",
                         action="store_true", default=default(True),
                         help="Use the fused CUDA stream-collide kernel "
@@ -90,6 +92,11 @@ def _parser() -> argparse.ArgumentParser:
                        choices=sorted(lt.flow_by_name))
     bench.add_argument("--profile-out", type=str, default="",
                        help="File to write cProfile results to.")
+    bench.add_argument("--half-storage", action="store_true",
+                       help="Keep the state as bfloat16 deviations from "
+                            "the equilibrium weights between steps (half "
+                            "the memory traffic, float32 compute; needs "
+                            "the CUDA kernel path).")
     _add_global_options(bench, suppress=True)
 
     conv = sub.add_parser("convergence", help="TGV2D diffusive-scaling "
@@ -120,8 +127,10 @@ def _context(args) -> "lt.Context":
                       use_native=args.use_native)
 
 
-def benchmark(context, steps, resolution, flow_name, profile_out=""):
-    """Run a short simulation and print the throughput in MLUPS."""
+def benchmark(context, steps, resolution, flow_name, profile_out="",
+              half_storage=False):
+    """Run a short simulation and print the throughput in MLUPS, the step
+    path and whether half storage engaged."""
     if profile_out:
         profile = cProfile.Profile()
         profile.enable()
@@ -140,7 +149,8 @@ def benchmark(context, steps, resolution, flow_name, profile_out=""):
                            flow.acceleration))
     collision = lt.BGKCollision(tau=flow.units.relaxation_parameter_lu,
                                 force=force)
-    simulation = lt.Simulation(flow, collision, [])
+    simulation = lt.Simulation(flow, collision, [],
+                               half_storage=half_storage)
     mlups = simulation(steps)
 
     if profile_out:
@@ -151,8 +161,11 @@ def benchmark(context, steps, resolution, flow_name, profile_out=""):
         print(f"profile written to {profile_out}")
 
     dtype = str(context.dtype).removeprefix("torch.")
+    storage = ("on (bfloat16 deviations)" if simulation.half_storage_engaged
+               else "off")
     print(f"Finished {steps} steps in {dtype} on {context.device} "
-          f"({simulation.step_path} path). MLUPS: {mlups:10.2f}")
+          f"({simulation.step_path} path), half storage {storage}. MLUPS: "
+          f"{mlups:10.2f}")
     return mlups
 
 
@@ -203,7 +216,7 @@ def main(argv=None) -> int:
     context = _context(args)
     if args.command == "benchmark":
         benchmark(context, args.steps, args.resolution, args.flow_name,
-                  args.profile_out)
+                  args.profile_out, args.half_storage)
         return 0
     return convergence(context, args.max_resolution_exponent)
 

@@ -95,8 +95,13 @@ class Context:
 
     @staticmethod
     def convert_to_ndarray(tensor) -> np.ndarray:
+        """A host numpy copy; a 16-bit tensor comes as float32 (exact),
+        since numpy has no bfloat16."""
         if isinstance(tensor, torch.Tensor):
-            return tensor.detach().cpu().numpy()
+            tensor = tensor.detach()
+            if tensor.dtype in (torch.bfloat16, torch.float16):
+                tensor = tensor.float()
+            return tensor.cpu().numpy()
         return np.asarray(tensor)
 
     def _resolve(self, dtype):

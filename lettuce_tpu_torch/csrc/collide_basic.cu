@@ -175,6 +175,9 @@ struct Trt {
 
 }  // namespace lt
 
+// half_*.cu include this source for its policies alone
+#ifndef LT_POLICIES_ONLY
+
 extern "C" {
 
 LT_COLLIDE_ENTRIES(none, d2q9, lt::NoCollide, D2Q9)
@@ -196,3 +199,5 @@ LT_COLLIDE_EMIT_U_ENTRIES(trt, d3q27, lt::Trt, D3Q27)
 LT_ERROR_STRING_ENTRY
 
 }  // extern "C"
+
+#endif  // LT_POLICIES_ONLY

@@ -221,6 +221,9 @@ struct Kbc {
 
 }  // namespace lt
 
+// half_*.cu include this source for its policies alone
+#ifndef LT_POLICIES_ONLY
+
 extern "C" {
 
 LT_COLLIDE_ENTRIES(kbc, d2q9, lt::Kbc, D2Q9)
@@ -228,3 +231,5 @@ LT_COLLIDE_ENTRIES(kbc, d3q27, lt::Kbc, D3Q27)
 LT_ERROR_STRING_ENTRY
 
 }  // extern "C"
+
+#endif  // LT_POLICIES_ONLY

@@ -208,6 +208,9 @@ struct Smag {
 
 }  // namespace lt
 
+// half_*.cu include this source for its policies alone
+#ifndef LT_POLICIES_ONLY
+
 extern "C" {
 
 LT_COLLIDE_ENTRIES(reg, d2q9, lt::Reg, D2Q9)
@@ -225,3 +228,5 @@ LT_COLLIDE_ENTRIES(smag, d3q27, lt::Smag, D3Q27)
 LT_ERROR_STRING_ENTRY
 
 }  // extern "C"
+
+#endif  // LT_POLICIES_ONLY

@@ -244,6 +244,9 @@ using MrtHermite = Mrt<S, T, kHermite>;
 
 }  // namespace lt
 
+// half_*.cu include this source for its policies alone
+#ifndef LT_POLICIES_ONLY
+
 extern "C" {
 
 LT_COLLIDE_ENTRIES(mrt_from_feq, d3q19, lt::MrtFromFeq, D3Q19)
@@ -254,3 +257,5 @@ LT_COLLIDE_ENTRIES(mrt_hermite27, d3q27, lt::MrtHermite, D3Q27)
 LT_ERROR_STRING_ENTRY
 
 }  // extern "C"
+
+#endif  // LT_POLICIES_ONLY

@@ -17,6 +17,13 @@
 // velocity u = j / rho, the residual of their adjoint kernels (adjoint.cu,
 // adjoint_fragments.cu). It is the same for every fragment
 // (lettuce_tpu/ops/pallas/stream_collide.py:1535-1542).
+//
+// A storage policy St (the kernels' second template argument) says how the
+// state is held in device memory: the stored type V, the compute type T
+// the policy runs in, the conversions between them, and whether the state
+// holds the deviations g = f - w_q. Same<T> stores the compute type itself
+// (float32, float64); half_storage.cuh adds the 16-bit storage of K1e and
+// K1f, whose fragments run unchanged in float32.
 
 #pragma once
 
@@ -66,6 +73,42 @@ __host__ __device__ constexpr int pair_first(int k) {
     }
   }
   return -1;
+}
+
+// ---------------------------------------------------------------------------
+// storage of the state
+// ---------------------------------------------------------------------------
+// The compute type itself: float32 and float64 state.
+template <class T_>
+struct Same {
+  using T = T_;  // what the policies compute in
+  using V = T_;  // what device memory holds
+  static constexpr bool kDeviation = false;
+  __device__ __forceinline__ static T raw(const V* p) { return __ldg(p); }
+  __device__ __forceinline__ static V pack(T x) { return x; }
+};
+
+// Population q of a stored value: f itself, or f = g + w_q for deviations.
+template <class St, class S, int q>
+__device__ __forceinline__ typename St::T decode(const typename St::V* p) {
+  using T = typename St::T;
+  const T x = St::raw(p);
+  if constexpr (St::kDeviation) {
+    return x + T(S::w(q));
+  } else {
+    return x;
+  }
+}
+
+// The stored value of population q, rounded to the storage type.
+template <class St, class S, int q>
+__device__ __forceinline__ typename St::V encode(typename St::T x) {
+  using T = typename St::T;
+  if constexpr (St::kDeviation) {
+    return St::pack(x - T(S::w(q)));
+  } else {
+    return St::pack(x);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -144,78 +187,90 @@ __device__ __forceinline__ void feq_pairs(T rho, T base0,
 }
 
 // Where a post-collision population goes: the periodic push, or the push
-// with frozen populations (nsm == nullptr: nothing frozen).
-template <class S, class T>
+// with frozen populations (nsm == nullptr: nothing frozen), each encoded
+// by the storage St.
+template <class S, class St>
 struct PeriodicStore {
-  T* out;
+  typename St::V* out;
   const Neighbours& nb;
 
   template <int q>
-  __device__ __forceinline__ void put(T value) const {
-    out[shifted_index<S, q, 1>(nb)] = value;
+  __device__ __forceinline__ void put(typename St::T value) const {
+    out[shifted_index<S, q, 1>(nb)] = encode<St, S, q>(value);
   }
 };
 
-template <class S, class T>
+template <class S, class St>
 struct MaskedStore {
-  T* out;
+  typename St::V* out;
   const Neighbours& nb;
   int64_t cell;
   const uint8_t* nsm;
 
   template <int q>
-  __device__ __forceinline__ void put(T value) const {
+  __device__ __forceinline__ void put(typename St::T value) const {
+    const typename St::V v = encode<St, S, q>(value);
     const int64_t dst = shifted_index<S, q, 1>(nb);
     if (nsm == nullptr) {
-      out[dst] = value;
+      out[dst] = v;
       return;
     }
     const int64_t here = q * nb.n + cell;
-    if (nsm[here]) out[here] = value;  // frozen at its own node
-    if (!nsm[dst]) out[dst] = value;   // streamed unless frozen there
+    if (nsm[here]) out[here] = v;  // frozen at its own node
+    if (!nsm[dst]) out[dst] = v;   // streamed unless frozen there
   }
 };
 
-// A boundary cell's replacement, pushed like a collided population.
-template <class S, class T, class Store, int q = 0>
-__device__ __forceinline__ void replace_push(int kind, const T* values,
-                                             const T (&fv)[S::Q],
-                                             const T* __restrict__ feq_field,
-                                             int64_t n, int64_t cell,
-                                             const Store& store) {
+// A boundary cell's replacement, pushed like a collided population. The
+// table's values are in the compute type; the per-node field is stored
+// like the state and decoded like a population.
+template <class S, class St, class Store, int q = 0>
+__device__ __forceinline__ void replace_push(
+    int kind, const typename St::T* values,
+    const typename St::T (&fv)[S::Q],
+    const typename St::V* __restrict__ feq_field, int64_t n, int64_t cell,
+    const Store& store) {
   if constexpr (q < S::Q) {
-    T v;
+    typename St::T v;
     if (kind == kBounceBack) {
       v = fv[opposite<S>(q)];
     } else if (kind == kEquilibrium) {
       v = values[q];
     } else if (kind == kEquilibriumField) {
-      v = __ldg(feq_field + q * n + cell);
+      v = decode<St, S, q>(feq_field + q * n + cell);
     } else {
       v = fv[q];
     }
     store.template put<q>(v);
-    replace_push<S, T, Store, q + 1>(kind, values, fv, feq_field, n, cell,
-                                     store);
+    replace_push<S, St, Store, q + 1>(kind, values, fv, feq_field, n, cell,
+                                      store);
   }
 }
 
 // The cell's populations, rho, u = j / rho and u.u, with u written to
-// u_out when EmitU.
-template <class S, class T, bool EmitU>
-__device__ __forceinline__ void load_moments(const T* __restrict__ f,
-                                             T* __restrict__ u_out,
-                                             const Neighbours& nb,
-                                             int64_t cell, T (&fv)[S::Q],
-                                             T& rho, T (&u)[S::D], T& u2) {
+// u_out when EmitU. Deviations g = f - w_q sum to rho - 1 and to j (sum_q
+// w_q = 1, sum_q w_q e_q = 0): rho gains 1 and j nothing, as in the TPU
+// kernel's _moments, and the policies see f = g + w_q.
+template <class S, class St, bool EmitU, class T = typename St::T>
+__device__ __forceinline__ void load_moments(
+    const typename St::V* __restrict__ f, T* __restrict__ u_out,
+    const Neighbours& nb, int64_t cell, T (&fv)[S::Q], T& rho, T (&u)[S::D],
+    T& u2) {
 #pragma unroll
-  for (int q = 0; q < S::Q; ++q) fv[q] = __ldg(f + q * nb.n + cell);
+  for (int q = 0; q < S::Q; ++q) fv[q] = St::raw(f + q * nb.n + cell);
 
   rho = T(0);
   T jm[S::D];
 #pragma unroll
   for (int a = 0; a < S::D; ++a) jm[a] = T(0);
   moments<S, T>(fv, rho, jm);
+  if constexpr (St::kDeviation) {
+    rho = rho + T(1);
+    static_for<S::Q>([&](auto Q_) {
+      constexpr int q = decltype(Q_)::value;
+      fv[q] = fv[q] + T(S::w(q));
+    });
+  }
 
   const T inv_rho = T(1) / rho;
   u2 = T(0);
@@ -285,13 +340,15 @@ struct Bgk {
 // ---------------------------------------------------------------------------
 // the kernels
 // ---------------------------------------------------------------------------
-template <class C, bool EmitU>
+template <class C, class St, bool EmitU>
 __global__ void __launch_bounds__(kBlock) stream_collide_kernel(
-    const typename C::T* __restrict__ f, typename C::T* __restrict__ out,
+    const typename St::V* __restrict__ f, typename St::V* __restrict__ out,
     typename C::T* __restrict__ u_out, int64_t n0, int64_t n1, int64_t n2,
     const __grid_constant__ typename C::Params p) {
   using S = typename C::S;
   using T = typename C::T;
+  static_assert(std::is_same_v<T, typename St::T>,
+                "the policy computes in the storage's compute type");
   const int64_t k = int64_t(blockIdx.x) * kBlock + threadIdx.x;
   if (k >= n2) return;
   const int64_t j = blockIdx.y;
@@ -300,20 +357,22 @@ __global__ void __launch_bounds__(kBlock) stream_collide_kernel(
   const int64_t cell = (i * n1 + j) * n2 + k;
 
   T fv[S::Q], u[S::D], rho, u2;
-  load_moments<S, T, EmitU>(f, u_out, nb, cell, fv, rho, u, u2);
-  C::collide(p, fv, rho, u, u2, PeriodicStore<S, T>{out, nb});
+  load_moments<S, St, EmitU>(f, u_out, nb, cell, fv, rho, u, u2);
+  C::collide(p, fv, rho, u, u2, PeriodicStore<S, St>{out, nb});
 }
 
-template <class C, bool EmitU>
+template <class C, class St, bool EmitU>
 __global__ void __launch_bounds__(kBlock) masked_stream_collide_kernel(
-    const typename C::T* __restrict__ f, typename C::T* __restrict__ out,
+    const typename St::V* __restrict__ f, typename St::V* __restrict__ out,
     typename C::T* __restrict__ u_out, const uint8_t* __restrict__ ncm,
     const uint8_t* __restrict__ nsm,
-    const typename C::T* __restrict__ feq_field,
+    const typename St::V* __restrict__ feq_field,
     const __grid_constant__ BoundaryTable<typename C::T> table, int64_t n0,
     int64_t n1, int64_t n2, const __grid_constant__ typename C::Params p) {
   using S = typename C::S;
   using T = typename C::T;
+  static_assert(std::is_same_v<T, typename St::T>,
+                "the policy computes in the storage's compute type");
   const int64_t k = int64_t(blockIdx.x) * kBlock + threadIdx.x;
   if (k >= n2) return;
   const int64_t j = blockIdx.y;
@@ -322,28 +381,29 @@ __global__ void __launch_bounds__(kBlock) masked_stream_collide_kernel(
   const int64_t cell = (i * n1 + j) * n2 + k;
 
   T fv[S::Q], u[S::D], rho, u2;
-  load_moments<S, T, EmitU>(f, u_out, nb, cell, fv, rho, u, u2);
+  load_moments<S, St, EmitU>(f, u_out, nb, cell, fv, rho, u, u2);
 
   const int code = ncm[cell];
   const int kind = kind_of(table.kind, code);
-  const MaskedStore<S, T> store{out, nb, cell, nsm};
+  const MaskedStore<S, St> store{out, nb, cell, nsm};
   if (kind == kCollide) {
     C::collide(p, fv, rho, u, u2, store);
   } else {
     const T* values = table.value[code < kMaxCodes ? code : 0];
-    replace_push<S, T>(kind, values, fv, feq_field, nb.n, cell, store);
+    replace_push<S, St>(kind, values, fv, feq_field, nb.n, cell, store);
   }
 }
 
 // ---------------------------------------------------------------------------
 // host launchers: each returns cudaGetLastError()
 // ---------------------------------------------------------------------------
-template <class C, bool EmitU>
+template <class C, bool EmitU, class St = Same<typename C::T>>
 int launch(const void* f, void* out, void* u_out, int64_t n0, int64_t n1,
            int64_t n2, const typename C::Params& p, int device,
            void* stream) {
   using S = typename C::S;
   using T = typename C::T;
+  using V = typename St::V;
   static_assert(pair_weights_symmetric<S>(),
                 "the pair cache needs w[q] == w[opposite[q]]");
   static_assert(is_rest<S>(0), "the rest direction is q = 0");
@@ -351,15 +411,15 @@ int launch(const void* f, void* out, void* u_out, int64_t n0, int64_t n1,
                 "kernel parameters exceed the launch's parameter space");
   const int err = use_device(device);
   if (err != 0) return err;
-  stream_collide_kernel<C, EmitU>
+  stream_collide_kernel<C, St, EmitU>
       <<<launch_grid(n0, n1, n2), kBlock, 0,
          static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const T*>(f), static_cast<T*>(out),
+          static_cast<const V*>(f), static_cast<V*>(out),
           static_cast<T*>(u_out), n0, n1, n2, p);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <class C, bool EmitU>
+template <class C, bool EmitU, class St = Same<typename C::T>>
 int launch_masked(const void* f, void* out, void* u_out, const void* ncm,
                   const void* nsm, const void* feq_field,
                   const int32_t* kinds, const double* values, int64_t n0,
@@ -367,8 +427,10 @@ int launch_masked(const void* f, void* out, void* u_out, const void* ncm,
                   int device, void* stream) {
   using S = typename C::S;
   using T = typename C::T;
+  using V = typename St::V;
   static_assert(pair_weights_symmetric<S>(),
-                "the pair cache needs w[q] == w[opposite[q]]");
+                "the pair cache needs w[q] == w[opposite[q]] (bounce back "
+                "of a deviation, and the pair cache)");
   static_assert(is_rest<S>(0), "the rest direction is q = 0");
   static_assert(S::Q <= kMaxQ, "the table holds kMaxQ values per code");
   static_assert(sizeof(typename C::Params) + sizeof(BoundaryTable<T>) + 96 <=
@@ -382,12 +444,12 @@ int launch_masked(const void* f, void* out, void* u_out, const void* ncm,
       table.value[c][q] = T(values[c * kMaxQ + q]);
   const int err = use_device(device);
   if (err != 0) return err;
-  masked_stream_collide_kernel<C, EmitU>
+  masked_stream_collide_kernel<C, St, EmitU>
       <<<launch_grid(n0, n1, n2), kBlock, 0,
          static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const T*>(f), static_cast<T*>(out),
+          static_cast<const V*>(f), static_cast<V*>(out),
           static_cast<T*>(u_out), static_cast<const uint8_t*>(ncm),
-          static_cast<const uint8_t*>(nsm), static_cast<const T*>(feq_field),
+          static_cast<const uint8_t*>(nsm), static_cast<const V*>(feq_field),
           table, n0, n1, n2, p);
   return static_cast<int>(cudaGetLastError());
 }
@@ -398,26 +460,29 @@ int launch_masked(const void* f, void* out, void* u_out, const void* ncm,
 // float64, for the policy template POLICY on stencil S. ``params`` is the
 // host float64 array the policy's load() reads.
 #define LT_COLLIDE_ENTRIES(FRAG, STENCIL, POLICY, S)                          \
-  LT_COLLIDE_ENTRY(FRAG, STENCIL, POLICY, S, f32, float)                      \
-  LT_COLLIDE_ENTRY(FRAG, STENCIL, POLICY, S, f64, double)
+  LT_COLLIDE_ENTRY(FRAG, STENCIL, POLICY, S, f32, lt::Same<float>)           \
+  LT_COLLIDE_ENTRY(FRAG, STENCIL, POLICY, S, f64, lt::Same<double>)
 
-#define LT_COLLIDE_ENTRY(FRAG, STENCIL, POLICY, S, SUFFIX, T)                 \
+// The periodic and masked entries of POLICY on S with the storage policy
+// STORAGE, whose compute type the policy runs in.
+#define LT_COLLIDE_ENTRY(FRAG, STENCIL, POLICY, S, SUFFIX, STORAGE)           \
   int lt_collide_##FRAG##_##STENCIL##_##SUFFIX(                               \
       const void* f, void* out, int64_t n0, int64_t n1, int64_t n2,          \
       const double* params, double cs, int device, void* stream) {           \
-    using C = POLICY<lt::S, T>;                                               \
-    return lt::launch<C, false>(f, out, nullptr, n0, n1, n2,                  \
-                                C::load(params, cs), device, stream);         \
+    using C = POLICY<lt::S, typename STORAGE::T>;                             \
+    return lt::launch<C, false, STORAGE>(f, out, nullptr, n0, n1, n2,         \
+                                         C::load(params, cs), device,        \
+                                         stream);                             \
   }                                                                           \
   int lt_collide_##FRAG##_masked_##STENCIL##_##SUFFIX(                        \
       const void* f, void* out, const void* ncm, const void* nsm,            \
       const void* feq_field, const int32_t* kinds, const double* values,     \
       int64_t n0, int64_t n1, int64_t n2, const double* params, double cs,   \
       int device, void* stream) {                                             \
-    using C = POLICY<lt::S, T>;                                               \
-    return lt::launch_masked<C, false>(f, out, nullptr, ncm, nsm, feq_field, \
-                                       kinds, values, n0, n1, n2,            \
-                                       C::load(params, cs), device, stream); \
+    using C = POLICY<lt::S, typename STORAGE::T>;                             \
+    return lt::launch_masked<C, false, STORAGE>(                              \
+        f, out, nullptr, ncm, nsm, feq_field, kinds, values, n0, n1, n2,     \
+        C::load(params, cs), device, stream);                                 \
   }
 
 // The emit-u entries of a collision fragment: periodic and masked, float32

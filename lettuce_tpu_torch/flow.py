@@ -196,7 +196,8 @@ class Flow(ABC):
 
     # ------------------------------------------------------------------
     # checkpointing: the same pickle as lettuce_tpu's Flow.dump,
-    # {"f": ndarray [q, *res], "i": int}
+    # {"f": ndarray [q, *res], "i": int}; a 16-bit state is written as
+    # float32 (exact), since numpy has no bfloat16
     # ------------------------------------------------------------------
     def dump(self, filename):
         with open(filename, "wb") as file:
@@ -216,8 +217,12 @@ class Flow(ABC):
 
 def state_from_numpy(flow: "Flow", f: np.ndarray, i: int = 0) -> None:
     """Put a numpy ``[q, *resolution]`` state onto ``flow``, on the flow's
-    device and in its dtype, and set its step counter to ``i``."""
+    device and in its dtype, and set its step counter to ``i``. An
+    ``ml_dtypes.bfloat16`` array (lettuce_tpu's bfloat16 pickle), which
+    torch cannot read, goes through float32, which holds it exactly."""
     f = np.asarray(f)
+    if f.dtype.kind == "V":  # ml_dtypes' floats are numpy void types
+        f = np.asarray(f, dtype=np.float32)
     expected = (flow.stencil.q, *flow.resolution)
     if f.shape != expected:
         raise ValueError(f"state has shape {f.shape}, the flow needs "

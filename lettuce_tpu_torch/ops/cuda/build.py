@@ -2,15 +2,17 @@
 
 Each ``csrc/<name>.cu`` is compiled with ``nvcc`` for ``sm_90a`` into its
 own shared library with a plain C interface, cached under
-``build/lettuce_tpu_torch/`` by a hash of the source, the shared headers
-(``csrc/*.cuh``) and the flags, and loaded with ``ctypes``. The first load
+``build/lettuce_tpu_torch/`` by a hash of its name, every source in
+``csrc`` (the 16-bit sources include their fragments' ``.cu``) and the
+flags, and loaded with ``ctypes``. The first load
 builds every missing library at once, one ``nvcc`` per source, all started
 together. A missing ``nvcc``, a failed build or a failed load raises.
 ``ptxas -v`` reports each kernel's registers and spills; the report is
 kept beside the library (:func:`ptxas_log`).
 
 Also here: what every wrapper checks before a launch (the compiled stencil
-instance, the dtype, the launch grid).
+instance, the dtype, the launch grid), and the entry suffix of each state
+dtype and storage (:data:`DTYPES`, :data:`STORAGE`).
 """
 
 from __future__ import annotations
@@ -33,14 +35,18 @@ __all__ = ["SOURCES", "find_nvcc", "library_path", "ptxas_log",
            "build_libraries",
            "open_library", "check_launch", "kernel_stencil_name",
            "launch_dims", "check_out", "KERNEL_STENCILS",
-           "KERNEL_STENCIL_NAMES", "DTYPES"]
+           "KERNEL_STENCIL_NAMES", "DTYPES", "STORAGE", "HALF_DTYPES",
+           "storage_suffix"]
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 # csrc/<name>.cu, one library each: the BGK step (K1a, K1d, K1b), its
 # adjoint (K3a, K3c), the other collision fragments (K1c, with emit-u
-# instances), and their adjoints (K3b, K3d's streaming transpose)
+# instances), their adjoints (K3b, K3d's streaming transpose), and the
+# 16-bit forward instances of BGK and of each fragment source (K1e, K1f)
 SOURCES = ("stream_collide", "adjoint", "collide_basic", "collide_moments",
-           "collide_mrt", "collide_kbc", "adjoint_fragments")
+           "collide_mrt", "collide_kbc", "adjoint_fragments",
+           "half_stream_collide", "half_basic", "half_moments", "half_mrt",
+           "half_kbc")
 _BUILD_DIR = (Path(__file__).resolve().parents[3] / "build"
               / "lettuce_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -54,6 +60,13 @@ KERNEL_STENCILS = tuple(_KERNEL_STENCILS.values())
 KERNEL_STENCIL_NAMES = tuple(_KERNEL_STENCILS)
 DTYPES = {torch.float32: ("f32", ctypes.c_float),
           torch.float64: ("f64", ctypes.c_double)}
+# the 16-bit storage of the forward kernels, computed in float32 (so the
+# BGK entries take tau_inv as a c_float): (state dtype, deviation storage)
+# -> entry suffix. K1f stores a bfloat16 or float16 state, K1e the
+# bfloat16 deviations g = f - w_q. The adjoint kernels take none of them.
+STORAGE = {(torch.bfloat16, False): "bf16", (torch.float16, False): "f16",
+           (torch.bfloat16, True): "bf16_dev"}
+HALF_DTYPES = (torch.bfloat16, torch.float16)
 _MAX_GRID_YZ = 65535  # CUDA's limit on gridDim.y and gridDim.z
 
 
@@ -82,9 +95,9 @@ def find_nvcc() -> str:
 def library_path(name: str) -> Path:
     """Where the library of ``csrc/<name>.cu`` for the current sources and
     flags is cached."""
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
-    for header in sorted(CSRC.glob("*.cuh")):
-        digest.update(header.read_bytes())
+    digest = hashlib.sha256(name.encode())
+    for source in sorted(CSRC.glob("*.cu*")):
+        digest.update(source.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return _BUILD_DIR / f"{name}_{digest.hexdigest()[:16]}.so"
 
@@ -166,13 +179,30 @@ def kernel_stencil_name(e, w, opposite) -> str:
                      f"{sorted(_KERNEL_STENCILS)}")
 
 
-def launch_dims(x: torch.Tensor, e) -> tuple:
+def storage_suffix(dtype: torch.dtype, dev_storage: bool = False) -> str:
+    """The entry suffix of a forward kernel for a state of ``dtype``
+    (``dev_storage``: bfloat16 deviations); raises on a storage no kernel
+    has."""
+    if not dev_storage and dtype in DTYPES:
+        return DTYPES[dtype][0]
+    if (dtype, dev_storage) not in STORAGE:
+        raise TypeError(f"the kernels store deviations in bfloat16 only, "
+                        f"got {dtype}" if dev_storage else
+                        f"the kernels take float32, float64, bfloat16 or "
+                        f"float16 states, got {dtype}")
+    return STORAGE[dtype, dev_storage]
+
+
+def launch_dims(x: torch.Tensor, e, half: bool = False) -> tuple:
     """(n0, n1, n2) of the kernels' 3D launch grid for a contiguous CUDA
-    tensor ``x`` of shape ``[q, *grid]`` in float32 or float64; raises on
+    tensor ``x`` of shape ``[q, *grid]`` in float32 or float64, or with
+    ``half`` (the forward kernels) also bfloat16 or float16; raises on
     anything the kernels do not take."""
-    if x.dtype not in DTYPES:
-        raise TypeError(f"the kernels take float32 or float64 tensors, "
-                        f"got {x.dtype}")
+    if x.dtype not in DTYPES and not (half and x.dtype in HALF_DTYPES):
+        which = ("float32, float64, bfloat16 or float16" if half
+                 else "float32 or float64")
+        raise TypeError(f"these kernels take {which} tensors, got "
+                        f"{x.dtype}")
     if not x.is_contiguous():
         raise ValueError("the kernels need contiguous tensors")
     q, d = np.asarray(e).shape

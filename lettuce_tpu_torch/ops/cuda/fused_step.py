@@ -35,6 +35,11 @@ plain torch and needs no state from the kernel's side.
 
 Every call returns a freshly allocated output: it never writes into its
 input or into an earlier output, which autograd could not notice.
+
+A 16-bit state runs forward through its 16-bit instances (K1f). Its
+gradient would need the adjoint kernels at 16-bit storage, which the port
+does not have yet: a 16-bit state that requires grad raises before any
+launch.
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from .adjoint import NONE_SPEC, prestream_vjp, stream_collide_adjoint
+from .build import HALF_DTYPES
 from .stream_collide import pack_spec, stream_collide
 
 __all__ = ["fused_step"]
@@ -99,6 +105,14 @@ def fused_step(f: torch.Tensor, *, e, w, opposite, cs: float,
     window replay ``fixup`` of :mod:`.hybrid_outlets` after the kernel
     when the flow has outlets. The spec's ``mode`` (``'full'`` or
     ``'split'``) says how its backward runs."""
+    if not torch.is_grad_enabled():
+        f = f.detach()  # no graph: the forward saves nothing
+    if f.dtype in HALF_DTYPES and f.requires_grad:
+        raise NotImplementedError(
+            f"the gradient of a {f.dtype} state needs the adjoint kernels "
+            f"at 16-bit storage (K3 at 16-bit storage, queued in "
+            f"ROADMAP.md), which are not ported: run the gradient in "
+            f"float32 or float64")
     spec = pack_spec(("bgk", tau_inv) if collision_spec is None
                      else collision_spec, e, w, opposite)
     out = _FusedStep.apply(f, dict(

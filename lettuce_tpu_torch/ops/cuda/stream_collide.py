@@ -29,6 +29,13 @@ packs a spec's adjoint once beside it (:class:`PackedSpec`): the
 transposed relaxation of the full-mode adjoint kernels, or split mode for
 a collision whose Jacobian has no closed-form kernel.
 
+Every forward instance also comes in 16 bits, computing in float32
+(``csrc/half_*.cu``): a bfloat16 or float16 state (K1f), and with
+``dev_storage`` the bfloat16 deviations g = f - w_q (K1e, every fragment
+but the closed-form MRT bases, :data:`DEV_REFUSED`), which halve the
+bytes per update. :func:`encode_deviations` and :func:`decode_deviations`
+convert a state to and from deviation storage.
+
 The sources are built and loaded by :mod:`.build`. :func:`stream_collide`
 runs the plain version only for a CPU tensor. For a CUDA tensor it
 launches a kernel or raises. A state that requires grad, on either
@@ -57,9 +64,10 @@ from ..streaming import stream
 from ...utils.moments import (HERMITE_MULTIINDICES, dellar_meq, hermite_meq,
                              lallemand_meq)
 from ..utils_moments_shim import resolve_mrt_spec
-from .build import (DTYPES, KERNEL_STENCIL_NAMES, KERNEL_STENCILS,
-                    check_launch, check_out, kernel_stencil_name,
-                    launch_dims, open_library)
+from .build import (DTYPES, HALF_DTYPES, KERNEL_STENCIL_NAMES,
+                    KERNEL_STENCILS, STORAGE, check_launch, check_out,
+                    kernel_stencil_name, launch_dims, open_library,
+                    storage_suffix)
 from .hybrid_outlets import outlet_window
 
 __all__ = ["stream_collide", "stream_collide_plain", "collide_plain",
@@ -69,7 +77,9 @@ __all__ = ["stream_collide", "stream_collide_plain", "collide_plain",
            "adjoint_collision_spec", "check_masks", "check_nsm",
            "checked_table", "table_arrays", "PackedTable",
            "kernel_stencil_name", "KERNEL_STENCILS", "KINDS", "MAX_CODES",
-           "FRAGMENTS", "EMIT_U_FRAGMENTS"]
+           "FRAGMENTS", "EMIT_U_FRAGMENTS", "HALF_SOURCES", "DEV_REFUSED",
+           "encode_deviations", "decode_deviations",
+           "load_half_library"]
 
 # boundary kinds of the per-code table, in the order of csrc/stencils.cuh's
 # Kind enum
@@ -96,6 +106,14 @@ FRAGMENTS = {
 # the fragments with emit-u instances: those whose adjoint kernel reads the
 # pre-collision u (lettuce_tpu's build_adjoint_step :770-772)
 EMIT_U_FRAGMENTS = ("bgk", "trt", "reg", "mrt_from_feq")
+# the 16-bit instances of each source: csrc/half_<name>.cu
+HALF_SOURCES = {"stream_collide": "half_stream_collide",
+                "collide_basic": "half_basic",
+                "collide_moments": "half_moments",
+                "collide_mrt": "half_mrt", "collide_kbc": "half_kbc"}
+# the fragments deviation storage refuses: closed-form equilibrium moments
+# are not shift-invariant in f (lettuce_tpu's build_fused_step :1998-2004)
+DEV_REFUSED = ("mrt_lallemand", "mrt_dellar", "mrt_hermite27")
 # the parity of each moment under e -> -e that the MRT fragment's closed
 # forms assume (csrc/collide_mrt.cu, moment_parity)
 MRT_PARITY = {
@@ -181,42 +199,103 @@ def collide_plain(f: torch.Tensor, spec, e: np.ndarray, w: np.ndarray,
     raise ValueError(f"unknown collision spec {kind!r}")
 
 
+def _weights(w, dtype: torch.dtype, device, ndim: int) -> torch.Tensor:
+    """The stencil weights as a ``[q, 1, ...]`` tensor broadcasting over a
+    state of ``ndim`` axes."""
+    return torch.as_tensor(np.asarray(w), dtype=dtype, device=device
+                           ).reshape((-1,) + (1,) * (ndim - 1))
+
+
+def encode_deviations(f: torch.Tensor, w: np.ndarray) -> torch.Tensor:
+    """Deviation storage of the state ``f``: g = f - w_q, computed in
+    float32 (float64 for a float64 ``f``) and rounded to bfloat16 (to
+    nearest even), as lettuce_tpu's ``Simulation._select_steps`` encodes."""
+    wide = torch.promote_types(torch.float32, f.dtype)
+    return (f.to(wide) - _weights(w, wide, f.device, f.dim())
+            ).to(torch.bfloat16)
+
+
+def decode_deviations(g: torch.Tensor, w: np.ndarray,
+                      dtype: torch.dtype) -> torch.Tensor:
+    """The state f = g + w_q in ``dtype`` from bfloat16 deviations ``g``:
+    the sum in float32, or in float64 for a float64 ``dtype``, as
+    lettuce_tpu's decode promotes."""
+    wide = torch.promote_types(torch.float32, dtype)
+    return (g.to(wide) + _weights(w, wide, g.device, g.dim())).to(dtype)
+
+
+def _widen(x: torch.Tensor, w, dev_storage: bool) -> torch.Tensor:
+    """A 16-bit stored state (or per-node field) as wide populations: a
+    16-bit state in float32; deviations decoded in float64, so that an
+    entry near a deviation's zero crossing keeps its precision (the
+    kernels rebuild g + w_q in float32 and agree with it to a float32
+    roundoff of a population)."""
+    if dev_storage:
+        return decode_deviations(x, w, torch.float64)
+    return x.float()
+
+
+def _narrow(f: torch.Tensor, w, dtype: torch.dtype,
+            dev_storage: bool) -> torch.Tensor:
+    """Wide populations rounded to the storage: deviations encoded, or
+    the 16-bit ``dtype``."""
+    if dev_storage:
+        return encode_deviations(f, w)
+    return f.to(dtype)
+
+
 def prestream_plain(f: torch.Tensor, spec, e: np.ndarray, w: np.ndarray,
                     opposite: np.ndarray, cs: float, ncm: torch.Tensor = None,
-                    table=None, feq_field: torch.Tensor = None
-                    ) -> torch.Tensor:
+                    table=None, feq_field: torch.Tensor = None,
+                    dev_storage: bool = False) -> torch.Tensor:
     """The kernel's pointwise pre-streaming map in plain PyTorch: the
     collision of ``spec`` (:func:`collide_plain`), then the boundary codes
-    of ``table`` where ``ncm`` holds them (:func:`_replace_boundaries`)."""
+    of ``table`` where ``ncm`` holds them (:func:`_replace_boundaries`).
+
+    A 16-bit state (``dev_storage``: bfloat16 deviations, and then
+    ``feq_field`` too) runs as the 16-bit kernels do: widened to
+    populations (:func:`_widen`), the wide map, then rounded back to its
+    storage."""
+    storage_suffix(f.dtype, dev_storage)  # raises on deviations not in bf16
+    if dev_storage or f.dtype in HALF_DTYPES:
+        wide = prestream_plain(
+            _widen(f, w, dev_storage), spec, e, w, opposite, cs, ncm, table,
+            None if feq_field is None else _widen(feq_field, w, dev_storage))
+        return _narrow(wide, w, f.dtype, dev_storage)
     fpost = collide_plain(f, spec, e, w, opposite, cs)
     if ncm is None:
         return fpost
     return _replace_boundaries(f, fpost, opposite, ncm, table, feq_field)
 
 
-def _check_emit_u(spec) -> None:
+def _check_emit_u(spec, dtype: torch.dtype, dev_storage: bool) -> None:
     if fragment_of(spec) not in EMIT_U_FRAGMENTS:
         raise ValueError(f"emit_u is for {', '.join(EMIT_U_FRAGMENTS)} (the "
                          f"residual of their adjoint kernels), not "
                          f"{fragment_of(spec)!r}")
+    if dev_storage or dtype not in DTYPES:
+        raise ValueError(f"emit_u has no 16-bit instance (a {dtype} state"
+                         f"{' in deviation storage' if dev_storage else ''})")
 
 
 def stream_collide_plain(f: torch.Tensor, e: np.ndarray, w: np.ndarray,
                          opposite: np.ndarray, cs: float, tau_inv: float,
                          ncm: torch.Tensor = None, nsm: torch.Tensor = None,
                          table=None, feq_field: torch.Tensor = None,
-                         emit_u: bool = False, collision_spec=None):
+                         emit_u: bool = False, collision_spec=None,
+                         dev_storage: bool = False):
     """One collide-and-stream step in plain PyTorch: the pre-streaming map
     of ``collision_spec`` (BGK with ``tau_inv`` when None,
-    :func:`prestream_plain`), then a per-q ``torch.roll`` with the
-    populations of ``nsm`` frozen. With ``emit_u`` (a fragment of
-    :data:`EMIT_U_FRAGMENTS`) it returns ``(out, u)``, u = j / rho the
-    pre-collision velocity ``[d, *grid]``."""
+    :func:`prestream_plain`, 16-bit states and ``dev_storage`` included),
+    then a per-q ``torch.roll`` with the populations of ``nsm`` frozen.
+    With ``emit_u`` (a fragment of :data:`EMIT_U_FRAGMENTS`, float32 or
+    float64) it returns ``(out, u)``, u = j / rho the pre-collision
+    velocity ``[d, *grid]``."""
     spec = ("bgk", tau_inv) if collision_spec is None else collision_spec
     if emit_u:
-        _check_emit_u(spec)
+        _check_emit_u(spec, f.dtype, dev_storage)
     fpost = prestream_plain(f, spec, e, w, opposite, cs, ncm, table,
-                            feq_field)
+                            feq_field, dev_storage)
     out = stream(fpost, e, nsm)
     if not emit_u:
         return out
@@ -441,11 +520,47 @@ def load_fragment_library(source: str) -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def load_half_library(source: str) -> ctypes.CDLL:
+    """Build (if needed) and load the 16-bit instances of
+    ``csrc/<source>.cu`` (``"stream_collide"`` or a source of
+    :data:`FRAGMENTS`; the library of :data:`HALF_SOURCES`), with
+    ``argtypes`` set on every entry: periodic and masked, for each storage
+    of :data:`.build.STORAGE` (no deviations for :data:`DEV_REFUSED`)."""
+    lib = open_library(HALF_SOURCES[source])
+    pointer = ctypes.c_void_p
+    grid = [ctypes.c_int64] * 3
+    if source == "stream_collide":  # BGK: tau_inv as a float
+        entries = [("stream_collide", "bgk", KERNEL_STENCIL_NAMES)]
+        tail = [ctypes.c_float, ctypes.c_double, ctypes.c_int, pointer]
+    else:
+        entries = [(f"collide_{fragment}", fragment, names)
+                   for fragment, (src, names) in FRAGMENTS.items()
+                   if src == source]
+        tail = [pointer, ctypes.c_double, ctypes.c_int, pointer]
+    for prefix, fragment, names in entries:
+        for suffix in STORAGE.values():
+            if suffix == "bf16_dev" and fragment in DEV_REFUSED:
+                continue
+            for name in names:
+                # periodic f, out; masked f, out, ncm, nsm, feq field, host
+                # kinds, host values
+                for variant, n_pointers in (("", 2), ("masked_", 7)):
+                    fn = getattr(lib, f"lt_{prefix}_{variant}{name}_"
+                                      f"{suffix}")
+                    fn.argtypes = [pointer] * n_pointers + grid + tail
+                    fn.restype = ctypes.c_int
+    return lib
+
+
 def load_libraries() -> None:
-    """Build (if needed) and load every kernel library of the step."""
+    """Build (if needed) and load every kernel library of the step, the
+    16-bit instances included."""
     load_library()
     for source in sorted({src for src, _ in FRAGMENTS.values()}):
         load_fragment_library(source)
+    for source in HALF_SOURCES:
+        load_half_library(source)
 
 
 def table_arrays(table) -> tuple:
@@ -528,7 +643,7 @@ def stream_collide(f: torch.Tensor, e: np.ndarray, w: np.ndarray,
                    ncm: torch.Tensor = None, nsm: torch.Tensor = None,
                    table=None, feq_field: torch.Tensor = None,
                    out: torch.Tensor = None, u_out: torch.Tensor = None,
-                   collision_spec=None):
+                   collision_spec=None, dev_storage: bool = False):
     """One fused collide-and-stream step ``f -> out``.
 
     ``f`` is ``[q, X, Y]`` or ``[q, X, Y, Z]``. The collision is
@@ -543,10 +658,15 @@ def stream_collide(f: torch.Tensor, e: np.ndarray, w: np.ndarray,
     kernel also writes the pre-collision velocity there, and the call
     returns ``(out, u_out)``.
 
+    A bfloat16 or float16 ``f`` runs the 16-bit instances (K1f); with
+    ``dev_storage`` a bfloat16 ``f`` (and ``feq_field``) holds the
+    deviations g = f - w_q (K1e, :func:`encode_deviations`). Both compute
+    in float32 and round each stored value to nearest even.
+
     A state that requires grad, with grad mode on, goes through
     :func:`.fused_step.fused_step` with the same spec and masks (fresh
     output, the spec's adjoint in the backward); ``out`` and ``u_out``
-    cannot be given then.
+    cannot be given then, nor ``dev_storage``, a throughput mode.
     """
     spec = ("bgk", tau_inv) if collision_spec is None else collision_spec
     emit_u = u_out is not None
@@ -555,13 +675,17 @@ def stream_collide(f: torch.Tensor, e: np.ndarray, w: np.ndarray,
         if out is not None or emit_u:
             raise ValueError("out and u_out would bypass autograd: a state "
                              "that requires grad takes neither")
+        if dev_storage:
+            raise NotImplementedError(
+                "deviation storage is a throughput mode: a state that "
+                "requires grad runs at full precision")
         from .fused_step import fused_step
         return fused_step(f, e=e, w=w, opposite=opposite, cs=cs,
                           tau_inv=tau_inv, collision_spec=spec, **masks)
     if f.device.type == "cpu":
         result = stream_collide_plain(f, e, w, opposite, cs, tau_inv,
                                       emit_u=emit_u, collision_spec=spec,
-                                      **masks)
+                                      dev_storage=dev_storage, **masks)
         if emit_u:
             result, u = result
             u_out.copy_(u)
@@ -571,10 +695,12 @@ def stream_collide(f: torch.Tensor, e: np.ndarray, w: np.ndarray,
         raise ValueError(f"stream_collide runs on cpu or cuda tensors, "
                          f"got {f.device}")
     if emit_u:
-        _check_emit_u(spec)
+        _check_emit_u(spec, f.dtype, dev_storage)
+    suffix = storage_suffix(f.dtype, dev_storage)
+    half = dev_storage or f.dtype in HALF_DTYPES
     bgk = spec[0] == "bgk"
     name = kernel_stencil_name(e, w, opposite)
-    n0, n1, n2 = launch_dims(f, e)
+    n0, n1, n2 = launch_dims(f, e, half=True)
     out = check_out(out, f, f.shape, "out", f)
     pointers = [f.data_ptr(), out.data_ptr()]
     if emit_u:
@@ -589,30 +715,42 @@ def stream_collide(f: torch.Tensor, e: np.ndarray, w: np.ndarray,
                      None if nsm is None else nsm.data_ptr(),
                      None if feq_field is None else feq_field.data_ptr(),
                      table.kinds.ctypes.data, table.values.ctypes.data]
-    suffix = DTYPES[f.dtype][0]
     stream_ptr = torch.cuda.current_stream(f.device).cuda_stream
+    variant = ("masked_" if masked else "") + ("emit_u_" if emit_u else "")
     if bgk:
-        lib = load_library()
-        variant = ("masked_" if masked else "") + ("emit_u_" if emit_u
-                                                   else "")
+        lib = load_half_library("stream_collide") if half else load_library()
         launch = getattr(lib, f"lt_stream_collide_{variant}{name}_{suffix}")
         rc = launch(*pointers, n0, n1, n2, float(spec[1]), float(cs),
                     f.device.index, stream_ptr)
         check_launch(lib, rc, f"stream_collide ({variant or 'periodic_'}"
-                              f"{name})")
-        counter = f"{variant}launches"
-        setattr(stream_collide, counter, getattr(stream_collide, counter) + 1)
+                              f"{name}_{suffix})")
+        if half:
+            stream_collide.half_launches[f"{variant}bgk_{suffix}"] += 1
+        else:
+            counter = f"{variant}launches"
+            setattr(stream_collide, counter,
+                    getattr(stream_collide, counter) + 1)
         return (out, u_out) if emit_u else out
     spec = pack_spec(spec, e, w, opposite)  # alive until the call returns
-    lib = load_fragment_library(FRAGMENTS[spec.fragment][0])
-    variant = ("masked_" if masked else "") + ("emit_u_" if emit_u else "")
+    if dev_storage and spec.fragment in DEV_REFUSED:
+        raise NotImplementedError(
+            f"the {spec.fragment!r} fragment has no deviation-storage "
+            f"instance: its closed-form equilibrium moments are not "
+            f"shift-invariant in f")
+    source = FRAGMENTS[spec.fragment][0]
+    lib = (load_half_library(source) if half
+           else load_fragment_library(source))
     launch = getattr(lib, f"lt_collide_{spec.fragment}_{variant}{name}_"
                           f"{suffix}")
     rc = launch(*pointers, n0, n1, n2, spec.params.ctypes.data, float(cs),
                 f.device.index, stream_ptr)
     check_launch(lib, rc, f"stream_collide ({spec.fragment}, "
-                          f"{variant or 'periodic_'}{name})")
-    stream_collide.fragment_launches[variant + spec.fragment] += 1
+                          f"{variant or 'periodic_'}{name}_{suffix})")
+    if half:
+        key = f"{variant}{spec.fragment}_{suffix}"
+        stream_collide.half_launches[key] += 1
+    else:
+        stream_collide.fragment_launches[variant + spec.fragment] += 1
     return (out, u_out) if emit_u else out
 
 
@@ -623,6 +761,9 @@ stream_collide.masked_emit_u_launches = 0  # masked BGK emit-u launches
 # launches of the other fragments, by variant and fragment ("trt",
 # "masked_trt", "emit_u_trt", "masked_emit_u_trt", ...)
 stream_collide.fragment_launches = Counter()
+# launches of the 16-bit instances (K1e, K1f), BGK included, by variant,
+# fragment and storage ("bgk_bf16_dev", "masked_trt_f16", ...)
+stream_collide.half_launches = Counter()
 
 
 # ----------------------------------------------------------------------
@@ -683,17 +824,18 @@ def collision_spec_of(simulation: "Simulation") -> tuple:
     return None, f"collision '{name}' has no CUDA fragment"
 
 
-def kernel_refusals(simulation: "Simulation") -> list:
+def kernel_refusals(simulation: "Simulation",
+                    dev_storage: bool = False) -> list:
     """Why a Simulation cannot run on the kernels, one reason per
-    component (an empty list when it can). The capability probe prints
-    these and :func:`gate_fused_params` raises on them, so the two always
-    agree. Host-side checks only: nothing is built or launched."""
+    component (an empty list when it can); with ``dev_storage``, on the
+    bfloat16 deviation instances (K1e), which also refuse what
+    lettuce_tpu's ``build_fused_step`` refuses there (:1998-2007): the
+    closed-form MRT bases and the outlets' window replay. The capability
+    probe prints these and :func:`gate_fused_params` raises on them, so the
+    two always agree. Host-side checks only: nothing is built or
+    launched."""
     flow = simulation.flow
-    reasons = []
-    if flow.context.dtype not in DTYPES:
-        reasons.append(f"the CUDA kernel has no {flow.context.dtype} "
-                       f"instance (compiled for "
-                       f"{', '.join(map(str, DTYPES))})")
+    reasons = []  # every dtype a Context takes has instances
     if not isinstance(flow.stencil, KERNEL_STENCILS):
         reasons.append(f"stencil '{type(flow.stencil).__name__}' has no "
                        f"CUDA kernel instance (compiled for "
@@ -713,6 +855,9 @@ def kernel_refusals(simulation: "Simulation") -> list:
         except NotImplementedError as refusal:
             reasons.append(f"collision '{type(simulation.collision).__name__}"
                            f"': {refusal}")
+        if dev_storage and fragment_of(spec) in DEV_REFUSED:
+            reasons.append("the analytic-moment MRT fragment is not "
+                           "shift-invariant: no deviation storage")
     boundaries = simulation.boundaries[1:]
     if len(boundaries) >= MAX_CODES:
         reasons.append(f"{len(boundaries)} boundaries: the kernel's table "
@@ -729,6 +874,9 @@ def kernel_refusals(simulation: "Simulation") -> list:
             except NotImplementedError as refusal:
                 reasons.append(f"outlet '{name}' cannot ride the kernel "
                                f"through the window replay ({refusal})")
+            if dev_storage:
+                reasons.append(f"outlet '{name}': the window replay "
+                               f"operates on f, not on deviations")
         elif not isinstance(boundary, (BounceBackBoundary,
                                        EquilibriumBoundaryPU)):
             reasons.append(f"boundary '{name}' has no kind in the CUDA "
@@ -736,7 +884,8 @@ def kernel_refusals(simulation: "Simulation") -> list:
     return reasons
 
 
-def gate_fused_params(simulation: "Simulation") -> tuple:
+def gate_fused_params(simulation: "Simulation",
+                      dev_storage: bool = False) -> tuple:
     """Static kernel parameters for a Simulation, and its hybrid outlets.
 
     Returns ``(params, hybrid)``. ``params`` are the keyword arguments of
@@ -752,8 +901,13 @@ def gate_fused_params(simulation: "Simulation") -> tuple:
     and the window replay rewrites. Raises NotImplementedError with
     :func:`kernel_refusals`' reasons when the configuration cannot run on
     the kernels.
+
+    With ``dev_storage`` the parameters are those of a bfloat16 deviation
+    state (``dev_storage=True`` among them, for :func:`stream_collide`
+    alone): the per-node field is encoded like the state
+    (:func:`encode_deviations`), the table stays in f.
     """
-    reasons = kernel_refusals(simulation)
+    reasons = kernel_refusals(simulation, dev_storage)
     if reasons:
         raise NotImplementedError("; ".join(reasons))
     flow = simulation.flow
@@ -764,6 +918,13 @@ def gate_fused_params(simulation: "Simulation") -> tuple:
                   cs=float(stencil.cs),
                   tau_inv=spec[1] if spec[0] == "bgk" else None,
                   collision_spec=spec)
+    state = flow.f
+    if dev_storage:
+        params.update(dev_storage=True)
+        # what the masks are checked against: a deviation state's shape,
+        # dtype and device, without its memory
+        state = torch.empty((), dtype=torch.bfloat16,
+                            device=flow.f.device).expand(flow.f.shape)
     ncm = simulation.no_collision_mask
     if ncm is None:
         return params, ()
@@ -790,6 +951,8 @@ def gate_fused_params(simulation: "Simulation") -> tuple:
     nsm = simulation.no_streaming_mask
     if not bool(nsm.any()):
         nsm = None
+    if dev_storage and feq_field is not None:
+        feq_field = encode_deviations(feq_field, stencil.w)
     params.update(ncm=ncm, nsm=nsm, feq_field=feq_field,
-                  table=checked_table(flow.f, ncm, nsm, table, feq_field))
+                  table=checked_table(state, ncm, nsm, table, feq_field))
     return params, tuple(hybrid)

@@ -99,6 +99,9 @@ class EnergySpectrum(Observable):
         return self.spectrum_from_u(flow.u())
 
     def spectrum_from_u(self, u):
+        # torch's FFT takes no 16-bit input: a 16-bit state's spectrum is
+        # float32, as jnp.fft's
+        u = u.to(torch.promote_types(u.dtype, torch.float32))
         u = self.flow.units.convert_velocity_to_pu(u)
         d = self.flow.stencil.d
         uh = torch.stack([torch.fft.fftn(u[i], dim=tuple(range(d)))
@@ -113,7 +116,9 @@ class Mass(Observable):
 
     def __init__(self, flow: "Flow", no_mass_mask=None):
         super().__init__(flow)
-        self.mask = no_mass_mask
+        # a numpy or torch mask, on the flow's device
+        self.mask = (None if no_mass_mask is None
+                     else flow.context.convert_to_tensor(no_mass_mask))
 
     def __call__(self, f: Optional[torch.Tensor] = None):
         f = self.flow.f if f is None else f

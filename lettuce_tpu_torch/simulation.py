@@ -3,14 +3,17 @@
 Boundary masks are uint8 index-coded (``no_collision_mask``) plus a
 per-(q, node) ``no_streaming_mask``; collision and each boundary compose
 pointwise with ``where``; calling the simulation runs ``num_steps`` eager
-steps and returns MLUPS.
+steps and returns MLUPS; :meth:`Simulation.rollout` runs steps and gathers
+observables into a device tensor.
 
 Two step paths:
   * ``"torch"``: the plain tensor step (collision, boundaries, per-q roll),
     differentiable by ordinary autograd;
   * ``"cuda"``: the fused CUDA stream-collide kernel with the
     collision's fragment (masked when the flow has boundaries), chosen on
-    a CUDA context with ``use_native`` when every component supports it.
+    a CUDA context with ``use_native`` when every component supports it,
+    for a float32, float64, bfloat16 or float16 state (16-bit states run
+    the 16-bit instances, K1f, computing in float32).
     Outlets ride it through the window replay of
     ``ops/cuda/hybrid_outlets.py`` (``'cuda+hybrid'``). The capability
     probe makes host-side checks only (component types, the collision
@@ -25,6 +28,17 @@ Two step paths:
     pointwise pre-streaming map (``'split'``), then the replay under
     autograd.
 
+``half_storage=True`` keeps the state of the throughput loop (``__call__``
+and ``rollout``) as bfloat16 deviations g = f - w_q between steps, as
+lettuce_tpu's ``half_storage`` does: encoded once per run, stepped by the
+deviation instances (K1e, one launch per step), decoded once at the end,
+so ``flow.f`` stays in the context's dtype between calls. It halves the
+bytes per step; compute stays float32. It needs the kernel path and
+refuses what lettuce_tpu refuses (the closed-form MRT bases, outlets);
+then it warns and runs at full precision. Gradients (``make_step_fn``,
+``make_segment_fn``, a state that requires grad) always run at full
+precision.
+
 No step ever writes into a tensor that a caller holds: the kernel path's
 throughput loop ping-pongs between two buffers the simulation allocated
 and never exposes (the replay writes into the buffer the kernel just
@@ -33,6 +47,7 @@ wrote), and its last step of each run writes a fresh tensor.
 
 from __future__ import annotations
 
+import warnings
 from abc import ABC, abstractmethod
 from functools import partial
 from timeit import default_timer as timer
@@ -46,7 +61,8 @@ from .ops.collision import Collision
 from .ops.cuda import adjoint
 from .ops.cuda.fused_step import fused_step
 from .ops.cuda.hybrid_outlets import build_hybrid_fixup, nsm_outside_regions
-from .ops.cuda.stream_collide import (checked_table, gate_fused_params,
+from .ops.cuda.stream_collide import (checked_table, decode_deviations,
+                                      encode_deviations, gate_fused_params,
                                       kernel_refusals, load_libraries,
                                       stream_collide)
 from .ops.streaming import compose_step
@@ -81,8 +97,9 @@ class Simulation:
     """Orchestrates masks, step-path selection and the step loop."""
 
     def __init__(self, flow: "Flow", collision: "Collision",
-                 reporter: List["Reporter"]):
+                 reporter: List["Reporter"], half_storage: bool = False):
         self.flow = flow
+        self.half_storage = half_storage
         self.flow.collision = collision
         self.context = flow.context
         self.collision = collision
@@ -114,19 +131,23 @@ class Simulation:
         self._step = self._torch_step
         self._step_kind = "torch"
         self._fixup = None
+        self._half_params = None
         if self.context.use_native and self._native_supported():
             # a build error surfaces here, never later
             load_libraries()
             adjoint.load_libraries()
             self._use_kernel()
+        if half_storage:
+            self._use_half_storage()
 
     # ------------------------------------------------------------------
     # step construction
     # ------------------------------------------------------------------
     def _native_supported(self) -> bool:
         """Capability probe: a CUDA device, and no reason of
-        ``kernel_refusals`` (the checks the kernel gate raises on: float32
-        or float64 state, a compiled stencil, the quadratic equilibrium, a
+        ``kernel_refusals`` (the checks the kernel gate raises on: a
+        float32, float64 or 16-bit state, a compiled stencil, the
+        quadratic equilibrium, a
         collision with a compiled fragment, boundaries with a kind in the
         kernel's table or an outlet the window replay can rewrite). Prints
         each reason that keeps the torch step."""
@@ -163,6 +184,47 @@ class Simulation:
             self._step = partial(fused_step, fixup=self._fixup, **params)
         self._step_kind = "cuda"
 
+    def _use_half_storage(self):
+        """Select bfloat16 deviation storage for the throughput loop: the
+        gate's parameters for the deviation instances, when the kernel path
+        is selected and ``kernel_refusals(..., dev_storage=True)`` is
+        empty. Otherwise warn with the reasons, as lettuce_tpu does, and
+        keep full precision."""
+        self._half_params = None
+        if self._step_kind != "cuda":
+            reasons = [f"the {self._step_kind} step runs, not the CUDA "
+                       f"kernel"]
+        else:
+            reasons = kernel_refusals(self, dev_storage=True)
+        if reasons:
+            warnings.warn(f"half_storage requires the CUDA kernel path with "
+                          f"deviation storage ({'; '.join(reasons)}); "
+                          f"running at full precision.")
+            return
+        self._half_params = gate_fused_params(self, dev_storage=True)[0]
+
+    def _encode(self, f: torch.Tensor) -> torch.Tensor:
+        return encode_deviations(f, self.flow.stencil.w)
+
+    def _decode(self, g: torch.Tensor) -> torch.Tensor:
+        return decode_deviations(g, self.flow.stencil.w, self.context.dtype)
+
+    def _run_half(self, g: torch.Tensor, n: int) -> torch.Tensor:
+        """``n`` steps of the deviations ``g``, one deviation-instance
+        launch each, between the simulation's two buffers."""
+        for _ in range(n):
+            out = self._buffer(0, g)
+            if out.data_ptr() == g.data_ptr():
+                out = self._buffer(1, g)
+            g = stream_collide(g, out=out, **self._half_params)
+        return g
+
+    def _half_run_of(self, f: torch.Tensor) -> bool:
+        """Whether a run from ``f`` steps in deviations: half storage is
+        engaged and ``f`` is outside autograd."""
+        return self._half_params is not None and not (
+            f.requires_grad and torch.is_grad_enabled())
+
     def _torch_step(self, f: torch.Tensor) -> torch.Tensor:
         """One collide-and-stream step in plain torch."""
         return compose_step(f, self.flow, self.collision,
@@ -190,7 +252,10 @@ class Simulation:
         """``n`` steps from ``f``. The kernel path outside autograd steps
         between the simulation's two buffers, and its last step writes a
         fresh tensor, so neither ``f`` nor any tensor returned earlier is
-        written."""
+        written. Under half storage ``f`` is encoded once, stepped in
+        deviations and decoded once into a fresh tensor."""
+        if self._half_run_of(f):
+            return self._decode(self._run_half(self._encode(f), n))
         if self._step_kind != "cuda":
             for _ in range(n):
                 f = self._step(f)
@@ -263,6 +328,12 @@ class Simulation:
         return self._kernel_params["collision_spec"].mode
 
     @property
+    def half_storage_engaged(self) -> bool:
+        """Whether the throughput loop steps in bfloat16 deviations:
+        ``half_storage`` was asked for and nothing refused it."""
+        return self._half_params is not None
+
+    @property
     def step_path(self) -> str:
         """The selected step path: ``'cuda x1'`` (fused kernel, one step
         per launch), ``'cuda+hybrid x1'`` (the kernel, then the outlets'
@@ -277,6 +348,37 @@ class Simulation:
     def _synchronize(self):
         if self.context.device.type == "cuda":
             torch.cuda.synchronize(self.context.device)
+
+    def rollout(self, num_steps: int, observables=None,
+                interval: int = 1) -> torch.Tensor:
+        """Run ``num_steps`` steps, evaluating the scalar ``observables``
+        every ``interval`` steps into one device tensor of shape
+        ``[num_steps // interval, len(observables)]`` in the state's dtype,
+        with no host round trip (lettuce_tpu's ``rollout``). ``flow.f`` and
+        ``flow.i`` advance as with a call; the reporters are not called.
+        Under half storage the run steps in deviations throughout and
+        decodes a state only for the observables, so its final state equals
+        that of ``simulation(num_steps)``."""
+        observables = list(observables or [])
+        interval = max(1, int(interval))
+        n_chunks, rem = divmod(int(num_steps), interval)
+        f = self.flow.f
+        records = torch.empty((n_chunks, len(observables)), dtype=f.dtype,
+                              device=f.device)
+        half = self._half_run_of(f)
+        state = self._encode(f) if half else f
+        run = self._run_half if half else self._advance
+        for k in range(n_chunks):
+            state = run(state, interval)
+            if observables:
+                view = self._decode(state) if half else state
+                records[k] = torch.stack([torch.as_tensor(obs(view))
+                                          .to(records) for obs in
+                                          observables])
+        state = run(state, rem)
+        self.flow.f = self._decode(state) if half else state
+        self.flow.i += int(num_steps)
+        return records
 
     def __call__(self, num_steps: int) -> float:
         """Run ``num_steps`` steps, calling the reporters at the gcd of

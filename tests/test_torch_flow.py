@@ -1,11 +1,14 @@
 """lettuce_tpu_torch flows against lettuce_tpu on the CPU: the initial
 state of TGV2D (with f_neq) and TGV3D, the observables on a seeded state,
-and states carried across through the checkpoint pickle."""
+and states carried across through the checkpoint pickle, 16-bit states
+included."""
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import lettuce_tpu as lt
 import lettuce_tpu_torch as ltt
 from tests.torch_helpers import (DTYPES, hand_state, noisy_state, tgv_pair,
                                  to_numpy)
@@ -118,3 +121,52 @@ def test_context_factories_and_conversion():
         ltt.Context(device="cpu", dtype=torch.int32)
     with pytest.raises(ValueError):
         ltt.Context(device="meta")
+
+
+# ----------------------------------------------------------------------
+# 16-bit state reaches the host (F6)
+# ----------------------------------------------------------------------
+HALF = {"bfloat16": (torch.bfloat16, "bfloat16"),
+        "float16": (torch.float16, "float16")}
+
+
+@pytest.mark.parametrize("name", sorted(HALF))
+def test_16_bit_dump_load_round_trip(name, tmp_path):
+    """A 16-bit state dumps as float32 (numpy has no bfloat16) and loads
+    back bitwise, into the flow's dtype."""
+    dtype = HALF[name][0]
+    ctx = ltt.Context(device="cpu", dtype=dtype)
+    flow = ltt.TaylorGreenVortex(ctx, [16, 12], 1600, 0.05,
+                                 stencil=ltt.D2Q9())
+    flow.i = 5
+    host = ctx.convert_to_ndarray(flow.f)
+    assert host.dtype == np.float32
+    np.testing.assert_array_equal(host, flow.f.float().numpy())
+    path = tmp_path / "state.pkl"
+    flow.dump(path)
+    fresh = ltt.TaylorGreenVortex(ctx, [16, 12], 1600, 0.05,
+                                  stencil=ltt.D2Q9())
+    fresh.f = torch.zeros_like(fresh.f)
+    fresh.load(path)
+    assert fresh.i == 5 and fresh.f.dtype == dtype
+    assert torch.equal(fresh.f, flow.f)
+
+
+@pytest.mark.parametrize("target", [torch.bfloat16, torch.float32],
+                         ids=["into-bfloat16", "into-float32"])
+def test_lettuce_tpu_bf16_pickle_loads_into_port(target, tmp_path):
+    """lettuce_tpu's own bfloat16 pickle holds an ml_dtypes array: the
+    port reads it through float32 (exact) into either context."""
+    jctx = lt.Context(dtype=jnp.bfloat16, use_native=False)
+    jflow = lt.TaylorGreenVortex(jctx, [16, 12], 1600, 0.05,
+                                 stencil=lt.D2Q9())
+    jflow.i = 9
+    path = tmp_path / "state.pkl"
+    jflow.dump(path)
+    ctx = ltt.Context(device="cpu", dtype=target)
+    flow = ltt.TaylorGreenVortex(ctx, [16, 12], 1600, 0.05,
+                                 stencil=ltt.D2Q9())
+    flow.load(path)
+    assert flow.i == 9 and flow.f.dtype == target
+    np.testing.assert_array_equal(flow.f.float().numpy(),
+                                  np.asarray(jflow.f, dtype=np.float32))

@@ -184,9 +184,9 @@ def test_cli_benchmark_wires_guo_for_a_forced_flow(monkeypatch):
     seen = {}
     original = ltt.Simulation.__init__
 
-    def spy(self, flow, collision, reporter):
+    def spy(self, flow, collision, reporter, **options):
         seen["collision"] = collision
-        original(self, flow, collision, reporter)
+        original(self, flow, collision, reporter, **options)
 
     monkeypatch.setattr(ltt.Simulation, "__init__", spy)
     context = ltt.Context(device="cpu", dtype=torch.float32,

@@ -267,6 +267,8 @@ def _probe(flow, collision, capsys):
     if ok:
         sim._use_kernel()
         assert sim._step_kind == "cuda"
+        # the table was checked against the state's own dtype
+        assert sim._kernel_params["table"].checked[1] == flow.f.dtype
     return ok, printed, gate
 
 
@@ -302,8 +304,10 @@ PROBE_CASES = {
         _inlet_outlet_bb(pkg, flow) + [_WallPlane(
             np.eye(32, dtype=bool)[31][:, None].repeat(128, axis=1))])),
         "outlet owns no nodes"),
+    # a 16-bit state runs its 16-bit instances (K1f): the gate checks the
+    # table against the float16 state (test_probe_and_gate_agree)
     "float16": (lambda: ltt.Cavity2D(_cpu(torch.float16), [8, 8], 100,
-                                     0.1), "has no torch.float16 instance"),
+                                     0.1), None),
 }
 
 
