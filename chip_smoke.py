@@ -24,8 +24,11 @@ adjoint against its plain version, the gradient cells at full width in
 full and split mode, and two obstacle gradients; then half-precision
 storage: every 16-bit instance (bfloat16 deviations, bfloat16 and float16
 states) against its plain version, the main path and the fragment cells
-under ``half_storage``, and 16-bit states through the CLI. Every failed
-check exits non-zero; nothing is caught.
+under ``half_storage``, and 16-bit states through the CLI; then temporal
+blocking: every blocked instance (K2) and the blocked adjoint (K4)
+against their plain versions, the main path at ``LETTUCE_NSUB=2`` and 4
+in float32 and under half storage, and the 8-step gradient at span 2.
+Every failed check exits non-zero; nothing is caught.
 
 Phases:
   0. the card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
@@ -156,15 +159,36 @@ Phases:
      (TGV3D 256^3) in process; a float16 and a bfloat16 D3Q19 256^3 state
      timed against plain; tests/test_native.py's D2Q9 bfloat16 and float16
      sanity runs; an analytic MRT under half storage warns and runs at
-     full precision. Phase 1 fails if a 16-bit instance spills.
+     full precision. Phase 1 fails if a 16-bit instance spills;
+ 26. every periodic K2 instance (BGK and every fragment; float32, float64,
+     bfloat16 and float16 states, bfloat16 deviations) against its plain
+     version on the grids of phase 2 at n_sub 2, 3 and 4: two launches
+     each (the second from the plain state of the first), counted;
+     float32 and float64 to ATOL and against n_sub K1 launches; 16 bits
+     within one storage ulp (deviations plus n_sub times the floor);
+ 27. the main path with ``LETTUCE_NSUB=2`` and 4, float32 and under half
+     storage: step_path ``'cuda x<span>'``, 20 + 200 steps in 220 / span
+     K2 launches and no single-step one, finite, mass to 1e-5 (1e-4 half);
+     MLUPS; K2 per launch and per step by CUDA events in turns with K1a or
+     K1e and its plain version, the share of the saxpy; the CLI benchmark
+     in process under ``LETTUCE_NSUB=2`` printing ``cuda x2``;
+ 28. K4 against its plain version per spec (bgk, trt, matvec for reg and
+     MRT from_feq, none), float32 and float64, n_sub 2 and 4, on the grids
+     of phase 2; the 8-step 256^3 gradient through make_segment_fn(8) at
+     span 2: 4 K2 and 4 K4 launches and no single-step one, within 1e-5
+     of the single-step kernels' gradient, bitwise equal under
+     checkpoint_every=4, fwd+bwd MLUPS against phase 7's, peak memory of
+     both; K2 + K4 per step in turns with K1d + K3a, K4 against plain.
 
-Prints, before the last line, one JSON line describing the kernels (with
-each launch's bound: its bytes over an H100 SXM's 3.35 TB/s and its
-operations over 67 TFLOP/s float32, the larger), and last
-``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
+Prints, before the last line, one JSON line describing the kernels (K2
+and K4 with their span and per-step time; with each launch's bound: its
+bytes over an H100 SXM's 3.35 TB/s and its operations over 67 TFLOP/s
+float32, the larger), and last ``{"ok": true, "device": {"platform":
+"gpu", "kind": ..., "count": N}}``.
 """
 
 import json
+import os
 import re
 import subprocess
 import sys
@@ -267,13 +291,13 @@ def phase1_build():
     return seconds
 
 
-def tgv_state(stencil, shape, dtype, seed):
-    """TGV initial state on the card plus seeded numpy noise."""
+def tgv_state(stencil, shape, dtype, seed, scale=1e-3):
+    """TGV initial state on the card plus seeded numpy noise of ``scale``."""
     import lettuce_tpu_torch as lt
     context = lt.Context(device="cuda", dtype=dtype, use_native=False)
     flow = lt.TaylorGreenVortex(context, list(shape), 1600, 0.05,
                                 stencil=stencil, initialize_fneq=False)
-    noise = 1e-3 * np.random.default_rng(seed).standard_normal(
+    noise = scale * np.random.default_rng(seed).standard_normal(
         tuple(flow.f.shape))
     f = flow.f + torch.as_tensor(noise, dtype=dtype, device="cuda")
     return f.contiguous(), 1.0 / flow.units.relaxation_parameter_lu
@@ -474,7 +498,9 @@ def reset_launch_counts():
     adjoint.stream_collide_adjoint.masked_launches = 0
     sc.stream_collide.fragment_launches.clear()
     sc.stream_collide.half_launches.clear()
+    sc.stream_collide.multi_launches.clear()
     adjoint.stream_collide_adjoint.fragment_launches.clear()
+    adjoint.stream_collide_adjoint_multi.launches.clear()
 
 
 def scaled_err(got, want):
@@ -2644,6 +2670,471 @@ def phase25_half_state(card, saxpy_gbps):
 
 
 
+# ----------------------------------------------------------------------
+# temporal blocking: the blocked kernel (K2) and its adjoint (K4)
+# ----------------------------------------------------------------------
+MULTI_SOURCE = "lettuce_tpu_torch/csrc/multi_stream_collide.cu"
+MULTI_REPLACES = "lettuce_tpu/ops/pallas/stream_collide.py:1270"
+ADJOINT_MULTI_SOURCE = "lettuce_tpu_torch/csrc/adjoint_multi.cu"
+ADJOINT_MULTI_REPLACES = "lettuce_tpu/ops/pallas/adjoint.py:984"
+# the blocked kernel's storages: suffix -> (state dtype, deviations)
+MULTI_STORAGES = {"f32": (torch.float32, False),
+                  "f64": (torch.float64, False), **HALF_STORAGES}
+DTYPE_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+# K4 reads f and g and writes the cotangent once per launch (D3Q19
+# float32)
+ADJOINT_MULTI_BYTES_PER_UPDATE = 19 * 4 * 3
+
+
+def multi_launches():
+    import lettuce_tpu_torch.ops.cuda.stream_collide as sc
+    return dict(sc.stream_collide.multi_launches)
+
+
+def adjoint_multi_launches():
+    from lettuce_tpu_torch.ops.cuda import adjoint
+    return dict(adjoint.stream_collide_adjoint_multi.launches)
+
+
+def with_span(span):
+    """Set ``LETTUCE_NSUB`` to ``span`` (None unsets it): the span a
+    Simulation built afterwards blocks at."""
+    if span is None:
+        os.environ.pop("LETTUCE_NSUB", None)
+    else:
+        os.environ["LETTUCE_NSUB"] = str(span)
+
+
+def phase26_multi_instances_vs_plain():
+    """Every periodic K2 instance (BGK and every K1c fragment, in float32,
+    float64, bfloat16 and float16 state and bfloat16 deviations) against
+    its plain version at the grids of phase 2, at n_sub 2, 3 and 4: two
+    launches each, the second from the plain state of the first; float32
+    and float64 to ATOL, and also against n_sub launches of the
+    single-step kernel (K1); 16 bits within one storage ulp (deviations
+    plus n_sub times the float32 floor); launches counted."""
+    import lettuce_tpu_torch as lt
+    import lettuce_tpu_torch.ops.cuda.stream_collide as sc
+    worst = {}
+    seed = 900
+    count = 0
+    for stencil, shape in phase2_cases():
+        name = type(stencil).__name__
+        # the specs in float64: an MRT transform built in float32 rounds
+        # M^-1, which the plain version applies and the folded kernel
+        # parameters assume exact
+        context = lt.Context(device="cuda", dtype=torch.float64,
+                             use_native=False)
+        flow = lt.TaylorGreenVortex(context, list(shape), 1600, 0.05,
+                                    stencil=stencil, initialize_fneq=False)
+        collisions = {"bgk": lt.BGKCollision(FRAGMENT_TAU),
+                      **fragment_collisions(flow, FRAGMENT_TAU)}
+        for fragment, collision in collisions.items():
+            spec = fragment_spec(flow, collision)
+            args = (stencil.e, stencil.w, stencil.opposite, stencil.cs,
+                    spec[1] if fragment == "bgk" else None)
+            line = []
+            for suffix, (dtype, dev) in MULTI_STORAGES.items():
+                if dev and fragment in sc.DEV_REFUSED:
+                    continue
+                readings = []
+                for span in (2, 3, 4):
+                    seed += 1
+                    # KBC's gamma guard jumps where 1e-3 noise puts gamma
+                    # near 0, and float32 and float64 take either side
+                    # (1.6e-4 apart after 3 steps on one such state): KBC
+                    # steps a state nearer equilibrium
+                    f, _ = tgv_state(stencil, shape, torch.float64
+                                     if suffix == "f64" else torch.float32,
+                                     seed, 1e-5 if fragment == "kbc"
+                                     else 1e-3)
+                    x = f if suffix in ("f32", "f64") else storage_state(
+                        f, stencil.w, suffix)
+                    key = f"{fragment}_{suffix}_x{span}"
+                    before = multi_launches().get(key, 0)
+                    floor = span * (KBC_DEV_FLOOR if fragment == "kbc"
+                                    else DEV_FLOOR)
+                    for launch in (1, 2):
+                        got = sc.stream_collide(x, *args, collision_spec=spec,
+                                                dev_storage=dev, n_sub=span)
+                        ref = sc.stream_collide_plain(
+                            x, *args, collision_spec=spec, dev_storage=dev,
+                            n_sub=span)
+                        torch.cuda.synchronize()
+                        what = f"{key} {name} launch {launch}"
+                        check(got.dtype == x.dtype, f"{what}: {got.dtype}")
+                        if suffix in ("f32", "f64"):
+                            err = (got - ref).abs().max().item()
+                            check(bool(torch.isfinite(got).all()),
+                                  f"{what}: not finite")
+                            check(err <= ATOL[dtype], f"{what}: max |kernel"
+                                                      f" - plain| {err}")
+                            reading = f"{err:.1e}"
+                            if launch == 1:  # against span K1 launches
+                                y = x
+                                for _ in range(span):
+                                    y = sc.stream_collide(
+                                        y, *args, collision_spec=spec)
+                                err_k1 = (got - y).abs().max().item()
+                                check(err_k1 <= ATOL[dtype],
+                                      f"{what}: max |K2 - {span} K1| "
+                                      f"{err_k1}")
+                                reading += f"/K1 {err_k1:.1e}"
+                        else:
+                            ulps, _, err = check_storage(got, ref, suffix,
+                                                         what, floor)
+                            reading = f"{ulps:.1f}"
+                        readings.append(reading)
+                        was = worst.get(f"{fragment}_{suffix}", 0.0)
+                        worst[f"{fragment}_{suffix}"] = max(was, err)
+                        x = ref
+                    launched = multi_launches().get(key, 0) - before
+                    check(launched == 2, f"{key} {name}: {launched} launches "
+                                         f"for 2")
+                    count += 1
+                line.append(f"{suffix} {' '.join(readings[::2])}")
+            print(f"phase 26: {fragment} {name} {'x'.join(map(str, shape))} "
+                  f"(first launch at n_sub 2/3/4; f32/f64 max |err|, 16-bit "
+                  f"ulps): " + "; ".join(line))
+    print(f"phase 26: {count} instance-spans of 2 launches each, every one "
+          f"within its bound")
+    return worst
+
+
+def multi_kernel_timing(simulation, span, half, floor=DEV_FLOOR):
+    """K2 at the simulation's own (encoded) state against its plain
+    version, and by CUDA events in turns: plain, K1, K2, K2, K1, plain
+    (K1 the single-step kernel, K1a or K1e). Returns a dict of per-launch
+    ms and the error."""
+    import lettuce_tpu_torch.ops.cuda.stream_collide as sc
+    params = simulation._half_params if half else simulation._kernel_params
+    x = (simulation._encode(simulation.flow.f) if half
+         else simulation.flow.f.clone())
+    out = torch.empty_like(x)
+    ref = sc.stream_collide_plain(x, **params, n_sub=span)
+    got = sc.stream_collide(x, **params, out=out, n_sub=span)
+    torch.cuda.synchronize()
+    if half:
+        _, _, err = check_storage(got, ref, "bf16_dev", f"K2 x{span} 256^3",
+                                  span * floor)
+    else:
+        err = (got - ref).abs().max().item()
+        check(err <= ATOL[torch.float32], f"K2 x{span} 256^3 vs plain: {err}")
+    del ref
+    buffers = [x, out]
+
+    def launch(n_sub):
+        sc.stream_collide(buffers[0], **params, out=buffers[1], n_sub=n_sub)
+        buffers.reverse()
+
+    def plain():
+        sc.stream_collide_plain(x, **params, n_sub=span)
+
+    repeats = 100 // span
+    launch(span)
+    launch(1)
+    plain()
+    plain_a = cuda_ms(plain, 2)
+    k1_a = cuda_ms(lambda: launch(1), 100)
+    k2_a = cuda_ms(lambda: launch(span), repeats)
+    k2_b = cuda_ms(lambda: launch(span), repeats)
+    k1_b = cuda_ms(lambda: launch(1), 100)
+    plain_b = cuda_ms(plain, 2)
+    return dict(ms=(k2_a + k2_b) / 2, k1_ms=(k1_a + k1_b) / 2,
+                plain_ms=(plain_a + plain_b) / 2, err=err,
+                turns=(plain_a, k1_a, k2_a, k2_b, k1_b, plain_b))
+
+
+def phase27_blocked_main_path(card, saxpy_gbps):
+    """The main path (D3Q19 BGK TGV 256^3) with LETTUCE_NSUB=2 and 4, in
+    float32 and under half storage: step_path 'cuda x<span>', 20 + 200
+    steps in 220 / span K2 launches and no single-step launch, finite,
+    mass to 1e-5 (1e-4 for half); MLUPS; K2 per launch and per step in
+    turns with the single-step kernel (K1a, K1e) and against its plain
+    version, the share of the saxpy; then the CLI benchmark in process
+    under LETTUCE_NSUB=2."""
+    import contextlib
+    import io
+    import lettuce_tpu_torch as lt
+    from lettuce_tpu_torch import cli
+    runs = {}
+    cells = 256 ** 3
+    for half in (False, True):
+        for span in (2, 4):
+            with_span(span)
+            context = lt.Context(device="cuda", dtype=torch.float32,
+                                 use_native=True)
+            simulation = tgv256(context, half_storage=half)
+            with_span(None)
+            check(simulation.step_path == f"cuda x{span}"
+                  and simulation.half_storage_engaged == half,
+                  f"blocked main path: {simulation.step_path}, half "
+                  f"{simulation.half_storage_engaged}")
+            flow = simulation.flow
+            mass0 = torch.sum(flow.f, dtype=torch.float64).item()
+            suffix = "bf16_dev" if half else "f32"
+            key = f"bgk_{suffix}_x{span}"
+            reset_launch_counts()
+            simulation(20)
+            mlups = simulation(200)
+            torch.cuda.synchronize()
+            launched = multi_launches()
+            check(launched == {key: 220 // span}
+                  and launch_counts() == (0, 0, 0) and not half_launches()
+                  and not fragment_launches(),
+                  f"{key}: launches {launched}, single-step "
+                  f"{launch_counts()}, {half_launches()}")
+            check(bool(torch.isfinite(flow.f).all()), f"{key}: not finite")
+            drift = abs(torch.sum(flow.f, dtype=torch.float64).item()
+                        - mass0) / mass0
+            check(drift < (1e-4 if half else 1e-5),
+                  f"{key}: mass drift {drift}")
+            timing = multi_kernel_timing(simulation, span, half)
+            nbytes = 19 * 2 * (2 if half else 4)
+            gbps = nbytes * cells / (timing["ms"] * 1e-3) / 1e9
+            t = timing["turns"]
+            print(f"phase 27: D3Q19 BGK TGV 256^3 "
+                  f"{'half storage' if half else 'float32'}, "
+                  f"{simulation.step_path}: {mlups:.1f} MLUPS, "
+                  f"{launched[key]} K2 launches for 220 steps, mass drift "
+                  f"{drift:.2e}; CUDA events in turns: K2 {t[2]:.4f} / "
+                  f"{t[3]:.4f} ms per launch ({timing['ms'] / span:.4f} ms "
+                  f"per step), single-step K1 {t[1]:.4f} / {t[4]:.4f} ms per "
+                  f"step, plain x{span} {t[0]:.2f} / {t[5]:.2f} ms; max "
+                  f"|K2 - plain| {timing['err']:.3e}; K2 moves {nbytes} B "
+                  f"per update per launch: {gbps:.1f} GB/s, "
+                  f"{gbps / saxpy_gbps:.1%} of the saxpy ({card})")
+            runs[key] = dict(timing, mlups=mlups, launches=launched[key],
+                             span=span, suffix=suffix, cells=cells,
+                             bytes=nbytes)
+            del simulation, flow
+            torch.cuda.empty_cache()
+
+    with_span(2)
+    reset_launch_counts()
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        rc = cli.main(["--device", "cuda", "-p", "single", "benchmark", "-r",
+                       "256", "-s", "50", "-f", "taylor3d"])
+    with_span(None)
+    out = printed.getvalue().strip().splitlines()[-1]
+    launched = multi_launches()
+    check(rc == 0 and "(cuda x2 path)" in out
+          and sum(launched.values()) == 25
+          and all(k.endswith("_x2") for k in launched)
+          and launch_counts() == (0, 0, 0),
+          f"cli benchmark under LETTUCE_NSUB=2: rc {rc}, {launched}, {out!r}")
+    print(f"phase 27: LETTUCE_NSUB=2 cli benchmark -r 256 -s 50 -f taylor3d: "
+          f"{out} ({card})")
+    return runs
+
+
+def phase28_blocked_gradient(card, saxpy_gbps, single_mlups):
+    """K4 against its plain version per spec (bgk, trt, matvec for reg and
+    MRT from_feq, none) on each stencil of phase 2, float32 and float64,
+    at n_sub 2 and 4, one launch each; then the 8-step gradient of the
+    main path at 256^3 through make_segment_fn(8) at span 2: 4 K2 and 4
+    K4 launches and no single-step one, within 1e-5 of the single-step
+    kernel chain's gradient (phase 7's route), bitwise equal under
+    checkpoint_every=4; fwd+bwd MLUPS against phase 7's, peak memory of
+    both; K2 + K4 per two steps in turns with K1d + K3a, and K4 against
+    its plain version."""
+    import lettuce_tpu_torch as lt
+    from lettuce_tpu_torch.ops.cuda import adjoint
+    import lettuce_tpu_torch.ops.cuda.stream_collide as sc
+    worst = 0.0
+    seed = 1300
+    for stencil, shape in phase2_cases():
+        name = type(stencil).__name__
+        for dtype in (torch.float32, torch.float64):
+            context = lt.Context(device="cuda", dtype=dtype, use_native=False)
+            flow = lt.TaylorGreenVortex(context, list(shape), 1600, 0.05,
+                                        stencil=stencil,
+                                        initialize_fneq=False)
+            collisions = {"bgk": lt.BGKCollision(FRAGMENT_TAU),
+                          **fragment_collisions(flow, FRAGMENT_TAU)}
+            line = []
+            for fragment, collision in collisions.items():
+                if fragment not in adjoint.ADJOINT_MULTI_FRAGMENTS:
+                    continue
+                spec = fragment_spec(flow, collision)
+                args = (stencil.e, stencil.w, stencil.opposite, stencil.cs,
+                        spec[1] if fragment == "bgk" else None)
+                for span in (2, 4):
+                    seed += 1
+                    f, _ = tgv_state(stencil, shape, dtype, seed)
+                    g = torch.as_tensor(np.random.default_rng(seed)
+                                        .standard_normal(tuple(f.shape)),
+                                        dtype=dtype, device="cuda")
+                    key = f"{fragment}_{DTYPE_SUFFIX[dtype]}_x{span}"
+                    before = adjoint_multi_launches().get(key, 0)
+                    ct = adjoint.stream_collide_adjoint_multi(
+                        f, g, span, *args, collision_spec=spec)
+                    ref = adjoint.stream_collide_adjoint_multi_plain(
+                        f, g, span, *args, collision_spec=spec)
+                    torch.cuda.synchronize()
+                    launched = adjoint_multi_launches().get(key, 0) - before
+                    err, scale = scaled_err(ct, ref)
+                    check(launched == 1, f"{key} {name}: {launched} launches")
+                    check(bool(torch.isfinite(ct).all()), f"{key}: not finite")
+                    check(err <= GRAD_RTOL[dtype] * scale,
+                          f"K4 {key} {name}: {err} of {scale}")
+                    line.append(f"{fragment} x{span} {err / scale:.1e}")
+                    if fragment == "bgk" and dtype == torch.float32:
+                        worst = max(worst, err)
+            print(f"phase 28: K4 vs plain, {name} {'x'.join(map(str, shape))} "
+                  f"{str(dtype)[6:]} (relative to the largest magnitude): "
+                  + ", ".join(line))
+
+    # the 8-step gradient of the main path at span 2
+    with_span(2)
+    simulation = tgv256_simulation()
+    with_span(None)
+    check(simulation.step_path == "cuda x2"
+          and simulation._step_multi[0].adjoint_kernel,
+          f"blocked gradient path: {simulation.step_path}")
+    f0 = simulation.flow.f.detach().clone().requires_grad_(True)
+    cells = f0[0].numel()
+
+    def grad_of(seg):
+        (grad,) = torch.autograd.grad((seg(f0) ** 2).sum(), f0)
+        return grad
+
+    def peak_of(seg):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        grad = grad_of(seg)
+        torch.cuda.synchronize()
+        return grad, (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+
+    segment = simulation.make_segment_fn(SEGMENT_STEPS)
+    reset_launch_counts()
+    grad, peak = peak_of(segment)
+    k2, k4 = multi_launches(), adjoint_multi_launches()
+    check(k2 == {"bgk_f32_x2": 4} and k4 == {"bgk_f32_x2": 4}
+          and launch_counts() == (0, 0, 0),
+          f"8-step blocked gradient: K2 {k2}, K4 {k4}, single-step "
+          f"{launch_counts()}")
+    check(bool(torch.isfinite(grad).all()) and grad.abs().max().item() > 0,
+          "blocked gradient not finite or zero")
+    single = tgv256_simulation()
+    check(single.step_path == "cuda x1", "the single-step reference blocks")
+    grad_ref, peak_ref = peak_of(single.make_segment_fn(SEGMENT_STEPS))
+    err, scale = scaled_err(grad, grad_ref)
+    del grad_ref
+    check(err <= GRAD_RTOL[torch.float32] * scale,
+          f"blocked gradient vs single-step chain: {err} of {scale}")
+    grad_ck = grad_of(simulation.make_segment_fn(SEGMENT_STEPS,
+                                                 checkpoint_every=4))
+    torch.cuda.synchronize()
+    check(torch.equal(grad, grad_ck),
+          "checkpoint_every=4 blocked gradient differs")
+    del grad_ck
+    grad_of(segment)
+    torch.cuda.synchronize()
+    repeats = 3
+    beg = time.perf_counter()
+    for _ in range(repeats):
+        grad = grad_of(segment)
+    torch.cuda.synchronize()
+    seconds = (time.perf_counter() - beg) / repeats
+    mlups = cells * SEGMENT_STEPS / seconds / 1e6
+    print(f"phase 28: {SEGMENT_STEPS}-step gradient at 256^3 float32, span "
+          f"2: K2 {k2}, K4 {k4}, no single-step launch; max |blocked - "
+          f"single-step chain| {err:.3e} of {scale:.3e} ({err / scale:.2e} "
+          f"relative, rtol 1e-5); checkpoint_every=4 bitwise equal; fwd+bwd "
+          f"{mlups:.1f} MLUPS ({seconds * 1e3:.2f} ms per gradient) against "
+          f"the single-step kernels' {single_mlups:.1f} (phase 7); peak "
+          f"memory above the state {peak:.2f} GiB blocked, {peak_ref:.2f} "
+          f"GiB single-step ({card})")
+    del grad
+
+    # per launch by CUDA events, in turns: K1d + K3a twice (two steps), K2 +
+    # K4 (two steps), then K4 against its plain version
+    params = simulation._kernel_params
+    f = f0.detach()
+    g1 = torch.randn(f.shape, generator=torch.Generator(device="cuda")
+                     .manual_seed(28), device="cuda")
+    out, ct = torch.empty_like(f), torch.empty_like(f)
+    u = torch.empty((3, *f.shape[1:]), dtype=f.dtype, device="cuda")
+    got = adjoint.stream_collide_adjoint_multi(f, g1, 2, **params, out=ct)
+    ref = adjoint.stream_collide_adjoint_multi_plain(f, g1, 2, **params)
+    torch.cuda.synchronize()
+    err4, scale4 = scaled_err(got, ref)
+    check(err4 <= GRAD_RTOL[torch.float32] * scale4,
+          f"256^3 K4 vs plain: {err4} of {scale4}")
+    del ref, got
+
+    def single_pair():
+        for _ in range(2):
+            sc.stream_collide(f, **params, out=out, u_out=u)
+            adjoint.stream_collide_adjoint(g1, u, **params, out=ct)
+
+    def blocked_pair():
+        sc.stream_collide(f, **params, out=out, n_sub=2)
+        adjoint.stream_collide_adjoint_multi(f, g1, 2, **params, out=ct)
+
+    def k4_launch():
+        adjoint.stream_collide_adjoint_multi(f, g1, 2, **params, out=ct)
+
+    def k4_plain():
+        adjoint.stream_collide_adjoint_multi_plain(f, g1, 2, **params)
+
+    single_pair()
+    blocked_pair()
+    s_a = cuda_ms(single_pair, 20)
+    b_a = cuda_ms(blocked_pair, 20)
+    b_b = cuda_ms(blocked_pair, 20)
+    s_b = cuda_ms(single_pair, 20)
+    k4_ms, k4_plain_ms, turns = time_in_turns(k4_launch, k4_plain,
+                                              kernel_repeats=20,
+                                              plain_repeats=2)
+    gbps = ADJOINT_MULTI_BYTES_PER_UPDATE * cells / (k4_ms * 1e-3) / 1e9
+    print(f"phase 28: per step, CUDA events in turns: K1d + K3a {s_a / 2:.4f}"
+          f" / {s_b / 2:.4f} ms, K2 + K4 at span 2 {b_a / 2:.4f} / "
+          f"{b_b / 2:.4f} ms; K4 per launch {turns[1]:.4f} / {turns[2]:.4f} "
+          f"ms, plain {turns[0]:.2f} / {turns[3]:.2f} ms, max |K4 - plain| "
+          f"{err4:.3e} of {scale4:.3e}; {ADJOINT_MULTI_BYTES_PER_UPDATE} B "
+          f"per update per launch: {gbps:.1f} GB/s, "
+          f"{gbps / saxpy_gbps:.1%} of the saxpy ({card})")
+    del simulation, single, f0, f, out, ct, u, g1, segment
+    torch.cuda.empty_cache()
+    return dict(k2_launches=k2["bgk_f32_x2"], k4_launches=k4["bgk_f32_x2"],
+                err=max(worst, err4), ms=k4_ms, plain_ms=k4_plain_ms,
+                cells=cells, mlups=mlups, peak=peak, peak_ref=peak_ref,
+                pair_ms=(b_a + b_b) / 4, single_pair_ms=(s_a + s_b) / 4)
+
+
+def multi_entries(worst_multi, blocked, gradient):
+    """The kernels-line entries of the blocked kernels the main path runs:
+    K2 (BGK, float32 and bfloat16 deviations, at span 2 and 4) with its
+    per-launch bound, and K4 (BGK float32, span 2) from the gradient;
+    max_abs_err also covers phase 26's runs of the instance."""
+    entries = []
+    for key, run in sorted(blocked.items()):
+        span, suffix = run["span"], run["suffix"]
+        entries.append(kernel_entry(
+            f"stream_collide_multi_{key}", MULTI_SOURCE, MULTI_REPLACES,
+            run["launches"],
+            max(run["err"], worst_multi.get(f"bgk_{suffix}", 0.0)),
+            run["ms"], run["plain_ms"], run["cells"], run["bytes"],
+            span * 19 * OPS_PER_POPULATION["bgk"], span=span,
+            ms_per_step=run["ms"] / span, single_step_ms=run["k1_ms"],
+            storage=suffix))
+    entries.append(kernel_entry(
+        "stream_collide_adjoint_multi_bgk_f32_x2", ADJOINT_MULTI_SOURCE,
+        ADJOINT_MULTI_REPLACES, gradient["k4_launches"], gradient["err"],
+        gradient["ms"], gradient["plain_ms"], gradient["cells"],
+        ADJOINT_MULTI_BYTES_PER_UPDATE,
+        2 * 19 * (OPS_PER_POPULATION["bgk"]
+                  + OPS_PER_POPULATION["adjoint_bgk"]),
+        span=2, ms_per_step=gradient["ms"] / 2,
+        k2_launches=gradient["k2_launches"]))
+    return entries
+
+
+
 def half_entries(worst_half, half_main, half_cells, half_state):
     """The kernels-line entries of the 16-bit instances that a path runs:
     the main path's bf16-dev BGK, the six bf16-dev fragment cells, and
@@ -2778,6 +3269,10 @@ def main():
     half_main = phase23_half_main_path(card, saxpy_gbps)
     half_cells = phase24_half_fragment_cells(card, saxpy_gbps)
     half_state = phase25_half_state(card, saxpy_gbps)
+    worst_multi = phase26_multi_instances_vs_plain()
+    blocked = phase27_blocked_main_path(card, saxpy_gbps)
+    blocked_gradient = phase28_blocked_gradient(card, saxpy_gbps,
+                                                grad_path["mlups"])
     print(f"build {build_s:.2f} s; whole run {time.perf_counter() - beg:.1f} "
           f"s")
     print(card)
@@ -2850,6 +3345,7 @@ def main():
             adj["ms"], adj["plain_ms"], adj["cells"], adj["bytes"],
             adj["ops"], cell=run["cell"], mode=run["mode"]))
     kernels += half_entries(worst_half, half_main, half_cells, half_state)
+    kernels += multi_entries(worst_multi, blocked, blocked_gradient)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

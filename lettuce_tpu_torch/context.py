@@ -2,8 +2,10 @@
 
 A :class:`Context` binds one explicit ``torch.device``, the floating dtype
 of the simulation state, and whether the hand-written CUDA stream-collide
-kernel ("native") may be used. Asking for a CUDA device on a machine
-without one is an error: nothing silently lands on the CPU.
+kernel ("native") may be used. The default device is the current CUDA
+device, as lettuce_tpu's ``Context()`` takes the accelerator. Asking for a
+CUDA device (or for the default) on a machine without one is an error:
+nothing silently lands on the CPU, which is asked for by name.
 """
 
 from __future__ import annotations
@@ -32,8 +34,9 @@ class Context:
     ----------
     device:
         A device string (``"cpu"``, ``"cuda"``, ``"cuda:1"``) or a
-        :class:`torch.device`. The default is the CPU, as for any torch
-        tensor; a CUDA device must be asked for.
+        :class:`torch.device`. The default (None) is the current CUDA
+        device; without one it raises, as ``"cuda"`` does. The CPU runs
+        only when ``"cpu"`` is asked for.
     dtype:
         Floating dtype of the simulation state (a torch dtype or its name).
     use_native:
@@ -41,13 +44,13 @@ class Context:
         simulation supports it and the device is a CUDA device.
     """
 
-    def __init__(self, device: Union[str, torch.device] = "cpu",
+    def __init__(self, device: Union[str, torch.device, None] = None,
                  dtype=torch.float32, use_native: bool = True):
         dtype = _resolve_dtype(dtype)
         if dtype not in _FLOAT_DTYPES:
             raise ValueError(f"dtype must be one of {_FLOAT_DTYPES}, "
                              f"got {dtype}")
-        device = torch.device(device)
+        device = torch.device("cuda" if device is None else device)
         if device.type == "cuda":
             if not torch.cuda.is_available():
                 raise RuntimeError(f"device {device} was requested, but "

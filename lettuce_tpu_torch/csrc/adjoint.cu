@@ -46,13 +46,16 @@ struct BgkAdjoint {
     return Params{tau_inv, equilibrium_consts<T>(cs)};
   }
 
-  __device__ __forceinline__ static void transpose(const Params& p,
-                                                   T (&h)[S::Q],
-                                                   const T* __restrict__ res,
-                                                   int64_t n, int64_t cell,
-                                                   T* __restrict__ out) {
-    T u[S::D];
-    load_u<S, T>(res, n, cell, u);
+  // params: [tau_inv] (the blocked adjoint's entries, adjoint_multi.cu)
+  static Params load(const double* params, double cs) {
+    return make(T(params[0]), cs);
+  }
+
+  template <class Sink>
+  __device__ __forceinline__ static void transpose_u(const Params& p,
+                                                     T (&h)[S::Q],
+                                                     const T (&u)[S::D],
+                                                     const Sink& sink) {
     equilibrium_transpose<S, T, false>(
         h, u, p.c,
         [&](auto K_, T& tp, T& tm) {
@@ -60,12 +63,24 @@ struct BgkAdjoint {
           tp = p.tau_inv * h[q];
           tm = p.tau_inv * h[opposite<S>(q)];
         },
-        [&] { return p.tau_inv * h[0]; }, NoExtra{}, NoExtra{}, out, n,
-        cell);
+        [&] { return p.tau_inv * h[0]; }, NoExtra{}, NoExtra{}, sink);
+  }
+
+  __device__ __forceinline__ static void transpose(const Params& p,
+                                                   T (&h)[S::Q],
+                                                   const T* __restrict__ res,
+                                                   int64_t n, int64_t cell,
+                                                   T* __restrict__ out) {
+    T u[S::D];
+    load_u<S, T>(res, n, cell, u);
+    transpose_u(p, h, u, CellSink<T>{out, n, cell});
   }
 };
 
 }  // namespace lt
+
+// adjoint_multi.cu includes this source for its policy alone
+#ifndef LT_POLICIES_ONLY
 
 #define LT_ENTRY(NAME, S, T)                                                  \
   int NAME(const void* g, const void* u, void* out, int64_t n0, int64_t n1,  \
@@ -100,3 +115,5 @@ LT_ENTRIES(d3q27, D3Q27)
 LT_ERROR_STRING_ENTRY
 
 }  // extern "C"
+
+#endif  // LT_POLICIES_ONLY

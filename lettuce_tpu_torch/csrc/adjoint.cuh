@@ -14,7 +14,10 @@
 // (passed by value as a __grid_constant__ kernel parameter), a host-side
 // Params load(params, cs) from the C entry's float64 array, and a
 // __device__ transpose(p, h, res, n, cell, out) that writes the q values of
-// ct = J^T h for one cell. Every f-linear policy (f' = f - M (f - feq(f)))
+// ct = J^T h for one cell; the policies with a u residual (or none) also
+// have transpose_u(p, h, u, sink), the same with u given, handing each
+// value to a sink's put<q> (the blocked adjoint, adjoint_multi.cuh, sinks
+// into its tile). Every f-linear policy (f' = f - M (f - feq(f)))
 // hands t = M^T h, pair by pair, to equilibrium_transpose, which adds the
 // transposed equilibrium Jacobian:
 //   S0 = sum w t, S1_a = sum w e_a t, S2_ab = sum w e_a e_b t
@@ -129,17 +132,30 @@ EquilibriumConsts<T> equilibrium_consts(double cs) {
                               T(0.5 * inv_cs2 * inv_cs2)};
 }
 
-// ct = (h - t) + (A' + e . B) [+ X] for t = M^T h. tpair(K_, tp, tm) gives
-// t on pair K_ (an integral_constant) and trest() t on the rest direction;
-// each may read h only on its own pair, since h becomes h - t pair by pair.
-// With Extra, xpair(K_, xp, xm) and xrest() add the derivative of a
-// relaxation that depends on f (Smagorinsky).
+// Where a cell's cotangent goes: out[q, cell].
+template <class T>
+struct CellSink {
+  T* __restrict__ out;
+  int64_t n, cell;
+
+  template <int q>
+  __device__ __forceinline__ void put(T value) const {
+    out[q * n + cell] = value;
+  }
+};
+
+// ct = (h - t) + (A' + e . B) [+ X] for t = M^T h, each value handed to
+// sink.put<q>. tpair(K_, tp, tm) gives t on pair K_ (an integral_constant)
+// and trest() t on the rest direction; each may read h only on its own
+// pair, since h becomes h - t pair by pair. With Extra, xpair(K_, xp, xm)
+// and xrest() add the derivative of a relaxation that depends on f
+// (Smagorinsky).
 template <class S, class T, bool Extra, class TPair, class TRest,
-          class XPair, class XRest>
+          class XPair, class XRest, class Sink>
 __device__ __forceinline__ void equilibrium_transpose(
     T (&h)[S::Q], const T (&u)[S::D], const EquilibriumConsts<T>& c,
     const TPair& tpair, const TRest& trest, const XPair& xpair,
-    const XRest& xrest, T* __restrict__ out, int64_t n, int64_t cell) {
+    const XRest& xrest, const Sink& sink) {
   constexpr int D = S::D;
   T s0 = T(0);
   T s1[D];
@@ -192,9 +208,9 @@ __device__ __forceinline__ void equilibrium_transpose(
   }
 
   if constexpr (Extra) {
-    out[cell] = h[0] + (ap + xrest());
+    sink.template put<0>(h[0] + (ap + xrest()));
   } else {
-    out[cell] = h[0] + ap;
+    sink.template put<0>(h[0] + ap);
   }
   static_for<kPairs<S>>([&](auto K_) {
     constexpr int q = pair_first<S>(decltype(K_)::value);
@@ -203,11 +219,11 @@ __device__ __forceinline__ void equilibrium_transpose(
     if constexpr (Extra) {
       T xp, xm;
       xpair(K_, xp, xm);
-      out[q * n + cell] = h[q] + ((ap + eb) + xp);
-      out[p * n + cell] = h[p] + ((ap - eb) + xm);
+      sink.template put<q>(h[q] + ((ap + eb) + xp));
+      sink.template put<p>(h[p] + ((ap - eb) + xm));
     } else {
-      out[q * n + cell] = h[q] + (ap + eb);
-      out[p * n + cell] = h[p] + (ap - eb);
+      sink.template put<q>(h[q] + (ap + eb));
+      sink.template put<p>(h[p] + (ap - eb));
     }
   });
 }

@@ -47,6 +47,17 @@ struct NoneAdjoint {
 
   static Params load(const double*, double) { return Params{0}; }
 
+  template <class Sink>
+  __device__ __forceinline__ static void transpose_u(const Params&,
+                                                     T (&h)[S::Q],
+                                                     const T (&)[S::D],
+                                                     const Sink& sink) {
+    static_for<S::Q>([&](auto Q_) {
+      constexpr int q = decltype(Q_)::value;
+      sink.template put<q>(h[q]);
+    });
+  }
+
   __device__ __forceinline__ static void transpose(const Params&,
                                                    T (&h)[S::Q], const T*,
                                                    int64_t n, int64_t cell,
@@ -75,13 +86,11 @@ struct TrtAdjoint {
                   equilibrium_consts<T>(cs)};
   }
 
-  __device__ __forceinline__ static void transpose(const Params& p,
-                                                   T (&h)[S::Q],
-                                                   const T* __restrict__ res,
-                                                   int64_t n, int64_t cell,
-                                                   T* __restrict__ out) {
-    T u[S::D];
-    load_u<S, T>(res, n, cell, u);
+  template <class Sink>
+  __device__ __forceinline__ static void transpose_u(const Params& p,
+                                                     T (&h)[S::Q],
+                                                     const T (&u)[S::D],
+                                                     const Sink& sink) {
     equilibrium_transpose<S, T, false>(
         h, u, p.c,
         [&](auto K_, T& tp, T& tm) {
@@ -90,7 +99,17 @@ struct TrtAdjoint {
           tp = p.csum * h[q] + p.cdif * h[o];
           tm = p.csum * h[o] + p.cdif * h[q];
         },
-        [&] { return p.two_cp * h[0]; }, NoExtra{}, NoExtra{}, out, n, cell);
+        [&] { return p.two_cp * h[0]; }, NoExtra{}, NoExtra{}, sink);
+  }
+
+  __device__ __forceinline__ static void transpose(const Params& p,
+                                                   T (&h)[S::Q],
+                                                   const T* __restrict__ res,
+                                                   int64_t n, int64_t cell,
+                                                   T* __restrict__ out) {
+    T u[S::D];
+    load_u<S, T>(res, n, cell, u);
+    transpose_u(p, h, u, CellSink<T>{out, n, cell});
   }
 };
 
@@ -118,13 +137,11 @@ struct MatvecAdjoint {
     return p;
   }
 
-  __device__ __forceinline__ static void transpose(const Params& p,
-                                                   T (&h)[S::Q],
-                                                   const T* __restrict__ res,
-                                                   int64_t n, int64_t cell,
-                                                   T* __restrict__ out) {
-    T u[S::D];
-    load_u<S, T>(res, n, cell, u);
+  template <class Sink>
+  __device__ __forceinline__ static void transpose_u(const Params& p,
+                                                     T (&h)[S::Q],
+                                                     const T (&u)[S::D],
+                                                     const Sink& sink) {
     // the even and odd parts of h, before equilibrium_transpose turns h
     // into h - t pair by pair
     T ue[R], uo[P];
@@ -154,7 +171,17 @@ struct MatvecAdjoint {
           for (int c = 0; c < R; ++c) ev = ev + p.ce[0][c] * ue[c];
           return ev;
         },
-        NoExtra{}, NoExtra{}, out, n, cell);
+        NoExtra{}, NoExtra{}, sink);
+  }
+
+  __device__ __forceinline__ static void transpose(const Params& p,
+                                                   T (&h)[S::Q],
+                                                   const T* __restrict__ res,
+                                                   int64_t n, int64_t cell,
+                                                   T* __restrict__ out) {
+    T u[S::D];
+    load_u<S, T>(res, n, cell, u);
+    transpose_u(p, h, u, CellSink<T>{out, n, cell});
   }
 };
 
@@ -296,11 +323,14 @@ struct SmagAdjoint {
           xp = c0 * (even - T(2) * godd);
           xm = c0 * (even + T(2) * godd);
         },
-        [&] { return c0 * base; }, out, n, cell);
+        [&] { return c0 * base; }, CellSink<T>{out, n, cell});
   }
 };
 
 }  // namespace lt
+
+// adjoint_multi.cu includes this source for its policies alone
+#ifndef LT_POLICIES_ONLY
 
 extern "C" {
 
@@ -323,3 +353,5 @@ LT_ADJOINT_ENTRIES(smag, d3q27, lt::SmagAdjoint, D3Q27)
 LT_ERROR_STRING_ENTRY
 
 }  // extern "C"
+
+#endif  // LT_POLICIES_ONLY

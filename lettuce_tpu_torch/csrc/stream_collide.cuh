@@ -247,24 +247,20 @@ __device__ __forceinline__ void replace_push(
   }
 }
 
-// The cell's populations, rho, u = j / rho and u.u, with u written to
-// u_out when EmitU. Deviations g = f - w_q sum to rho - 1 and to j (sum_q
-// w_q = 1, sum_q w_q e_q = 0): rho gains 1 and j nothing, as in the TPU
-// kernel's _moments, and the policies see f = g + w_q.
-template <class S, class St, bool EmitU, class T = typename St::T>
-__device__ __forceinline__ void load_moments(
-    const typename St::V* __restrict__ f, T* __restrict__ u_out,
-    const Neighbours& nb, int64_t cell, T (&fv)[S::Q], T& rho, T (&u)[S::D],
-    T& u2) {
-#pragma unroll
-  for (int q = 0; q < S::Q; ++q) fv[q] = St::raw(f + q * nb.n + cell);
-
+// rho, u = j / rho and u.u of a cell from its q populations fv. Under
+// deviation storage (Dev) fv holds the deviations g = f - w_q, which sum to
+// rho - 1 and to j (sum_q w_q = 1, sum_q w_q e_q = 0): rho gains 1 and j
+// nothing, as in the TPU kernel's _moments, and fv becomes f = g + w_q, what
+// the policies see.
+template <class S, bool Dev, class T>
+__device__ __forceinline__ void cell_moments(T (&fv)[S::Q], T& rho,
+                                             T (&u)[S::D], T& u2) {
   rho = T(0);
   T jm[S::D];
 #pragma unroll
   for (int a = 0; a < S::D; ++a) jm[a] = T(0);
   moments<S, T>(fv, rho, jm);
-  if constexpr (St::kDeviation) {
+  if constexpr (Dev) {
     rho = rho + T(1);
     static_for<S::Q>([&](auto Q_) {
       constexpr int q = decltype(Q_)::value;
@@ -277,8 +273,23 @@ __device__ __forceinline__ void load_moments(
 #pragma unroll
   for (int a = 0; a < S::D; ++a) {
     u[a] = jm[a] * inv_rho;
-    if constexpr (EmitU) u_out[a * nb.n + cell] = u[a];
     u2 = u2 + u[a] * u[a];
+  }
+}
+
+// The cell's populations, rho, u = j / rho and u.u (cell_moments), with u
+// written to u_out when EmitU.
+template <class S, class St, bool EmitU, class T = typename St::T>
+__device__ __forceinline__ void load_moments(
+    const typename St::V* __restrict__ f, T* __restrict__ u_out,
+    const Neighbours& nb, int64_t cell, T (&fv)[S::Q], T& rho, T (&u)[S::D],
+    T& u2) {
+#pragma unroll
+  for (int q = 0; q < S::Q; ++q) fv[q] = St::raw(f + q * nb.n + cell);
+  cell_moments<S, St::kDeviation>(fv, rho, u, u2);
+  if constexpr (EmitU) {
+#pragma unroll
+    for (int a = 0; a < S::D; ++a) u_out[a * nb.n + cell] = u[a];
   }
 }
 
@@ -320,6 +331,11 @@ struct Bgk {
   static Params make(T tau_inv, double cs) {
     const double cs2 = cs * cs;
     return Params{tau_inv, T(1.0 / cs2), T(0.5 / cs2)};
+  }
+
+  // params: [tau_inv] (the entries of the blocked kernels, multi_sweep.cuh)
+  static Params load(const double* params, double cs) {
+    return make(T(params[0]), cs);
   }
 
   template <class Store>

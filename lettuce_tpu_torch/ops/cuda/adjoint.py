@@ -49,8 +49,19 @@ fields and writes 19, 164 B per lattice update with the u residual, 228 B
 with the f residual, 152 B for ``none`` (plus the 1-byte code when
 masked).
 
-:func:`stream_collide_adjoint` runs the plain version only for a CPU
-tensor. For a CUDA tensor it launches a kernel or raises.
+The blocked adjoint (K4, ``csrc/adjoint_multi.cu``) replaces
+``lettuce_tpu/ops/pallas/adjoint.py::_adjoint_multi_kernel``: the exact VJP
+of one blocked forward launch (``n_sub`` steps, K2) in one launch, from the
+launch input f alone. It replays the forward in its tile, keeping each
+level's pre-collision u, and pulls the cotangent back through the levels
+with the adjoints above: periodic grids, float32 and float64, the
+forward fragments of :data:`ADJOINT_MULTI_FRAGMENTS`. It reads f and g and
+writes the cotangent once per launch: 228 / n_sub B per D3Q19 float32
+lattice update.
+
+:func:`stream_collide_adjoint` and :func:`stream_collide_adjoint_multi`
+run their plain versions only for a CPU tensor. For a CUDA tensor they
+launch a kernel or raise.
 """
 
 from __future__ import annotations
@@ -64,15 +75,24 @@ import torch
 
 from .build import (DTYPES, KERNEL_STENCIL_NAMES, check_launch, check_out,
                     kernel_stencil_name, launch_dims, open_library)
-from .stream_collide import (check_nsm, checked_table, pack_spec,
-                             prestream_plain)
+from .stream_collide import (FRAGMENTS, check_nsm, checked_table,
+                             multi_plan, pack_spec, prestream_plain,
+                             stream_collide_plain)
 
 __all__ = ["stream_collide_adjoint", "stream_collide_adjoint_plain",
-           "prestream_vjp", "load_library", "load_fragment_library",
-           "load_libraries", "ADJOINT_FRAGMENTS", "NONE_SPEC"]
+           "stream_collide_adjoint_multi",
+           "stream_collide_adjoint_multi_plain", "adjoint_multi_refusal",
+           "adjoint_multi_halo", "prestream_vjp", "load_library",
+           "load_fragment_library", "load_multi_library", "load_libraries",
+           "ADJOINT_FRAGMENTS", "ADJOINT_MULTI_FRAGMENTS", "NONE_SPEC"]
 
 # the adjoint specs of csrc/adjoint_fragments.cu, each on every stencil
 ADJOINT_FRAGMENTS = ("none", "trt", "matvec", "smag")
+# the forward fragments of the blocked adjoint (csrc/adjoint_multi.cu): the
+# f-linear collisions whose adjoint reads the pre-collision u (bgk, trt,
+# and through matvec the regularized and the folded MRT) and the identity,
+# as lettuce_tpu's build_fused_multi_step takes them (:2360-2371)
+ADJOINT_MULTI_FRAGMENTS = ("bgk", "trt", "reg", "mrt_from_feq", "none")
 # the identity's spec: split mode's streaming transpose
 NONE_SPEC = ("none",)
 
@@ -220,6 +240,61 @@ def _adjoint_of(collision_spec, tau_inv, e, w, opposite) -> tuple:
     return spec.adjoint
 
 
+def adjoint_multi_halo(n_sub: int) -> int:
+    """The blocked adjoint's halo: the cotangent's cone (n_sub) and the
+    forward replay's cone for the deepest level's u (2 (n_sub - 1)),
+    lettuce_tpu's plan_adjoint_multi (:954-981)."""
+    return max(int(n_sub), 2 * (int(n_sub) - 1))
+
+
+def adjoint_multi_refusal(spec, dtype: torch.dtype):
+    """Why the blocked adjoint (K4) cannot take the gradient of the packed
+    ``spec`` on a ``dtype`` state, or None when it can."""
+    if spec.fragment not in ADJOINT_MULTI_FRAGMENTS:
+        return (f"the {spec.fragment!r} collision has no blocked adjoint "
+                f"(it takes {', '.join(ADJOINT_MULTI_FRAGMENTS)}: "
+                f"Smagorinsky's Jacobian reads every sub-step's state, the "
+                f"others run split mode)")
+    if dtype not in DTYPES:
+        return (f"the blocked adjoint runs float32 and float64, not "
+                f"{dtype}")
+    return None
+
+
+def _multi_spec(collision_spec, tau_inv, e, w, opposite, dtype):
+    spec = _packed(collision_spec, tau_inv, e, w, opposite)
+    reason = adjoint_multi_refusal(spec, dtype)
+    if reason is not None:
+        raise NotImplementedError(reason)
+    return spec
+
+
+def stream_collide_adjoint_multi_plain(f: torch.Tensor, g: torch.Tensor,
+                                       n_sub: int, e: np.ndarray,
+                                       w: np.ndarray, opposite: np.ndarray,
+                                       cs: float, tau_inv: float,
+                                       collision_spec=None) -> torch.Tensor:
+    """The VJP of ``n_sub`` collide-and-stream steps from ``f`` in plain
+    PyTorch, the blocked adjoint's plain version: the forward replayed
+    with plain emit-u steps, then ``n_sub`` plain adjoint steps
+    (:func:`stream_collide_adjoint_plain`) in reverse on the cotangent
+    ``g`` of the last step's output."""
+    spec = _multi_spec(collision_spec, tau_inv, e, w, opposite, f.dtype)
+    us, x = [], f
+    for _ in range(int(n_sub)):
+        if spec.residual == "u":
+            x, u = stream_collide_plain(x, e, w, opposite, cs, tau_inv,
+                                        emit_u=True, collision_spec=spec)
+        else:  # the identity reads no residual
+            x, u = stream_collide_plain(x, e, w, opposite, cs, tau_inv,
+                                        collision_spec=spec), None
+        us.append(u)
+    for u in reversed(us):
+        g = stream_collide_adjoint_plain(g, u, e, w, opposite, cs, tau_inv,
+                                         collision_spec=spec)
+    return g
+
+
 def prestream_vjp(f: torch.Tensor, h: torch.Tensor, *, e, w, opposite,
                   cs: float, collision_spec, ncm=None, table=None,
                   feq_field=None) -> torch.Tensor:
@@ -284,10 +359,35 @@ def load_fragment_library() -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def load_multi_library() -> ctypes.CDLL:
+    """Build (if needed) and load the blocked adjoint library
+    (``csrc/adjoint_multi.cu``), with ``argtypes`` set on every entry: f,
+    g, out, scratch, the grid, n_sub, the halo, the tile's interior, the
+    blocks, the forward's and the adjoint's float64 parameters, cs,
+    device, stream."""
+    lib = open_library("adjoint_multi")
+    pointer = ctypes.c_void_p
+    argtypes = ([pointer] * 4 + [ctypes.c_int64] * 3 + [ctypes.c_int] * 6
+                + [pointer, pointer, ctypes.c_double, ctypes.c_int, pointer])
+    for fragment in ADJOINT_MULTI_FRAGMENTS:
+        names = (KERNEL_STENCIL_NAMES if fragment == "bgk"
+                 else FRAGMENTS[fragment][1])
+        for name in names:
+            for suffix, _ in DTYPES.values():
+                fn = getattr(lib, f"lt_adjoint_multi_{fragment}_{name}_"
+                                  f"{suffix}")
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+    return lib
+
+
 def load_libraries() -> None:
-    """Build (if needed) and load both adjoint libraries."""
+    """Build (if needed) and load the adjoint libraries, the blocked one
+    included."""
     load_library()
     load_fragment_library()
+    load_multi_library()
 
 
 def _check_residual(res, g, shape, what):
@@ -392,3 +492,55 @@ stream_collide_adjoint.masked_launches = 0  # masked BGK launches
 # launches of the other adjoint specs, by variant and spec ("trt",
 # "masked_matvec", "frozen_none", ...)
 stream_collide_adjoint.fragment_launches = Counter()
+
+
+def stream_collide_adjoint_multi(f: torch.Tensor, g: torch.Tensor,
+                                 n_sub: int, e: np.ndarray, w: np.ndarray,
+                                 opposite: np.ndarray, cs: float,
+                                 tau_inv: float, collision_spec=None,
+                                 out: torch.Tensor = None,
+                                 **masks) -> torch.Tensor:
+    """The cotangent of a blocked launch's input ``f`` (``n_sub`` steps of
+    ``collision_spec``, BGK with ``tau_inv`` when None) from the cotangent
+    ``g`` of its output: one launch of the blocked adjoint (K4) on a CUDA
+    tensor (allocating ``out`` when none is given), else
+    :func:`stream_collide_adjoint_multi_plain`. Periodic only: ``masks``
+    (the gate's ``ncm``, ``nsm``, ``table``, ``feq_field``) must be None.
+    Raises NotImplementedError for a spec or dtype it does not take
+    (:func:`adjoint_multi_refusal`)."""
+    if any(m is not None for m in masks.values()):
+        raise ValueError("the blocked adjoint runs periodic grids: no masks")
+    spec = _multi_spec(collision_spec, tau_inv, e, w, opposite, g.dtype)
+    if g.device.type == "cpu":
+        result = stream_collide_adjoint_multi_plain(
+            f, g, n_sub, e, w, opposite, cs, tau_inv, collision_spec=spec)
+        return result if out is None else out.copy_(result)
+    if g.device.type != "cuda":
+        raise ValueError(f"stream_collide_adjoint_multi runs on cpu or cuda "
+                         f"tensors, got {g.device}")
+    launch_dims(g, e)
+    _check_residual(f, g, g.shape, "state")
+    out = check_out(out, g, g.shape, "out", g, f)
+    d = np.asarray(e).shape[1]
+    halo = adjoint_multi_halo(n_sub)
+    dims, plan, scratch = multi_plan(g, e, halo, g.shape[0] + n_sub * d)
+    suffix = DTYPES[g.dtype][0]
+    lib = load_multi_library()
+    launch = getattr(lib, f"lt_adjoint_multi_{spec.fragment}_"
+                          f"{spec.stencil}_{suffix}")
+    rc = launch(f.data_ptr(), g.data_ptr(), out.data_ptr(),
+                None if scratch is None else scratch.data_ptr(), *dims,
+                int(n_sub), halo, *plan.interior, plan.blocks,
+                spec.params.ctypes.data, spec.adjoint_params.ctypes.data,
+                float(cs), g.device.index,
+                torch.cuda.current_stream(g.device).cuda_stream)
+    check_launch(lib, rc, f"stream_collide_adjoint_multi ({spec.fragment}, "
+                          f"x{n_sub} {spec.stencil}_{suffix})")
+    stream_collide_adjoint_multi.launches[
+        f"{spec.fragment}_{suffix}_x{n_sub}"] += 1
+    return out
+
+
+# launches of the blocked adjoint (K4) by forward fragment, dtype and span
+# ("bgk_f32_x2", "reg_f64_x4", ...)
+stream_collide_adjoint_multi.launches = Counter()

@@ -11,8 +11,9 @@ together. A missing ``nvcc``, a failed build or a failed load raises.
 kept beside the library (:func:`ptxas_log`).
 
 Also here: what every wrapper checks before a launch (the compiled stencil
-instance, the dtype, the launch grid), and the entry suffix of each state
-dtype and storage (:data:`DTYPES`, :data:`STORAGE`).
+instance, the dtype, the launch grid), the entry suffix of each state
+dtype and storage (:data:`DTYPES`, :data:`STORAGE`), and the tiles of the
+blocked kernels (:func:`plan_tile`).
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -36,17 +38,21 @@ __all__ = ["SOURCES", "find_nvcc", "library_path", "ptxas_log",
            "open_library", "check_launch", "kernel_stencil_name",
            "launch_dims", "check_out", "KERNEL_STENCILS",
            "KERNEL_STENCIL_NAMES", "DTYPES", "STORAGE", "HALF_DTYPES",
-           "storage_suffix"]
+           "storage_suffix", "plan_tile", "TilePlan", "TILE_SMEM_BYTES",
+           "moving_axes"]
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 # csrc/<name>.cu, one library each: the BGK step (K1a, K1d, K1b), its
 # adjoint (K3a, K3c), the other collision fragments (K1c, with emit-u
 # instances), their adjoints (K3b, K3d's streaming transpose), and the
-# 16-bit forward instances of BGK and of each fragment source (K1e, K1f)
+# 16-bit forward instances of BGK and of each fragment source (K1e, K1f),
+# the blocked forward of BGK and of each fragment source in every storage
+# (K2) and the blocked adjoint (K4)
 SOURCES = ("stream_collide", "adjoint", "collide_basic", "collide_moments",
            "collide_mrt", "collide_kbc", "adjoint_fragments",
            "half_stream_collide", "half_basic", "half_moments", "half_mrt",
-           "half_kbc")
+           "half_kbc", "multi_stream_collide", "multi_basic",
+           "multi_moments", "multi_mrt", "multi_kbc", "adjoint_multi")
 _BUILD_DIR = (Path(__file__).resolve().parents[3] / "build"
               / "lettuce_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -68,6 +74,15 @@ STORAGE = {(torch.bfloat16, False): "bf16", (torch.float16, False): "f16",
            (torch.bfloat16, True): "bf16_dev"}
 HALF_DTYPES = (torch.bfloat16, torch.float16)
 _MAX_GRID_YZ = 65535  # CUDA's limit on gridDim.y and gridDim.z
+# the tiles of the blocked kernels (csrc/multi_sweep.cuh): the dynamic
+# shared memory a block may opt into on sm_90 (227 KB); a tile is first
+# sought within half of it (two blocks per SM), then within all of it, and
+# when none fits, in a global scratch of at most _SCRATCH_TILE_BYTES per
+# block with _SCRATCH_BLOCKS blocks looping over the tiles
+TILE_SMEM_BYTES = 232448
+_SCRATCH_TILE_BYTES = 4 << 20
+_SCRATCH_BLOCKS = 264
+_MAX_INTERIOR = (32, 32, 128)  # the interior extents a plan considers
 
 
 # ----------------------------------------------------------------------
@@ -232,3 +247,65 @@ def check_out(out: torch.Tensor, like: torch.Tensor, shape, name: str,
         if out.data_ptr() == x.data_ptr():
             raise ValueError(f"{name} must not alias an input")
     return out
+
+
+def moving_axes(e) -> tuple:
+    """Whether the stencil ``e`` moves along each axis of the kernels' 3D
+    launch grid (a 2D grid is ``[1, X, Y]``: never along the first)."""
+    e = np.asarray(e)
+    moves = tuple(bool(np.any(e[:, a] != 0)) for a in range(e.shape[1]))
+    return (False,) * (3 - len(moves)) + moves
+
+
+class TilePlan(NamedTuple):
+    """The tiles of one blocked launch: the ``interior`` extents per axis
+    of the 3D launch grid, the ``halo`` on the axes the stencil moves
+    along, the tile's ``cells`` and ``bytes``, whether it runs in a global
+    ``scratch`` (else shared memory), the number of ``tiles`` and the
+    ``blocks`` launched."""
+    interior: tuple
+    halo: int
+    cells: int
+    bytes: int
+    scratch: bool
+    tiles: int
+    blocks: int
+
+
+@functools.lru_cache(maxsize=256)
+def plan_tile(dims: tuple, moving: tuple, halo: int, values_per_cell: int,
+              itemsize: int) -> TilePlan:
+    """The tile of a blocked launch over the launch grid ``dims`` (n0, n1,
+    n2): ``moving`` says on which axes the stencil moves (those get the
+    ``halo``), and each tile cell holds ``values_per_cell`` values of
+    ``itemsize`` bytes. Of the interiors up to 32 x 32 x 128 (and the
+    grid) it takes the one whose interior is the largest share of the
+    tile (then the largest), within half the shared memory, else within
+    all of it, else in a global scratch (csrc/multi_sweep.cuh). Raises
+    ValueError when no tile holds the halo."""
+    halos = [halo if m else 0 for m in moving]
+    axes = [np.arange(1, min(int(n), cap) + 1)
+            for n, cap in zip(dims, _MAX_INTERIOR)]
+    b = np.meshgrid(*axes, indexing="ij")
+    interior = b[0] * b[1] * b[2]
+    cells = ((b[0] + 2 * halos[0]) * (b[1] + 2 * halos[1])
+             * (b[2] + 2 * halos[2]))
+    nbytes = cells * values_per_cell * itemsize
+    share = interior / cells
+    for budget, scratch in ((TILE_SMEM_BYTES // 2, False),
+                            (TILE_SMEM_BYTES, False),
+                            (_SCRATCH_TILE_BYTES, True)):
+        fits = nbytes <= budget
+        if not fits.any():
+            continue
+        best = np.lexsort((np.where(fits, interior, -1).ravel(),
+                           np.where(fits, share, -1.0).ravel()))[-1]
+        at = np.unravel_index(best, interior.shape)
+        extents = tuple(int(x[at]) for x in b)
+        tiles = int(np.prod([-(-int(n) // e) for n, e in zip(dims, extents)]))
+        return TilePlan(extents, int(halo), int(cells[at]), int(nbytes[at]),
+                        scratch, tiles,
+                        min(tiles, _SCRATCH_BLOCKS) if scratch else tiles)
+    raise ValueError(f"a halo of {halo} cells leaves no tile of "
+                     f"{values_per_cell} x {itemsize}-byte values per cell "
+                     f"within {_SCRATCH_TILE_BYTES} bytes")

@@ -36,6 +36,14 @@ plain torch and needs no state from the kernel's side.
 Every call returns a freshly allocated output: it never writes into its
 input or into an earlier output, which autograd could not notice.
 
+The blocked step (:func:`fused_multi_step`, ``_FusedMultiStep``) is the
+counterpart of the ``custom_vjp`` of lettuce_tpu's
+``build_fused_multi_step`` (:2355-2404): its forward is one launch of the
+blocked kernel (K2, ``n_sub`` steps) and saves only the launch input f;
+its backward is one launch of the blocked adjoint (K4), which replays the
+forward from f. Periodic grids, and the specs of
+:func:`.adjoint.adjoint_multi_refusal`.
+
 A 16-bit state runs forward through its 16-bit instances (K1f). Its
 gradient would need the adjoint kernels at 16-bit storage, which the port
 does not have yet: a 16-bit state that requires grad raises before any
@@ -48,11 +56,12 @@ import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
-from .adjoint import NONE_SPEC, prestream_vjp, stream_collide_adjoint
+from .adjoint import (NONE_SPEC, adjoint_multi_refusal, prestream_vjp,
+                      stream_collide_adjoint, stream_collide_adjoint_multi)
 from .build import HALF_DTYPES
 from .stream_collide import pack_spec, stream_collide
 
-__all__ = ["fused_step"]
+__all__ = ["fused_step", "fused_multi_step"]
 
 
 class _FusedStep(torch.autograd.Function):
@@ -120,3 +129,48 @@ def fused_step(f: torch.Tensor, *, e, w, opposite, cs: float,
         collision_spec=spec, ncm=ncm, nsm=nsm, table=table,
         feq_field=feq_field))
     return out if fixup is None else fixup(f, out)
+
+
+class _FusedMultiStep(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, f, params, n_sub):
+        f = f.contiguous()
+        ctx.params = params
+        ctx.n_sub = n_sub
+        if ctx.needs_input_grad[0]:
+            ctx.save_for_backward(f)
+        return stream_collide(f, n_sub=n_sub, **params)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad_out):
+        (f,) = ctx.saved_tensors
+        ct = stream_collide_adjoint_multi(f, grad_out.contiguous(), ctx.n_sub,
+                                          **ctx.params)
+        return ct, None, None
+
+
+def fused_multi_step(f: torch.Tensor, *, n_sub: int, e, w, opposite,
+                     cs: float, tau_inv: float = None, collision_spec=None,
+                     dev_storage: bool = False) -> torch.Tensor:
+    """``n_sub`` collide-and-stream steps ``f -> f'`` in one launch of the
+    blocked kernel (K2, or its plain version on CPU tensors) on a periodic
+    grid, with the static kernel parameters of
+    :func:`.stream_collide.gate_fused_params` (``dev_storage`` for a
+    bfloat16 deviation state). A state that requires grad, with grad mode
+    on, goes through ``_FusedMultiStep``, whose backward is one launch of
+    the blocked adjoint (K4); a spec or dtype that K4 does not take raises
+    NotImplementedError then. Returns a fresh tensor."""
+    spec = pack_spec(("bgk", tau_inv) if collision_spec is None
+                     else collision_spec, e, w, opposite)
+    params = dict(e=e, w=w, opposite=opposite, cs=cs, tau_inv=tau_inv,
+                  collision_spec=spec)
+    if not (f.requires_grad and torch.is_grad_enabled()):
+        return stream_collide(f.detach(), n_sub=n_sub,
+                              dev_storage=dev_storage, **params)
+    reason = ("deviation storage is a throughput mode" if dev_storage
+              else adjoint_multi_refusal(spec, f.dtype))
+    if reason is not None:
+        raise NotImplementedError(f"no blocked gradient: {reason}")
+    return _FusedMultiStep.apply(f, params, n_sub)

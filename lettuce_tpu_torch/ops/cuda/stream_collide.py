@@ -36,6 +36,13 @@ but the closed-form MRT bases, :data:`DEV_REFUSED`), which halve the
 bytes per update. :func:`encode_deviations` and :func:`decode_deviations`
 convert a state to and from deviation storage.
 
+The temporally blocked kernel (K2, ``csrc/multi_*.cu``) runs ``n_sub``
+steps of any fragment in one launch on a periodic grid, in every storage
+(``stream_collide(..., n_sub=n)``): it reads and writes the state once per
+launch. :func:`build_fused_multi_step` builds the blocked step of a
+Simulation when a span is asked for (``LETTUCE_NSUB``), and its gradient
+runs the blocked adjoint (K4, :mod:`.adjoint`).
+
 The sources are built and loaded by :mod:`.build`. :func:`stream_collide`
 runs the plain version only for a CPU tensor. For a CUDA tensor it
 launches a kernel or raises. A state that requires grad, on either
@@ -46,6 +53,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import os
 from collections import Counter
 
 import numpy as np
@@ -66,8 +74,8 @@ from ...utils.moments import (HERMITE_MULTIINDICES, dellar_meq, hermite_meq,
 from ..utils_moments_shim import resolve_mrt_spec
 from .build import (DTYPES, HALF_DTYPES, KERNEL_STENCIL_NAMES,
                     KERNEL_STENCILS, STORAGE, check_launch, check_out,
-                    kernel_stencil_name, launch_dims, open_library,
-                    storage_suffix)
+                    kernel_stencil_name, launch_dims, moving_axes,
+                    open_library, plan_tile, storage_suffix)
 from .hybrid_outlets import outlet_window
 
 __all__ = ["stream_collide", "stream_collide_plain", "collide_plain",
@@ -79,7 +87,8 @@ __all__ = ["stream_collide", "stream_collide_plain", "collide_plain",
            "kernel_stencil_name", "KERNEL_STENCILS", "KINDS", "MAX_CODES",
            "FRAGMENTS", "EMIT_U_FRAGMENTS", "HALF_SOURCES", "DEV_REFUSED",
            "encode_deviations", "decode_deviations",
-           "load_half_library"]
+           "load_half_library", "MULTI_SOURCES", "load_multi_library",
+           "blocking_refusals", "build_fused_multi_step", "multi_plan"]
 
 # boundary kinds of the per-code table, in the order of csrc/stencils.cuh's
 # Kind enum
@@ -111,6 +120,11 @@ HALF_SOURCES = {"stream_collide": "half_stream_collide",
                 "collide_basic": "half_basic",
                 "collide_moments": "half_moments",
                 "collide_mrt": "half_mrt", "collide_kbc": "half_kbc"}
+# the blocked instances (K2) of each source, every storage: csrc/multi_*.cu
+MULTI_SOURCES = {"stream_collide": "multi_stream_collide",
+                 "collide_basic": "multi_basic",
+                 "collide_moments": "multi_moments",
+                 "collide_mrt": "multi_mrt", "collide_kbc": "multi_kbc"}
 # the fragments deviation storage refuses: closed-form equilibrium moments
 # are not shift-invariant in f (lettuce_tpu's build_fused_step :1998-2004)
 DEV_REFUSED = ("mrt_lallemand", "mrt_dellar", "mrt_hermite27")
@@ -278,20 +292,62 @@ def _check_emit_u(spec, dtype: torch.dtype, dev_storage: bool) -> None:
                          f"{' in deviation storage' if dev_storage else ''})")
 
 
+def _check_span(n_sub, emit_u: bool = False, masked: bool = False,
+                grad: bool = False) -> None:
+    """Raise on a span or a request the blocked kernel (K2) does not
+    take: it has no emit-u (lettuce_tpu's kernel refuses it, :1717), its
+    masked form is not ported, and a state that requires grad steps
+    through :func:`.fused_step.fused_multi_step`."""
+    if int(n_sub) != n_sub or n_sub < 1:
+        raise ValueError(f"n_sub must be a positive integer, got {n_sub!r}")
+    if n_sub == 1:
+        return
+    if emit_u:
+        raise ValueError("emit_u is a single-step residual: the blocked "
+                         "kernel (n_sub > 1) has none")
+    if masked:
+        raise ValueError("the blocked kernel (n_sub > 1) runs periodic "
+                         "grids: masks, tables and per-node fields take "
+                         "n_sub=1")
+    if grad:
+        raise ValueError("a state that requires grad steps n_sub > 1 "
+                         "through fused_multi_step (the blocked adjoint) or "
+                         "one step at a time")
+
+
 def stream_collide_plain(f: torch.Tensor, e: np.ndarray, w: np.ndarray,
                          opposite: np.ndarray, cs: float, tau_inv: float,
                          ncm: torch.Tensor = None, nsm: torch.Tensor = None,
                          table=None, feq_field: torch.Tensor = None,
                          emit_u: bool = False, collision_spec=None,
-                         dev_storage: bool = False):
+                         dev_storage: bool = False, n_sub: int = 1):
     """One collide-and-stream step in plain PyTorch: the pre-streaming map
     of ``collision_spec`` (BGK with ``tau_inv`` when None,
     :func:`prestream_plain`, 16-bit states and ``dev_storage`` included),
     then a per-q ``torch.roll`` with the populations of ``nsm`` frozen.
     With ``emit_u`` (a fragment of :data:`EMIT_U_FRAGMENTS`, float32 or
     float64) it returns ``(out, u)``, u = j / rho the pre-collision
-    velocity ``[d, *grid]``."""
+    velocity ``[d, *grid]``.
+
+    ``n_sub`` steps at once are the blocked kernel's (K2) plain version:
+    ``n_sub`` plain steps; a 16-bit state is widened once
+    (:func:`_widen`), stepped wide and rounded once, as the kernel keeps
+    its tile in float32 between sub-steps (no ``emit_u`` then)."""
     spec = ("bgk", tau_inv) if collision_spec is None else collision_spec
+    if n_sub != 1:
+        _check_span(n_sub, emit_u)
+        half = dev_storage or f.dtype in HALF_DTYPES
+        if half:
+            storage_suffix(f.dtype, dev_storage)
+            x = _widen(f, w, dev_storage)
+            feq_field = (None if feq_field is None
+                         else _widen(feq_field, w, dev_storage))
+        else:
+            x = f
+        for _ in range(n_sub):
+            x = stream_collide_plain(x, e, w, opposite, cs, tau_inv, ncm, nsm,
+                                     table, feq_field, collision_spec=spec)
+        return _narrow(x, w, f.dtype, dev_storage) if half else x
     if emit_u:
         _check_emit_u(spec, f.dtype, dev_storage)
     fpost = prestream_plain(f, spec, e, w, opposite, cs, ncm, table,
@@ -553,14 +609,45 @@ def load_half_library(source: str) -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def load_multi_library(source: str) -> ctypes.CDLL:
+    """Build (if needed) and load the blocked instances (K2) of
+    ``csrc/<source>.cu`` (``"stream_collide"`` or a source of
+    :data:`FRAGMENTS`; the library of :data:`MULTI_SOURCES`), with
+    ``argtypes`` set on every entry: f, out, scratch, the grid, n_sub,
+    the tile's interior, the blocks, the float64 parameters, cs, device,
+    stream; every storage (no deviations for :data:`DEV_REFUSED`)."""
+    lib = open_library(MULTI_SOURCES[source])
+    pointer = ctypes.c_void_p
+    argtypes = ([pointer] * 3 + [ctypes.c_int64] * 3 + [ctypes.c_int] * 5
+                + [pointer, ctypes.c_double, ctypes.c_int, pointer])
+    if source == "stream_collide":
+        entries = [("bgk", KERNEL_STENCIL_NAMES)]
+    else:
+        entries = [(fragment, names)
+                   for fragment, (src, names) in FRAGMENTS.items()
+                   if src == source]
+    for fragment, names in entries:
+        for suffix in (*(s for s, _ in DTYPES.values()), *STORAGE.values()):
+            if suffix == "bf16_dev" and fragment in DEV_REFUSED:
+                continue
+            for name in names:
+                fn = getattr(lib, f"lt_multi_{fragment}_{name}_{suffix}")
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+    return lib
+
+
 def load_libraries() -> None:
     """Build (if needed) and load every kernel library of the step, the
-    16-bit instances included."""
+    16-bit and the blocked instances included."""
     load_library()
     for source in sorted({src for src, _ in FRAGMENTS.values()}):
         load_fragment_library(source)
     for source in HALF_SOURCES:
         load_half_library(source)
+    for source in MULTI_SOURCES:
+        load_multi_library(source)
 
 
 def table_arrays(table) -> tuple:
@@ -643,8 +730,10 @@ def stream_collide(f: torch.Tensor, e: np.ndarray, w: np.ndarray,
                    ncm: torch.Tensor = None, nsm: torch.Tensor = None,
                    table=None, feq_field: torch.Tensor = None,
                    out: torch.Tensor = None, u_out: torch.Tensor = None,
-                   collision_spec=None, dev_storage: bool = False):
-    """One fused collide-and-stream step ``f -> out``.
+                   collision_spec=None, dev_storage: bool = False,
+                   n_sub: int = 1):
+    """One fused collide-and-stream step ``f -> out`` (``n_sub`` steps in
+    one launch of the blocked kernel, K2, when ``n_sub > 1``).
 
     ``f`` is ``[q, X, Y]`` or ``[q, X, Y, Z]``. The collision is
     ``collision_spec`` (a spec or a :class:`PackedSpec`), or BGK with
@@ -667,10 +756,17 @@ def stream_collide(f: torch.Tensor, e: np.ndarray, w: np.ndarray,
     :func:`.fused_step.fused_step` with the same spec and masks (fresh
     output, the spec's adjoint in the backward); ``out`` and ``u_out``
     cannot be given then, nor ``dev_storage``, a throughput mode.
+
+    ``n_sub > 1`` runs the blocked kernel on a periodic grid in every
+    storage (a 16-bit state rounded once per launch); it raises for
+    masks, ``u_out`` and a state that requires grad
+    (:func:`.fused_step.fused_multi_step` is its differentiable form).
     """
     spec = ("bgk", tau_inv) if collision_spec is None else collision_spec
     emit_u = u_out is not None
     masks = dict(ncm=ncm, nsm=nsm, table=table, feq_field=feq_field)
+    _check_span(n_sub, emit_u, any(m is not None for m in masks.values()),
+                f.requires_grad and torch.is_grad_enabled())
     if f.requires_grad and torch.is_grad_enabled():
         if out is not None or emit_u:
             raise ValueError("out and u_out would bypass autograd: a state "
@@ -685,7 +781,8 @@ def stream_collide(f: torch.Tensor, e: np.ndarray, w: np.ndarray,
     if f.device.type == "cpu":
         result = stream_collide_plain(f, e, w, opposite, cs, tau_inv,
                                       emit_u=emit_u, collision_spec=spec,
-                                      dev_storage=dev_storage, **masks)
+                                      dev_storage=dev_storage, n_sub=n_sub,
+                                      **masks)
         if emit_u:
             result, u = result
             u_out.copy_(u)
@@ -694,6 +791,9 @@ def stream_collide(f: torch.Tensor, e: np.ndarray, w: np.ndarray,
     if f.device.type != "cuda":
         raise ValueError(f"stream_collide runs on cpu or cuda tensors, "
                          f"got {f.device}")
+    if n_sub > 1:
+        return _launch_multi(f, out, pack_spec(spec, e, w, opposite), n_sub,
+                             e, cs, dev_storage)
     if emit_u:
         _check_emit_u(spec, f.dtype, dev_storage)
     suffix = storage_suffix(f.dtype, dev_storage)
@@ -764,6 +864,53 @@ stream_collide.fragment_launches = Counter()
 # launches of the 16-bit instances (K1e, K1f), BGK included, by variant,
 # fragment and storage ("bgk_bf16_dev", "masked_trt_f16", ...)
 stream_collide.half_launches = Counter()
+# launches of the blocked kernel (K2), BGK included, by fragment, storage
+# and span ("bgk_f32_x2", "trt_bf16_dev_x4", ...)
+stream_collide.multi_launches = Counter()
+
+
+def multi_plan(f: torch.Tensor, e, halo: int, values_per_cell: int):
+    """The tiles of a blocked launch over the state ``f`` (:func:`.build.
+    plan_tile`): a halo of ``halo`` cells and ``values_per_cell`` values of
+    the compute type (float64 for a float64 state, else float32) per tile
+    cell; and the global scratch it needs (None in shared memory)."""
+    wide = torch.float64 if f.dtype == torch.float64 else torch.float32
+    dims = tuple(int(n) for n in launch_dims(f, e, half=True))
+    plan = plan_tile(dims, moving_axes(e), int(halo), int(values_per_cell),
+                     torch.finfo(wide).bits // 8)
+    scratch = None
+    if plan.scratch:
+        scratch = torch.empty(plan.blocks * plan.cells * values_per_cell,
+                              dtype=wide, device=f.device)
+    return dims, plan, scratch
+
+
+def _launch_multi(f: torch.Tensor, out, spec: PackedSpec, n_sub: int, e,
+                  cs: float, dev_storage: bool) -> torch.Tensor:
+    """One launch of the blocked kernel (K2): ``n_sub`` steps of the
+    packed ``spec`` on the CUDA state ``f`` into ``out``."""
+    suffix = storage_suffix(f.dtype, dev_storage)
+    if dev_storage and spec.fragment in DEV_REFUSED:
+        raise NotImplementedError(
+            f"the {spec.fragment!r} fragment has no deviation-storage "
+            f"instance: its closed-form equilibrium moments are not "
+            f"shift-invariant in f")
+    source = ("stream_collide" if spec.fragment == "bgk"
+              else FRAGMENTS[spec.fragment][0])
+    lib = load_multi_library(source)
+    dims, plan, scratch = multi_plan(f, e, n_sub, np.asarray(e).shape[0])
+    out = check_out(out, f, f.shape, "out", f)
+    launch = getattr(lib, f"lt_multi_{spec.fragment}_{spec.stencil}_"
+                          f"{suffix}")
+    rc = launch(f.data_ptr(), out.data_ptr(),
+                None if scratch is None else scratch.data_ptr(), *dims,
+                int(n_sub), *plan.interior, plan.blocks,
+                spec.params.ctypes.data, float(cs), f.device.index,
+                torch.cuda.current_stream(f.device).cuda_stream)
+    check_launch(lib, rc, f"stream_collide ({spec.fragment}, blocked "
+                          f"x{n_sub} {spec.stencil}_{suffix})")
+    stream_collide.multi_launches[f"{spec.fragment}_{suffix}_x{n_sub}"] += 1
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -956,3 +1103,66 @@ def gate_fused_params(simulation: "Simulation",
     params.update(ncm=ncm, nsm=nsm, feq_field=feq_field,
                   table=checked_table(state, ncm, nsm, table, feq_field))
     return params, tuple(hybrid)
+
+
+def blocking_refusals(simulation: "Simulation") -> list:
+    """Why a Simulation on the kernel path cannot run the blocked kernel
+    (K2): its periodic form alone is ported, so any boundary (masks,
+    outlets) keeps the single-step kernel. Host-side checks only."""
+    names = [type(b).__name__ for b in simulation.boundaries[1:]]
+    if not names:
+        return []
+    return [f"boundaries {', '.join(names)}: the blocked kernel runs "
+            f"periodic grids only (its masked form and the outlets' "
+            f"n_sub window replay are not ported)"]
+
+
+def build_fused_multi_step(simulation: "Simulation",
+                           dev_storage: bool = False, n_sub: int = None):
+    """The temporally blocked step of a Simulation on the kernel path:
+    ``(step, span)``, ``step`` advancing ``span`` steps per launch of the
+    blocked kernel (K2), or None. The counterpart of lettuce_tpu's
+    ``build_fused_multi_step`` (:2195-2410).
+
+    The span comes from ``LETTUCE_NSUB`` (0 disables), then from
+    ``n_sub``; with neither it is None, on a CUDA context too: blocking
+    has not been shown to pay on this card yet. When a span is asked for
+    and the configuration cannot block (:func:`blocking_refusals`) it
+    prints the reason, as the capability probe does, and returns None;
+    the single-step kernel then runs. A span that no tile holds raises
+    (:func:`.build.plan_tile`); a build or launch error is never caught.
+
+    ``step`` is :func:`.fused_step.fused_multi_step` bound to the gate's
+    parameters (with ``dev_storage``, those of bfloat16 deviations). Its
+    ``adjoint_kernel`` says whether the blocked adjoint (K4) takes its
+    gradient: float32 and float64, the f-linear specs and the identity
+    (:func:`.adjoint.adjoint_multi_refusal`, whose reason it prints
+    otherwise); never under deviations."""
+    from .adjoint import adjoint_multi_refusal
+    from .fused_step import fused_multi_step
+    env = os.environ.get("LETTUCE_NSUB")
+    span = int(env) if env is not None else n_sub
+    if span is None or int(span) <= 1:
+        return None
+    span = int(span)
+    reasons = blocking_refusals(simulation)
+    for reason in reasons:
+        print(f"temporal blocking (span {span}) was requested, but "
+              f"{reason}; the single-step kernel runs.")
+    if reasons:
+        return None
+    params = gate_fused_params(simulation, dev_storage)[0]
+    stencil = simulation.flow.stencil
+    dtype = simulation.flow.f.dtype
+    dims = tuple(int(n) for n in simulation.flow.f.shape[1:])
+    plan_tile((1,) * (3 - len(dims)) + dims, moving_axes(stencil.e), span,
+              stencil.q, 8 if dtype == torch.float64 and not dev_storage
+              else 4)  # raises past what a tile holds
+    step = functools.partial(fused_multi_step, n_sub=span, **params)
+    reason = (None if dev_storage else
+              adjoint_multi_refusal(params["collision_spec"], dtype))
+    if reason is not None:
+        print(f"temporal blocking (span {span}) runs, but {reason}; "
+              f"gradients run the single-step adjoint.")
+    step.adjoint_kernel = not dev_storage and reason is None
+    return step, span

@@ -28,6 +28,15 @@ Two step paths:
     pointwise pre-streaming map (``'split'``), then the replay under
     autograd.
 
+Temporal blocking (``LETTUCE_NSUB=n``, 0 disables; off by default, as on
+lettuce_tpu off the TPU): on a periodic grid the throughput loop runs the
+bulk of a run as ``n // span`` launches of the blocked kernel (K2, ``span``
+steps each) and the remainder single-step, as lettuce_tpu's ``_run_mixed``;
+``step_path`` says ``'cuda x<span>'``. Gradient segments (and a state that
+requires grad) scan the span-2 blocked step, whose backward is the blocked
+adjoint (K4), when K4 takes the collision; ``make_step_fn`` stays
+single-step.
+
 ``half_storage=True`` keeps the state of the throughput loop (``__call__``
 and ``rollout``) as bfloat16 deviations g = f - w_q between steps, as
 lettuce_tpu's ``half_storage`` does: encoded once per run, stepped by the
@@ -59,9 +68,10 @@ from torch.utils.checkpoint import checkpoint
 
 from .ops.collision import Collision
 from .ops.cuda import adjoint
-from .ops.cuda.fused_step import fused_step
+from .ops.cuda.fused_step import fused_multi_step, fused_step
 from .ops.cuda.hybrid_outlets import build_hybrid_fixup, nsm_outside_regions
-from .ops.cuda.stream_collide import (checked_table, decode_deviations,
+from .ops.cuda.stream_collide import (build_fused_multi_step,
+                                      checked_table, decode_deviations,
                                       encode_deviations, gate_fused_params,
                                       kernel_refusals, load_libraries,
                                       stream_collide)
@@ -132,6 +142,8 @@ class Simulation:
         self._step_kind = "torch"
         self._fixup = None
         self._half_params = None
+        self._step_multi = None  # (step, span): the blocked kernel (K2)
+        self._half_multi = None  # the same in bfloat16 deviations
         if self.context.use_native and self._native_supported():
             # a build error surfaces here, never later
             load_libraries()
@@ -165,7 +177,9 @@ class Simulation:
         in planes the replay rewrites. ``_buffers`` are the two state
         buffers the throughput loop steps between (out of place); they
         are never handed out. The differentiable step is ``fused_step``
-        with the gate's parameters and the replay."""
+        with the gate's parameters and the replay. ``_step_multi`` is the
+        blocked step when a span is asked for and the grid is periodic
+        (:func:`build_fused_multi_step`)."""
         params, hybrid = gate_fused_params(self)
         self._fixup = None
         if hybrid:
@@ -183,14 +197,17 @@ class Simulation:
         else:
             self._step = partial(fused_step, fixup=self._fixup, **params)
         self._step_kind = "cuda"
+        self._step_multi = build_fused_multi_step(self)
 
     def _use_half_storage(self):
         """Select bfloat16 deviation storage for the throughput loop: the
         gate's parameters for the deviation instances, when the kernel path
         is selected and ``kernel_refusals(..., dev_storage=True)`` is
         empty. Otherwise warn with the reasons, as lettuce_tpu does, and
-        keep full precision."""
+        keep full precision. The blocked step in deviations runs when the
+        full-precision one does (``_half_multi``)."""
         self._half_params = None
+        self._half_multi = None
         if self._step_kind != "cuda":
             reasons = [f"the {self._step_kind} step runs, not the CUDA "
                        f"kernel"]
@@ -202,6 +219,8 @@ class Simulation:
                           f"running at full precision.")
             return
         self._half_params = gate_fused_params(self, dev_storage=True)[0]
+        if self._step_multi is not None:
+            self._half_multi = build_fused_multi_step(self, dev_storage=True)
 
     def _encode(self, f: torch.Tensor) -> torch.Tensor:
         return encode_deviations(f, self.flow.stencil.w)
@@ -209,14 +228,22 @@ class Simulation:
     def _decode(self, g: torch.Tensor) -> torch.Tensor:
         return decode_deviations(g, self.flow.stencil.w, self.context.dtype)
 
+    @staticmethod
+    def _spans(n: int, multi) -> list:
+        """The steps of each launch of an ``n``-step run: ``n // span``
+        blocked launches of ``multi`` (``(step, span)`` or None), then
+        the remainder one step each (lettuce_tpu's ``_run_mixed``)."""
+        span = 1 if multi is None else multi[1]
+        return [span] * (n // span) + [1] * (n % span)
+
     def _run_half(self, g: torch.Tensor, n: int) -> torch.Tensor:
-        """``n`` steps of the deviations ``g``, one deviation-instance
-        launch each, between the simulation's two buffers."""
-        for _ in range(n):
+        """``n`` steps of the deviations ``g`` between the simulation's two
+        buffers: the blocked bulk and the single-step remainder."""
+        for n_sub in self._spans(n, self._half_multi):
             out = self._buffer(0, g)
             if out.data_ptr() == g.data_ptr():
                 out = self._buffer(1, g)
-            g = stream_collide(g, out=out, **self._half_params)
+            g = stream_collide(g, out=out, n_sub=n_sub, **self._half_params)
         return g
 
     def _half_run_of(self, f: torch.Tensor) -> bool:
@@ -252,8 +279,10 @@ class Simulation:
         """``n`` steps from ``f``. The kernel path outside autograd steps
         between the simulation's two buffers, and its last step writes a
         fresh tensor, so neither ``f`` nor any tensor returned earlier is
-        written. Under half storage ``f`` is encoded once, stepped in
-        deviations and decoded once into a fresh tensor."""
+        written. The bulk runs blocked when ``_step_multi`` is set. Under
+        half storage ``f`` is encoded once, stepped in deviations and
+        decoded once into a fresh tensor. A state that requires grad runs
+        the gradient segment's route (:meth:`make_segment_fn`)."""
         if self._half_run_of(f):
             return self._decode(self._run_half(self._encode(f), n))
         if self._step_kind != "cuda":
@@ -261,12 +290,15 @@ class Simulation:
                 f = self._step(f)
             return f
         if f.requires_grad and torch.is_grad_enabled():
-            for _ in range(n):
-                f = self._step(f)
-            return f
-        for i in range(n):
-            f = self._cuda_step(f, None if i == n - 1
-                                else self._buffer(i % 2, f))
+            return self.make_segment_fn(n)(f)
+        spans = self._spans(n, self._step_multi)
+        for i, n_sub in enumerate(spans):
+            out = None if i == len(spans) - 1 else self._buffer(i % 2, f)
+            if n_sub == 1:
+                f = self._cuda_step(f, out)
+            else:
+                f = stream_collide(f, out=out, n_sub=n_sub,
+                                   **self._kernel_params)
         return f
 
     def make_step_fn(self):
@@ -289,24 +321,36 @@ class Simulation:
         recomputes each chunk's forward, so residual memory drops from
         O(num_steps) to O(num_steps / k + k) at about twice the forward
         cost. The remainder steps run plainly. Pick k ~ sqrt(num_steps).
-        """
-        step = self._step
-        num_steps = int(num_steps)
 
-        def run(f, n):
+        With temporal blocking engaged (``LETTUCE_NSUB``) and a collision
+        the blocked adjoint (K4) takes, the bulk runs as span-2 launches of
+        the blocked step (K2 forward, K4 backward; lettuce_tpu's segments
+        peak at span 2, its simulation.py:341-347) in chunks of
+        ``k // 2`` launches, and the remainder single-step.
+        """
+        single = self._step
+        step, span = single, 1
+        multi = self._step_multi
+        if multi is not None and multi[0].adjoint_kernel:
+            step, span = partial(fused_multi_step, n_sub=2,
+                                 **self._kernel_params), 2
+        num_steps = int(num_steps)
+        n_launches, rem = divmod(num_steps, span)
+
+        def run(f, n, fn=step):
             for _ in range(n):
-                f = step(f)
+                f = fn(f)
             return f
 
         if checkpoint_every is None:
-            return lambda f: run(f, num_steps)
-        k = max(1, int(checkpoint_every))
-        n_chunks, rem = divmod(num_steps, k)
+            return lambda f: run(run(f, n_launches), rem, single)
+        k = max(1, int(checkpoint_every) // span)
+        n_chunks, n_rest = divmod(n_launches, k)
 
         def segment(f):
             for _ in range(n_chunks):
                 f = checkpoint(run, f, k, use_reentrant=False)
-            return run(f, rem)
+            return run(run(f, n_rest), rem, single)
 
         return segment
 
@@ -336,10 +380,15 @@ class Simulation:
     @property
     def step_path(self) -> str:
         """The selected step path: ``'cuda x1'`` (fused kernel, one step
-        per launch), ``'cuda+hybrid x1'`` (the kernel, then the outlets'
-        window replay) or ``'torch x1'`` (plain tensor step)."""
+        per launch), ``'cuda x<span>'`` (the blocked kernel, ``span`` steps
+        per launch, under half storage the deviations' span),
+        ``'cuda+hybrid x1'`` (the kernel, then the outlets' window replay)
+        or ``'torch x1'`` (plain tensor step)."""
         hybrid = "+hybrid" if self._fixup is not None else ""
-        return f"{self._step_kind}{hybrid} x1"
+        multi = (self._half_multi if self._half_params is not None
+                 else self._step_multi)
+        span = 1 if multi is None else multi[1]
+        return f"{self._step_kind}{hybrid} x{span}"
 
     def _report(self):
         for reporter in self.reporter:

@@ -258,7 +258,7 @@ def test_flow_registry_and_checks():
     _, tflow = boundary_flow_pair("float64", [8, 8], "D2Q9")
     with pytest.raises(ValueError, match="direction"):
         ltt.AntiBounceBackOutlet([1, 1], tflow)
-    obstacle = ltt.Obstacle(ltt.Context(), [8, 6], 100, 0.1, 8.0)
+    obstacle = ltt.Obstacle(ltt.Context(device="cpu"), [8, 6], 100, 0.1, 8.0)
     with pytest.raises(ValueError, match="mask shape"):
         obstacle.mask = np.zeros((6, 8), dtype=bool)
     obstacle.mask = torch.ones((8, 6), dtype=torch.bool)

@@ -189,7 +189,8 @@ def test_masked_adjoint_matches_vjp_of_jnp_step(stencil_name, shape):
                 pkg.EquilibriumBoundaryPU(ctx, wall, velocity)]
 
     jctx = lt.Context(dtype=jnp.float64, use_native=False)
-    tctx = ltt.Context(dtype=torch.float64, use_native=False)
+    tctx = ltt.Context(device="cpu", dtype=torch.float64,
+                       use_native=False)
     jflow = TestFlow(jctx, list(shape), stencil=getattr(lt, stencil_name)())
     tflow = TorchTestFlow(tctx, list(shape),
                           stencil=getattr(ltt, stencil_name)())

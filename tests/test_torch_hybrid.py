@@ -83,7 +83,8 @@ def obstacle(pkg, ctx, boundaries=_inlet_outlet_bb, resolution=(32, 128)):
 
 def pair(make, dtype=("float64", jnp.float64, torch.float64)):
     jflow = make(lt, lt.Context(dtype=dtype[1], use_native=False))
-    tflow = make(ltt, ltt.Context(dtype=dtype[2], use_native=False))
+    tflow = make(ltt, ltt.Context(device="cpu", dtype=dtype[2],
+                                  use_native=False))
     hand_state(jflow, tflow, noisy_state(jflow.f, seed=61, scale=1e-4))
     tau = float(jflow.units.relaxation_parameter_lu)
     jsim = lt.Simulation(jflow, lt.BGKCollision(tau), [])

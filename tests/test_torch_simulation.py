@@ -62,6 +62,17 @@ def test_cuda_context_raises_without_card():
         ltt.Context(device="cuda:0", dtype=torch.float64)
 
 
+def test_default_context_is_the_card_and_raises_without_one(monkeypatch):
+    # Context() takes the current CUDA device, as lettuce_tpu's takes the
+    # accelerator; it never falls back to the CPU
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        ltt.Context()
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        ltt.Context(dtype=torch.float64, use_native=False)
+    assert ltt.Context(device="cpu").device == torch.device("cpu")
+
+
 def test_reporters_match():
     def reporters(jflow, tflow):
         jout, tout = [], []
