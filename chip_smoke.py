@@ -805,12 +805,10 @@ def phase9_masked_kernels_vs_plain():
     return worst_fwd, worst_emit, worst_adjoint
 
 
-def obstacle_simulation(use_native, nx=2048, ny=1024, outlet=None,
-                        make_collision=None):
+def obstacle_flow(context, nx=2048, ny=1024, outlet=None):
     """``obstacle2d_2048`` of benchmarks/run_benchmarks.py:76-88,136 on
-    the card: a cylinder in a 2048x1024 D2Q9 float32 channel. ``outlet``
-    (a boundary class name) replaces its anti-bounce-back outlet,
-    ``make_collision(flow)`` its BGK collision."""
+    the card: a cylinder in a 2048x1024 D2Q9 channel. ``outlet`` (a
+    boundary class name) replaces its anti-bounce-back outlet."""
     import lettuce_tpu_torch as lt
 
     class Channel(lt.Obstacle):
@@ -821,14 +819,23 @@ def obstacle_simulation(use_native, nx=2048, ny=1024, outlet=None,
                 abb = getattr(lt, outlet)([1, 0], self)
             return [inlet, abb, cylinder]
 
-    context = lt.Context(device="cuda", dtype=torch.float32,
-                         use_native=use_native)
     flow = Channel(context, [nx, ny], reynolds_number=100, mach_number=0.1,
                    domain_length_x=float(nx))
     x, y = flow.grid
     r = 0.05 * ny
     flow.mask = (x - 0.25 * nx) ** 2 + (y - 0.5 * ny) ** 2 < r ** 2
     flow.initialize()
+    return flow
+
+
+def obstacle_simulation(use_native, nx=2048, ny=1024, outlet=None,
+                        make_collision=None):
+    """The obstacle flow (:func:`obstacle_flow`) in float32 on the card;
+    ``make_collision(flow)`` replaces its BGK collision."""
+    import lettuce_tpu_torch as lt
+    context = lt.Context(device="cuda", dtype=torch.float32,
+                         use_native=use_native)
+    flow = obstacle_flow(context, nx, ny, outlet)
     if make_collision is None:
         return lt.Simulation(
             flow, lt.BGKCollision(tau=flow.units.relaxation_parameter_lu),
@@ -1100,6 +1107,40 @@ def phase11_cavity(card):
     del lockstep, plain_sim
 
     reset_launch_counts()
+    gate = cavity_gate(simulation)
+    steps = gate["steps"]
+    launched = masked_launch_counts()
+    check(launched == (steps, 0, 0) and launch_counts() == (0, 0, 0),
+          f"cavity launches {launched} for {steps} steps")
+    print(f"phase 11: cavity 256^2 Re 100 Ma 0.05 float32, "
+          f"{simulation.step_path}: {steps} steps "
+          f"({'converged' if gate['change'] < 1e-4 else 'not converged'}, "
+          f"last change {gate['change']:.2e}) in {gate['seconds']:.2f} s, "
+          f"{gate['mlups']:.1f} MLUPS; max deviation from Ghia "
+          f"{gate['dev']:.5f}, rms {gate['rms']:.5f} (gate {GHIA_GATE}) "
+          f"({card})")
+    check(gate["dev"] < GHIA_GATE, f"cavity deviation {gate['dev']} from "
+                                   f"Ghia")
+    # and once more on the converged state, where the flow fills the box
+    err_converged = masked_vs_plain(flow.f, params)
+    print(f"phase 11: masked kernel vs plain on the converged state: "
+          f"{err_converged:.3e} (atol 5e-6)")
+    check(err_converged <= ATOL[torch.float32],
+          f"converged cavity masked kernel vs plain: {err_converged}")
+    del simulation, flow
+    torch.cuda.empty_cache()
+    return max(err_noise, err_steps, err_converged), gate["dev"]
+
+
+def cavity_gate(simulation):
+    """Run the cavity in chunks of 5000 steps until the velocity field
+    changes by less than 1e-4 (at most 200,000 steps); the centreline's
+    deviation from Ghia et al. (1982) Table I, with the walls half a link
+    outside their node rows and the lid on the top row
+    (benchmarks/validate_cavity.py). Returns the steps, the last change,
+    the seconds, MLUPS and the max and rms deviation."""
+    flow = simulation.flow
+    n = flow.resolution[0]
     steps, chunk, max_steps = 0, 5000, 200_000
     prev, change = None, float("inf")
     beg = time.perf_counter()
@@ -1115,34 +1156,15 @@ def phase11_cavity(card):
         prev = u
     torch.cuda.synchronize()
     seconds = time.perf_counter() - beg
-    launched = masked_launch_counts()
-    check(launched == (steps, 0, 0) and launch_counts() == (0, 0, 0),
-          f"cavity launches {launched} for {steps} steps")
     check(bool(torch.isfinite(flow.f).all()), "cavity state not finite")
-    # the centreline profile, with the walls half a link outside their
-    # node rows and the lid on the top row (validate_cavity.py)
     u_np = u.cpu().numpy()
     u_lid = float(flow.units.characteristic_velocity_lu)
     y_nodes = (np.arange(n) - 0.5) / (n - 1.5)
     ux_center = (u_np[0][n // 2 - 1, :] + u_np[0][n // 2, :]) / 2 / u_lid
     dev = np.abs(np.interp(GHIA_Y, y_nodes, ux_center) - GHIA_U)
-    print(f"phase 11: cavity 256^2 Re 100 Ma 0.05 float32, "
-          f"{simulation.step_path}: {steps} steps "
-          f"({'converged' if change < 1e-4 else 'not converged'}, last "
-          f"change {change:.2e}) in {seconds:.2f} s, "
-          f"{steps * n * n / seconds / 1e6:.1f} MLUPS; max deviation from "
-          f"Ghia {dev.max():.5f}, rms {np.sqrt((dev ** 2).mean()):.5f} "
-          f"(gate {GHIA_GATE}) ({card})")
-    check(dev.max() < GHIA_GATE, f"cavity deviation {dev.max()} from Ghia")
-    # and once more on the converged state, where the flow fills the box
-    err_converged = masked_vs_plain(flow.f, params)
-    print(f"phase 11: masked kernel vs plain on the converged state: "
-          f"{err_converged:.3e} (atol 5e-6)")
-    check(err_converged <= ATOL[torch.float32],
-          f"converged cavity masked kernel vs plain: {err_converged}")
-    del simulation, flow
-    torch.cuda.empty_cache()
-    return max(err_noise, err_steps, err_converged)
+    return dict(steps=steps, change=change, seconds=seconds,
+                mlups=steps * n * n / seconds / 1e6, dev=float(dev.max()),
+                rms=float(np.sqrt((dev ** 2).mean())))
 
 
 def profiled_device_ms(fn):
@@ -3106,6 +3128,440 @@ def phase28_blocked_gradient(card, saxpy_gbps, single_mlups):
                 pair_ms=(b_a + b_b) / 4, single_pair_ms=(s_a + s_b) / 4)
 
 
+# ----------------------------------------------------------------------
+# temporal blocking of bounded flows: K2's masked form and the outlets'
+# n_sub window replay
+# ----------------------------------------------------------------------
+# the masked sweep of the TPU kernel: _multi_sweep with the code, field and
+# frozen-population slabs (stream_collide.py:1299-1367)
+MULTI_MASKED_REPLACES = "lettuce_tpu/ops/pallas/stream_collide.py:1299"
+
+
+def multi_kernel_k1_equal(x, got, span, args, masks, spec):
+    """max |K2 - span launches of K1| (the single-step kernel, same masks)
+    from ``x``."""
+    import lettuce_tpu_torch.ops.cuda.stream_collide as sc
+    y = x
+    for _ in range(span):
+        y = sc.stream_collide(y, *args, **masks, collision_spec=spec)
+    torch.cuda.synchronize()
+    return (got - y).abs().max().item()
+
+
+def phase29_masked_multi_instances_vs_plain():
+    """Every masked K2 instance (BGK and every K1c fragment, in float32,
+    float64, bfloat16 and float16 state and bfloat16 deviations) against
+    its plain version at the grids of phase 2, at n_sub 2, 3 and 4, with
+    phase 9's codes (bounce back, a constant and a per-node equilibrium,
+    identity): two launches each, the first with phase 9's frozen
+    populations (a frozen plane, the odd populations on another), the
+    second without (the launch the bounded cells run), from the plain
+    state of the first; float32 and float64 to ATOL and against n_sub
+    masked single-step launches (K1), bitwise counted; 16 bits within one
+    storage ulp (deviations plus n_sub times the floor); launches
+    counted. Then, in every storage at span 2, the masked launch with
+    every code "collide" and nothing frozen bitwise equal to the periodic
+    launch: the mask pipeline adds no arithmetic to a colliding cell; and
+    in float32 and float64 the single-step masked kernel (K1b) with every
+    code "collide" against the periodic one (K1a), whose rounding can
+    differ where nvcc contracts a policy's products differently in the
+    two kernels."""
+    import lettuce_tpu_torch as lt
+    import lettuce_tpu_torch.ops.cuda.stream_collide as sc
+    worst = {}
+    seed = 2900
+    count = bitwise = compared = identical = 0
+    differing, k1_rounding = [], {}
+    for stencil, shape in phase2_cases():
+        name = type(stencil).__name__
+        context = lt.Context(device="cuda", dtype=torch.float64,
+                             use_native=False)
+        flow = lt.TaylorGreenVortex(context, list(shape), 1600, 0.05,
+                                    stencil=stencil, initialize_fneq=False)
+        collisions = {"bgk": lt.BGKCollision(FRAGMENT_TAU),
+                      **fragment_collisions(flow, FRAGMENT_TAU)}
+        for fragment, collision in collisions.items():
+            spec = fragment_spec(flow, collision)
+            args = (stencil.e, stencil.w, stencil.opposite, stencil.cs,
+                    spec[1] if fragment == "bgk" else None)
+            line = []
+            for suffix, (dtype, dev) in MULTI_STORAGES.items():
+                if dev and fragment in sc.DEV_REFUSED:
+                    continue
+                wide = torch.float64 if suffix == "f64" else torch.float32
+                readings = []
+                for span in (2, 3, 4):
+                    seed += 1
+                    f, _ = tgv_state(stencil, shape, wide, seed,
+                                     1e-5 if fragment == "kbc" else 1e-3)
+                    masks = bounded_case(stencil, shape, wide, seed)[1]
+                    if suffix in HALF_STORAGES:
+                        masks["feq_field"] = storage_state(
+                            masks["feq_field"], stencil.w, suffix)
+                        x = storage_state(f, stencil.w, suffix)
+                    else:
+                        x = f
+                    key = f"masked_{fragment}_{suffix}_x{span}"
+                    before = multi_launches().get(key, 0)
+                    floor = span * (KBC_DEV_FLOOR if fragment == "kbc"
+                                    else DEV_FLOOR)
+                    for launch in (1, 2):
+                        run_masks = dict(masks, nsm=None) if launch == 2 \
+                            else masks
+                        got = sc.stream_collide(x, *args, **run_masks,
+                                                collision_spec=spec,
+                                                dev_storage=dev, n_sub=span)
+                        ref = sc.stream_collide_plain(
+                            x, *args, **run_masks, collision_spec=spec,
+                            dev_storage=dev, n_sub=span)
+                        torch.cuda.synchronize()
+                        what = f"{key} {name} launch {launch}"
+                        check(got.dtype == x.dtype, f"{what}: {got.dtype}")
+                        if suffix in ("f32", "f64"):
+                            err = (got - ref).abs().max().item()
+                            check(bool(torch.isfinite(got).all()),
+                                  f"{what}: not finite")
+                            check(err <= ATOL[dtype], f"{what}: max |kernel"
+                                                      f" - plain| {err}")
+                            err_k1 = multi_kernel_k1_equal(
+                                x, got, span, args, run_masks, spec)
+                            check(err_k1 <= ATOL[dtype],
+                                  f"{what}: max |K2 - {span} K1| {err_k1}")
+                            compared += 1
+                            bitwise += err_k1 == 0.0
+                            if err_k1 != 0.0:
+                                differing.append(f"{fragment} {name} "
+                                                 f"{suffix}")
+                            reading = f"{err:.1e}/K1 {err_k1:.0e}"
+                        else:
+                            ulps, _, err = check_storage(got, ref, suffix,
+                                                         what, floor)
+                            reading = f"{ulps:.1f}"
+                        readings.append(reading)
+                        was = worst.get(f"{fragment}_{suffix}", 0.0)
+                        worst[f"{fragment}_{suffix}"] = max(was, err)
+                        x = ref
+                    launched = multi_launches().get(key, 0) - before
+                    check(launched == 2, f"{key} {name}: {launched} launches "
+                                         f"for 2")
+                    count += 1
+                line.append(f"{suffix} {' '.join(readings[::2])}")
+                collide_only = dict(ncm=torch.zeros_like(masks["ncm"]),
+                                    table=(("collide", None),))
+                periodic = sc.stream_collide(x, *args, collision_spec=spec,
+                                             dev_storage=dev, n_sub=2)
+                masked0 = sc.stream_collide(x, *args, **collide_only,
+                                            collision_spec=spec,
+                                            dev_storage=dev, n_sub=2)
+                check(torch.equal(periodic, masked0),
+                      f"masked_{fragment}_{suffix}_x2 {name}: an all-collide "
+                      f"masked launch differs from the periodic one")
+                identical += 1
+                if suffix in ("f32", "f64"):
+                    k1a = sc.stream_collide(x, *args, collision_spec=spec)
+                    k1b = sc.stream_collide(x, *args, **collide_only,
+                                            collision_spec=spec)
+                    if not torch.equal(k1a, k1b):
+                        k1_rounding[f"{fragment} {name} {suffix}"] = \
+                            (k1a - k1b).abs().max().item()
+            print(f"phase 29: masked {fragment} {name} "
+                  f"{'x'.join(map(str, shape))} (frozen launch at n_sub "
+                  f"2/3/4; f32/f64 max |err| and against n_sub K1, 16-bit "
+                  f"ulps): " + "; ".join(line))
+    print(f"phase 29: {count} masked instance-spans of 2 launches each, "
+          f"every one within its bound; {bitwise} of {compared} float32 and "
+          f"float64 launches bitwise equal to n_sub masked K1 launches (not: "
+          f"{', '.join(sorted(set(differing))) or 'none'}); {identical} "
+          f"instances' all-collide masked launch bitwise equal to their "
+          f"periodic one; all-collide K1b vs K1a not bitwise: "
+          + (", ".join(f"{k} {v:.1e}" for k, v in sorted(k1_rounding.items()))
+             or "none"))
+    return worst
+
+
+def bounded_cells():
+    """The 2D bounded cells of benchmarks/run_benchmarks.py:127-142, uncut,
+    float32: (name, fragment, flow factory, collision factory)."""
+    import lettuce_tpu_torch as lt
+
+    def tau(flow):
+        return flow.units.relaxation_parameter_lu
+
+    def bgk(flow):
+        return lt.BGKCollision(tau(flow))
+
+    def guo(flow):
+        acc = flow.units.convert_acceleration_to_lu(flow.acceleration)
+        return lt.BGKCollision(tau(flow), force=lt.Guo(flow, tau(flow), acc))
+
+    return [
+        ("obstacle2d_2048", "bgk", obstacle_flow, bgk),
+        ("poiseuille2d_2048_guo", "bgk_force",
+         lambda context: lt.PoiseuilleFlow2D(context, 2048, 100, 0.05), guo),
+        ("couette2d_2048", "bgk",
+         lambda context: lt.CouetteFlow2D(context, 2048, 10, 0.05), bgk),
+        ("cavity2d_2048", "bgk",
+         lambda context: lt.Cavity2D(context, 2048, 1000, 0.05), bgk),
+    ]
+
+
+def bounded_simulation(make_flow, make_collision, span, half=False):
+    """A bounded cell's Simulation on the card at ``span`` (1: the
+    single-step path)."""
+    import lettuce_tpu_torch as lt
+    with_span(span if span > 1 else None)
+    flow = make_flow(lt.Context(device="cuda", dtype=torch.float32,
+                                use_native=True))
+    simulation = lt.Simulation(flow, make_collision(flow), [],
+                               half_storage=half)
+    with_span(None)
+    return simulation
+
+
+def masked_multi_timing(simulation, span, half):
+    """The blocked launch at the simulation's own state against its plain
+    version, and by CUDA events in turns: plain, K1, K2, K2, K1, plain (K1
+    the single-step masked kernel); the replay per blocked launch. Returns
+    a dict of per-launch ms and the error."""
+    import lettuce_tpu_torch.ops.cuda.stream_collide as sc
+    step = (simulation._half_multi if half else simulation._step_multi)[0]
+    params = step.params
+    single = simulation._half_params if half else simulation._kernel_params
+    x = (simulation._encode(simulation.flow.f) if half
+         else simulation.flow.f.clone())
+    out = torch.empty_like(x)
+    ref = sc.stream_collide_plain(x, **params, n_sub=span)
+    got = sc.stream_collide(x, **params, out=out, n_sub=span)
+    torch.cuda.synchronize()
+    if half:
+        _, _, err = check_storage(got, ref, "bf16_dev", f"masked K2 x{span}",
+                                  span * DEV_FLOOR)
+    else:
+        err = (got - ref).abs().max().item()
+        check(err <= ATOL[torch.float32], f"masked K2 x{span} vs plain: "
+                                          f"{err}")
+    del ref
+    buffers = [x, out]
+
+    def launch(n_sub):
+        sc.stream_collide(buffers[0], **(params if n_sub > 1 else single),
+                          out=buffers[1], n_sub=n_sub)
+        buffers.reverse()
+
+    def plain():
+        sc.stream_collide_plain(x, **params, n_sub=span)
+
+    launch(span)
+    launch(1)
+    plain()
+    plain_a = cuda_ms(plain, 2)
+    k1_a = cuda_ms(lambda: launch(1), 200)
+    k2_a = cuda_ms(lambda: launch(span), 200 // span)
+    k2_b = cuda_ms(lambda: launch(span), 200 // span)
+    k1_b = cuda_ms(lambda: launch(1), 200)
+    plain_b = cuda_ms(plain, 2)
+    replay_ms = None
+    if step.fixup is not None:
+        f, g = simulation.flow.f, torch.empty_like(simulation.flow.f)
+        step.fixup(f, g)
+        replay_ms = cuda_ms(lambda: step.fixup(f, g), 20)
+    return dict(ms=(k2_a + k2_b) / 2, k1_ms=(k1_a + k1_b) / 2,
+                plain_ms=(plain_a + plain_b) / 2, err=err, replay_ms=replay_ms,
+                turns=(plain_a, k1_a, k2_a, k2_b, k1_b, plain_b))
+
+
+def masked_bytes(simulation, params):
+    """Bytes per cell a masked launch must move once: q populations in and
+    out, the 1-byte code, q bytes of the no-streaming mask and q values of
+    the per-node field when present."""
+    q = simulation.flow.stencil.q
+    s = 2 if params.get("dev_storage") else simulation.flow.f.element_size()
+    return (2 * q * s + 1 + (q if params["nsm"] is not None else 0)
+            + (q * s if params["feq_field"] is not None else 0))
+
+
+def phase30_blocked_bounded_cells(card, saxpy_gbps):
+    """The four 2D bounded cells at full size under LETTUCE_NSUB=2 and 4
+    against the same run's single-step path: step_path, the state after 8
+    steps against the x1 path's (5e-6; the replay recomputes the planes
+    owned +- n_sub in torch), 20 + 100 steps with 100 / span masked K2
+    launches and no single-step one, finite, mass drift, MLUPS; the masked
+    K2 per launch and per step by CUDA events in turns with the
+    single-step masked kernel and the plain version, beside its bound; the
+    replay per blocked launch (the obstacle). Then Couette and the cavity
+    under half storage at span 2."""
+    import lettuce_tpu_torch.ops.cuda.stream_collide as sc
+    runs = {}
+    for cell, fragment, make_flow, make_collision in bounded_cells():
+        ref8 = bounded_simulation(make_flow, make_collision, 1)
+        ref8(8)
+        x1_mlups = None
+        for span in (1, 2, 4):
+            simulation = bounded_simulation(make_flow, make_collision, span)
+            flow = simulation.flow
+            hybrid = "+hybrid" if simulation._fixup is not None else ""
+            check(simulation.step_path == f"cuda{hybrid} x{span}",
+                  f"{cell} at span {span}: {simulation.step_path}")
+            simulation(8)
+            err8 = (flow.f - ref8.flow.f).abs().max().item()
+            check(err8 <= ATOL[torch.float32],
+                  f"{cell} x{span}: 8 steps vs x1 {err8}")
+            mass0 = torch.sum(flow.f, dtype=torch.float64).item()
+            reset_launch_counts()
+            simulation(20)
+            mlups = simulation(100)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(flow.f).all()), f"{cell} x{span}: "
+                                                      f"not finite")
+            drift = abs(torch.sum(flow.f, dtype=torch.float64).item()
+                        - mass0) / mass0
+            single = dict(fragment_launches())
+            if fragment == "bgk" and masked_launch_counts()[0]:
+                single["masked_bgk"] = masked_launch_counts()[0]
+            blocked = multi_launches()
+            if span == 1:
+                x1_mlups = mlups
+                check(single == {f"masked_{fragment}": 120} and not blocked,
+                      f"{cell} x1: launches {single}, {blocked}")
+                print(f"phase 30: {cell} {simulation.step_path}: "
+                      f"{mlups:.1f} MLUPS, 120 masked K1 launches for 120 "
+                      f"steps, mass drift {drift:.2e} ({card})")
+                del simulation, flow
+                torch.cuda.empty_cache()
+                continue
+            key = f"masked_{fragment}_f32_x{span}"
+            check(blocked == {key: 120 // span} and not single
+                  and launch_counts() == (0, 0, 0),
+                  f"{cell} x{span}: launches {blocked}, single-step "
+                  f"{single}")
+            timing = masked_multi_timing(simulation, span, False)
+            params = simulation._step_multi[0].params
+            nbytes = masked_bytes(simulation, params)
+            cells = flow.f[0].numel()
+            bound_ms = bound(cells, nbytes, span * flow.stencil.q
+                             * OPS_PER_POPULATION[fragment])[0]
+            t = timing["turns"]
+            replay = ("" if timing["replay_ms"] is None else
+                      f"; replay {timing['replay_ms']:.4f} ms per blocked "
+                      f"launch")
+            print(f"phase 30: {cell} {simulation.step_path}: {mlups:.1f} "
+                  f"MLUPS ({mlups / x1_mlups:.2f}x the x1 run's "
+                  f"{x1_mlups:.1f}), {blocked[key]} masked K2 launches for "
+                  f"120 steps ({1 / span:.2f} per step), mass drift "
+                  f"{drift:.2e}, 8 steps vs x1 {err8:.3e}; CUDA events in "
+                  f"turns: masked K2 {t[2]:.4f} / {t[3]:.4f} ms per launch "
+                  f"({timing['ms'] / span:.4f} ms per step, bound "
+                  f"{bound_ms:.4f} ms per launch at {nbytes} B per cell), "
+                  f"masked K1 {t[1]:.4f} / {t[4]:.4f} ms per step, plain "
+                  f"x{span} {t[0]:.2f} / {t[5]:.2f} ms; max |K2 - plain| "
+                  f"{timing['err']:.3e}{replay} ({card})")
+            runs[f"{key}[{cell}]"] = dict(
+                timing, mlups=mlups, x1_mlups=x1_mlups, launches=blocked[key],
+                span=span, suffix="f32", cells=cells, bytes=nbytes,
+                fragment=fragment, q=flow.stencil.q, cell=cell, drift=drift,
+                err8=err8)
+            del simulation, flow
+            torch.cuda.empty_cache()
+        del ref8
+        torch.cuda.empty_cache()
+
+    # Couette and the cavity under half storage at span 2
+    for cell, fragment, make_flow, make_collision in bounded_cells()[2:]:
+        simulation = bounded_simulation(make_flow, make_collision, 2,
+                                        half=True)
+        flow = simulation.flow
+        check(simulation.step_path == "cuda x2"
+              and simulation.half_storage_engaged,
+              f"{cell} half at span 2: {simulation.step_path}")
+        mass0 = torch.sum(flow.f, dtype=torch.float64).item()
+        reset_launch_counts()
+        simulation(20)
+        mlups = simulation(100)
+        torch.cuda.synchronize()
+        key = f"masked_{fragment}_bf16_dev_x2"
+        blocked = multi_launches()
+        check(blocked == {key: 60} and not half_launches(),
+              f"{cell} half x2: launches {blocked}, {half_launches()}")
+        check(bool(torch.isfinite(flow.f).all()), f"{cell} half: not finite")
+        drift = abs(torch.sum(flow.f, dtype=torch.float64).item()
+                    - mass0) / mass0
+        check(drift < 1e-4, f"{cell} half x2: mass drift {drift}")
+        timing = masked_multi_timing(simulation, 2, True)
+        params = simulation._half_multi[0].params
+        nbytes = masked_bytes(simulation, params)
+        cells = flow.f[0].numel()
+        t = timing["turns"]
+        print(f"phase 30: {cell} half storage {simulation.step_path}: "
+              f"{mlups:.1f} MLUPS, {blocked[key]} masked bf16-dev K2 "
+              f"launches for 120 steps, mass drift {drift:.2e}; CUDA events "
+              f"in turns: masked K2 {t[2]:.4f} / {t[3]:.4f} ms per launch, "
+              f"masked K1e {t[1]:.4f} / {t[4]:.4f} ms per step, plain x2 "
+              f"{t[0]:.2f} / {t[5]:.2f} ms; max |K2 - plain| "
+              f"{timing['err']:.3e} ({card})")
+        runs[f"{key}[{cell}]"] = dict(
+            timing, mlups=mlups, launches=blocked[key], span=2,
+            suffix="bf16_dev", cells=cells, bytes=nbytes, fragment=fragment,
+            q=flow.stencil.q, cell=cell, drift=drift)
+        del simulation, flow
+        torch.cuda.empty_cache()
+    return runs
+
+
+def phase31_cavity_gate_blocked(card, x1_deviation):
+    """Phase 11's Ghia cavity gate (256^2, Re 100, Ma 0.05, float32) at
+    LETTUCE_NSUB=2: the masked blocked kernel steps it to the same gate,
+    its deviation printed beside the single-step run's."""
+    with_span(2)
+    simulation = cavity_simulation(True)
+    with_span(None)
+    check(simulation.step_path == "cuda x2",
+          f"blocked cavity runs {simulation.step_path!r}")
+    reset_launch_counts()
+    gate = cavity_gate(simulation)
+    launched = multi_launches()
+    check(launched == {"masked_bgk_f32_x2": gate["steps"] // 2}
+          and masked_launch_counts() == (0, 0, 0),
+          f"blocked cavity launches {launched} for {gate['steps']} steps")
+    print(f"phase 31: cavity 256^2 Re 100 Ma 0.05 float32, "
+          f"{simulation.step_path}: {gate['steps']} steps in "
+          f"{launched['masked_bgk_f32_x2']} masked K2 launches "
+          f"({'converged' if gate['change'] < 1e-4 else 'not converged'}, "
+          f"last change {gate['change']:.2e}) in {gate['seconds']:.2f} s, "
+          f"{gate['mlups']:.1f} MLUPS; max deviation from Ghia "
+          f"{gate['dev']:.5f} (x1: {x1_deviation:.5f}), rms "
+          f"{gate['rms']:.5f} (gate {GHIA_GATE}) ({card})")
+    check(gate["dev"] < GHIA_GATE, f"blocked cavity deviation {gate['dev']}")
+    del simulation
+    torch.cuda.empty_cache()
+    return gate
+
+
+def masked_multi_entries(worst_masked_multi, bounded):
+    """The kernels-line entries of K2 masked: one per bounded cell and
+    span (float32 x2 and x4, bf16-dev x2 for Couette and the cavity), with
+    the bound of its bytes per cell; max_abs_err also covers phase 29's
+    runs of the instance."""
+    import lettuce_tpu_torch.ops.cuda.stream_collide as sc
+    entries = []
+    for name, run in sorted(bounded.items()):
+        fragment = run["fragment"]
+        source = ("stream_collide" if fragment == "bgk"
+                  else sc.FRAGMENTS[fragment][0])
+        entries.append(kernel_entry(
+            f"stream_collide_multi_{name}",
+            f"lettuce_tpu_torch/csrc/{sc.MULTI_SOURCES[source]}.cu",
+            MULTI_MASKED_REPLACES, run["launches"],
+            max(run["err"],
+                worst_masked_multi.get(f"{fragment}_{run['suffix']}", 0.0)),
+            run["ms"], run["plain_ms"], run["cells"], run["bytes"],
+            run["span"] * run["q"] * OPS_PER_POPULATION[fragment],
+            kernel="K2 masked", span=run["span"], cell=run["cell"],
+            ms_per_step=run["ms"] / run["span"],
+            single_step_ms=run["k1_ms"], storage=run["suffix"],
+            replay_ms=run["replay_ms"]))
+    return entries
+
+
 def multi_entries(worst_multi, blocked, gradient):
     """The kernels-line entries of the blocked kernels the main path runs:
     K2 (BGK, float32 and bfloat16 deviations, at span 2 and 4) with its
@@ -3254,7 +3710,7 @@ def main():
     phase8_adam(card)
     worst_masked = phase9_masked_kernels_vs_plain()
     obstacle = phase10_obstacle(card, saxpy_gbps)
-    cavity_err = phase11_cavity(card)
+    cavity_err, cavity_dev = phase11_cavity(card)
     phase12_profile(card)
     worst_fragments = phase13_fragments_vs_plain()
     cells = phase14_fragment_cells(card, saxpy_gbps)
@@ -3273,6 +3729,9 @@ def main():
     blocked = phase27_blocked_main_path(card, saxpy_gbps)
     blocked_gradient = phase28_blocked_gradient(card, saxpy_gbps,
                                                 grad_path["mlups"])
+    worst_masked_multi = phase29_masked_multi_instances_vs_plain()
+    bounded = phase30_blocked_bounded_cells(card, saxpy_gbps)
+    phase31_cavity_gate_blocked(card, cavity_dev)
     print(f"build {build_s:.2f} s; whole run {time.perf_counter() - beg:.1f} "
           f"s")
     print(card)
@@ -3346,6 +3805,7 @@ def main():
             adj["ops"], cell=run["cell"], mode=run["mode"]))
     kernels += half_entries(worst_half, half_main, half_cells, half_state)
     kernels += multi_entries(worst_multi, blocked, blocked_gradient)
+    kernels += masked_multi_entries(worst_masked_multi, bounded)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

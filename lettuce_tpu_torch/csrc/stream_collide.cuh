@@ -9,8 +9,9 @@
 // the C entry's float64 array, and a __device__ collide(p, fv, rho, u, u2,
 // store) that hands the q post-collision values of one cell to the Store.
 // Every policy runs in the periodic kernel (PeriodicStore) and in the
-// masked kernel's collide branch (MaskedStore, with frozen populations);
-// the replacement branch of the masked kernel is the same for all.
+// masked kernel's collide branch (LocalStore, then store_masked with
+// frozen populations); the replacement branch of the masked kernel is the
+// same for all.
 //
 // The emit-u instances (BGK, and through LT_COLLIDE_EMIT_U_ENTRIES the TRT,
 // regularized and folded MRT fragments) also write the pre-collision
@@ -186,9 +187,8 @@ __device__ __forceinline__ void feq_pairs(T rho, T base0,
   });
 }
 
-// Where a post-collision population goes: the periodic push, or the push
-// with frozen populations (nsm == nullptr: nothing frozen), each encoded
-// by the storage St.
+// Where a post-collision population goes: the periodic push, encoded by
+// the storage St.
 template <class S, class St>
 struct PeriodicStore {
   typename St::V* out;
@@ -200,16 +200,31 @@ struct PeriodicStore {
   }
 };
 
-template <class S, class St>
-struct MaskedStore {
-  typename St::V* out;
-  const Neighbours& nb;
-  int64_t cell;
-  const uint8_t* nsm;
+// The masked kernel's populations are first gathered in registers and
+// pushed after the policy has run (store_masked). Pushing each at once
+// would put a branch (the frozen test) between the policy's operations;
+// nvcc contracts products into FMAs within a branch-free stretch of code,
+// so the policy would round differently there than in the periodic and
+// blocked kernels.
+template <class T>
+struct LocalStore {
+  T* values;
 
   template <int q>
-  __device__ __forceinline__ void put(typename St::T value) const {
-    const typename St::V v = encode<St, S, q>(value);
+  __device__ __forceinline__ void put(T value) const {
+    values[q] = value;
+  }
+};
+
+// The push with frozen populations (nsm == nullptr: nothing frozen), each
+// encoded by the storage St.
+template <class S, class St>
+__device__ __forceinline__ void store_masked(
+    const typename St::T (&values)[S::Q], typename St::V* out,
+    const Neighbours& nb, int64_t cell, const uint8_t* nsm) {
+  static_for<S::Q>([&](auto Q_) {
+    constexpr int q = decltype(Q_)::value;
+    const typename St::V v = encode<St, S, q>(values[q]);
     const int64_t dst = shifted_index<S, q, 1>(nb);
     if (nsm == nullptr) {
       out[dst] = v;
@@ -218,8 +233,8 @@ struct MaskedStore {
     const int64_t here = q * nb.n + cell;
     if (nsm[here]) out[here] = v;  // frozen at its own node
     if (!nsm[dst]) out[dst] = v;   // streamed unless frozen there
-  }
-};
+  });
+}
 
 // A boundary cell's replacement, pushed like a collided population. The
 // table's values are in the compute type; the per-node field is stored
@@ -401,13 +416,15 @@ __global__ void __launch_bounds__(kBlock) masked_stream_collide_kernel(
 
   const int code = ncm[cell];
   const int kind = kind_of(table.kind, code);
-  const MaskedStore<S, St> store{out, nb, cell, nsm};
+  T post[S::Q];
+  const LocalStore<T> store{post};
   if (kind == kCollide) {
     C::collide(p, fv, rho, u, u2, store);
   } else {
     const T* values = table.value[code < kMaxCodes ? code : 0];
     replace_push<S, St>(kind, values, fv, feq_field, nb.n, cell, store);
   }
+  store_masked<S, St>(post, out, nb, cell, nsm);
 }
 
 // ---------------------------------------------------------------------------

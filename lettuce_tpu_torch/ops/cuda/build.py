@@ -39,7 +39,7 @@ __all__ = ["SOURCES", "find_nvcc", "library_path", "ptxas_log",
            "launch_dims", "check_out", "KERNEL_STENCILS",
            "KERNEL_STENCIL_NAMES", "DTYPES", "STORAGE", "HALF_DTYPES",
            "storage_suffix", "plan_tile", "TilePlan", "TILE_SMEM_BYTES",
-           "moving_axes"]
+           "moving_axes", "mask_bytes", "tile_stride"]
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 # csrc/<name>.cu, one library each: the BGK step (K1a, K1d, K1b), its
@@ -76,10 +76,12 @@ HALF_DTYPES = (torch.bfloat16, torch.float16)
 _MAX_GRID_YZ = 65535  # CUDA's limit on gridDim.y and gridDim.z
 # the tiles of the blocked kernels (csrc/multi_sweep.cuh): the dynamic
 # shared memory a block may opt into on sm_90 (227 KB); a tile is first
-# sought within half of it (two blocks per SM), then within all of it, and
+# sought within what lets two blocks share an SM (its 228 KB less the 1 KB
+# the runtime reserves per block, halved), then within all of it, and
 # when none fits, in a global scratch of at most _SCRATCH_TILE_BYTES per
 # block with _SCRATCH_BLOCKS blocks looping over the tiles
 TILE_SMEM_BYTES = 232448
+_TWO_BLOCK_TILE_BYTES = (233472 - 2 * 1024) // 2
 _SCRATCH_TILE_BYTES = 4 << 20
 _SCRATCH_BLOCKS = 264
 _MAX_INTERIOR = (32, 32, 128)  # the interior extents a plan considers
@@ -272,17 +274,32 @@ class TilePlan(NamedTuple):
     blocks: int
 
 
+def mask_bytes(q: int, itemsize: int, masked: bool, frozen: bool) -> int:
+    """The bytes per tile cell a masked blocked launch (K2) adds to its q
+    values (csrc/multi_sweep.cuh's TileLayout): the cell's code (1 B), and
+    when populations are frozen their bits (4 B) and a second buffer of q
+    values of ``itemsize`` bytes."""
+    return int(masked) + (4 + q * itemsize if frozen else 0)
+
+
+def tile_stride(nbytes: int) -> int:
+    """A block's share of a blocked launch's global scratch: its tile's
+    bytes rounded up to 16 (csrc/multi_sweep.cuh's tile_stride)."""
+    return -(-int(nbytes) // 16) * 16
+
+
 @functools.lru_cache(maxsize=256)
 def plan_tile(dims: tuple, moving: tuple, halo: int, values_per_cell: int,
-              itemsize: int) -> TilePlan:
+              itemsize: int, extra_bytes: int = 0) -> TilePlan:
     """The tile of a blocked launch over the launch grid ``dims`` (n0, n1,
     n2): ``moving`` says on which axes the stencil moves (those get the
     ``halo``), and each tile cell holds ``values_per_cell`` values of
-    ``itemsize`` bytes. Of the interiors up to 32 x 32 x 128 (and the
-    grid) it takes the one whose interior is the largest share of the
-    tile (then the largest), within half the shared memory, else within
-    all of it, else in a global scratch (csrc/multi_sweep.cuh). Raises
-    ValueError when no tile holds the halo."""
+    ``itemsize`` bytes and ``extra_bytes`` more (:func:`mask_bytes`). Of
+    the interiors up to 32 x 32 x 128 (and the grid) it takes the one
+    whose interior is the largest share of the tile (then the largest),
+    within the shared memory of one of two blocks per SM, else within all
+    a block may take, else in a global scratch (csrc/multi_sweep.cuh). Raises ValueError when no tile
+    holds the halo."""
     halos = [halo if m else 0 for m in moving]
     axes = [np.arange(1, min(int(n), cap) + 1)
             for n, cap in zip(dims, _MAX_INTERIOR)]
@@ -290,9 +307,9 @@ def plan_tile(dims: tuple, moving: tuple, halo: int, values_per_cell: int,
     interior = b[0] * b[1] * b[2]
     cells = ((b[0] + 2 * halos[0]) * (b[1] + 2 * halos[1])
              * (b[2] + 2 * halos[2]))
-    nbytes = cells * values_per_cell * itemsize
+    nbytes = cells * (values_per_cell * itemsize + extra_bytes)
     share = interior / cells
-    for budget, scratch in ((TILE_SMEM_BYTES // 2, False),
+    for budget, scratch in ((_TWO_BLOCK_TILE_BYTES, False),
                             (TILE_SMEM_BYTES, False),
                             (_SCRATCH_TILE_BYTES, True)):
         fits = nbytes <= budget
@@ -307,5 +324,6 @@ def plan_tile(dims: tuple, moving: tuple, halo: int, values_per_cell: int,
                         scratch, tiles,
                         min(tiles, _SCRATCH_BLOCKS) if scratch else tiles)
     raise ValueError(f"a halo of {halo} cells leaves no tile of "
-                     f"{values_per_cell} x {itemsize}-byte values per cell "
-                     f"within {_SCRATCH_TILE_BYTES} bytes")
+                     f"{values_per_cell} x {itemsize}-byte values (and "
+                     f"{extra_bytes} B) per cell within "
+                     f"{_SCRATCH_TILE_BYTES} bytes")

@@ -42,7 +42,9 @@ counterpart of the ``custom_vjp`` of lettuce_tpu's
 blocked kernel (K2, ``n_sub`` steps) and saves only the launch input f;
 its backward is one launch of the blocked adjoint (K4), which replays the
 forward from f. Periodic grids, and the specs of
-:func:`.adjoint.adjoint_multi_refusal`.
+:func:`.adjoint.adjoint_multi_refusal`; a bounded flow's blocked step
+(masks, the outlets' replay) runs forward only, as lettuce_tpu's does
+(:2360-2362): its gradients step one step at a time.
 
 A 16-bit state runs forward through its 16-bit instances (K1f). Its
 gradient would need the adjoint kernels at 16-bit storage, which the port
@@ -153,24 +155,34 @@ class _FusedMultiStep(torch.autograd.Function):
 
 def fused_multi_step(f: torch.Tensor, *, n_sub: int, e, w, opposite,
                      cs: float, tau_inv: float = None, collision_spec=None,
-                     dev_storage: bool = False) -> torch.Tensor:
+                     ncm=None, nsm=None, table=None, feq_field=None,
+                     dev_storage: bool = False, fixup=None) -> torch.Tensor:
     """``n_sub`` collide-and-stream steps ``f -> f'`` in one launch of the
-    blocked kernel (K2, or its plain version on CPU tensors) on a periodic
-    grid, with the static kernel parameters of
-    :func:`.stream_collide.gate_fused_params` (``dev_storage`` for a
-    bfloat16 deviation state). A state that requires grad, with grad mode
-    on, goes through ``_FusedMultiStep``, whose backward is one launch of
-    the blocked adjoint (K4); a spec or dtype that K4 does not take raises
-    NotImplementedError then. Returns a fresh tensor."""
+    blocked kernel (K2, or its plain version on CPU tensors), with the
+    static kernel parameters of :func:`.stream_collide.gate_fused_params`
+    (masks included; ``dev_storage`` for a bfloat16 deviation state) and
+    the outlets' window replay ``fixup`` at span ``n_sub`` after it. A
+    state that requires grad, with grad mode on, goes through
+    ``_FusedMultiStep``, whose backward is one launch of the blocked
+    adjoint (K4) on a periodic grid; masks, a replay, or a spec or dtype
+    that K4 does not take raise NotImplementedError then. Returns a fresh
+    tensor."""
     spec = pack_spec(("bgk", tau_inv) if collision_spec is None
                      else collision_spec, e, w, opposite)
     params = dict(e=e, w=w, opposite=opposite, cs=cs, tau_inv=tau_inv,
                   collision_spec=spec)
     if not (f.requires_grad and torch.is_grad_enabled()):
-        return stream_collide(f.detach(), n_sub=n_sub,
-                              dev_storage=dev_storage, **params)
-    reason = ("deviation storage is a throughput mode" if dev_storage
-              else adjoint_multi_refusal(spec, f.dtype))
+        f = f.detach()
+        out = stream_collide(f, n_sub=n_sub, dev_storage=dev_storage, ncm=ncm,
+                             nsm=nsm, table=table, feq_field=feq_field,
+                             **params)
+        return out if fixup is None else fixup(f, out)
+    if dev_storage:
+        reason = "deviation storage is a throughput mode"
+    elif ncm is not None or fixup is not None:
+        reason = "the blocked adjoint runs periodic grids"
+    else:
+        reason = adjoint_multi_refusal(spec, f.dtype)
     if reason is not None:
         raise NotImplementedError(f"no blocked gradient: {reason}")
     return _FusedMultiStep.apply(f, params, n_sub)

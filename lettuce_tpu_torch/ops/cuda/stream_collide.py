@@ -37,11 +37,13 @@ bytes per update. :func:`encode_deviations` and :func:`decode_deviations`
 convert a state to and from deviation storage.
 
 The temporally blocked kernel (K2, ``csrc/multi_*.cu``) runs ``n_sub``
-steps of any fragment in one launch on a periodic grid, in every storage
+steps of any fragment in one launch, periodic or masked (the boundary
+codes and frozen populations on every sub-step), in every storage
 (``stream_collide(..., n_sub=n)``): it reads and writes the state once per
 launch. :func:`build_fused_multi_step` builds the blocked step of a
-Simulation when a span is asked for (``LETTUCE_NSUB``), and its gradient
-runs the blocked adjoint (K4, :mod:`.adjoint`).
+Simulation when a span is asked for (``LETTUCE_NSUB``), with the outlets'
+window replay at that span; on a periodic grid its gradient runs the
+blocked adjoint (K4, :mod:`.adjoint`).
 
 The sources are built and loaded by :mod:`.build`. :func:`stream_collide`
 runs the plain version only for a CPU tensor. For a CUDA tensor it
@@ -74,9 +76,11 @@ from ...utils.moments import (HERMITE_MULTIINDICES, dellar_meq, hermite_meq,
 from ..utils_moments_shim import resolve_mrt_spec
 from .build import (DTYPES, HALF_DTYPES, KERNEL_STENCIL_NAMES,
                     KERNEL_STENCILS, STORAGE, check_launch, check_out,
-                    kernel_stencil_name, launch_dims, moving_axes,
-                    open_library, plan_tile, storage_suffix)
-from .hybrid_outlets import outlet_window
+                    kernel_stencil_name, launch_dims, mask_bytes,
+                    moving_axes, open_library, plan_tile, storage_suffix,
+                    tile_stride)
+from .hybrid_outlets import (build_hybrid_fixup, nsm_outside_regions,
+                             outlet_window)
 
 __all__ = ["stream_collide", "stream_collide_plain", "collide_plain",
            "prestream_plain", "load_library", "load_fragment_library",
@@ -88,7 +92,8 @@ __all__ = ["stream_collide", "stream_collide_plain", "collide_plain",
            "FRAGMENTS", "EMIT_U_FRAGMENTS", "HALF_SOURCES", "DEV_REFUSED",
            "encode_deviations", "decode_deviations",
            "load_half_library", "MULTI_SOURCES", "load_multi_library",
-           "blocking_refusals", "build_fused_multi_step", "multi_plan"]
+           "blocking_refusals", "build_fused_multi_step", "multi_plan",
+           "without_nsm"]
 
 # boundary kinds of the per-code table, in the order of csrc/stencils.cuh's
 # Kind enum
@@ -292,12 +297,11 @@ def _check_emit_u(spec, dtype: torch.dtype, dev_storage: bool) -> None:
                          f"{' in deviation storage' if dev_storage else ''})")
 
 
-def _check_span(n_sub, emit_u: bool = False, masked: bool = False,
-                grad: bool = False) -> None:
+def _check_span(n_sub, emit_u: bool = False, grad: bool = False) -> None:
     """Raise on a span or a request the blocked kernel (K2) does not
-    take: it has no emit-u (lettuce_tpu's kernel refuses it, :1717), its
-    masked form is not ported, and a state that requires grad steps
-    through :func:`.fused_step.fused_multi_step`."""
+    take: it has no emit-u (lettuce_tpu's kernel refuses it, :1717), and
+    a state that requires grad steps through
+    :func:`.fused_step.fused_multi_step`."""
     if int(n_sub) != n_sub or n_sub < 1:
         raise ValueError(f"n_sub must be a positive integer, got {n_sub!r}")
     if n_sub == 1:
@@ -305,10 +309,6 @@ def _check_span(n_sub, emit_u: bool = False, masked: bool = False,
     if emit_u:
         raise ValueError("emit_u is a single-step residual: the blocked "
                          "kernel (n_sub > 1) has none")
-    if masked:
-        raise ValueError("the blocked kernel (n_sub > 1) runs periodic "
-                         "grids: masks, tables and per-node fields take "
-                         "n_sub=1")
     if grad:
         raise ValueError("a state that requires grad steps n_sub > 1 "
                          "through fused_multi_step (the blocked adjoint) or "
@@ -330,7 +330,7 @@ def stream_collide_plain(f: torch.Tensor, e: np.ndarray, w: np.ndarray,
     velocity ``[d, *grid]``.
 
     ``n_sub`` steps at once are the blocked kernel's (K2) plain version:
-    ``n_sub`` plain steps; a 16-bit state is widened once
+    ``n_sub`` plain steps, masks and all; a 16-bit state is widened once
     (:func:`_widen`), stepped wide and rounded once, as the kernel keeps
     its tile in float32 between sub-steps (no ``emit_u`` then)."""
     spec = ("bgk", tau_inv) if collision_spec is None else collision_spec
@@ -614,12 +614,14 @@ def load_multi_library(source: str) -> ctypes.CDLL:
     """Build (if needed) and load the blocked instances (K2) of
     ``csrc/<source>.cu`` (``"stream_collide"`` or a source of
     :data:`FRAGMENTS`; the library of :data:`MULTI_SOURCES`), with
-    ``argtypes`` set on every entry: f, out, scratch, the grid, n_sub,
-    the tile's interior, the blocks, the float64 parameters, cs, device,
-    stream; every storage (no deviations for :data:`DEV_REFUSED`)."""
+    ``argtypes`` set on every entry: f, out, scratch, the masks (ncm, nsm,
+    feq field, host kinds, host values; null for a periodic launch), the
+    grid, n_sub, the tile's interior, the blocks, the float64 parameters,
+    cs, device, stream; every storage (no deviations for
+    :data:`DEV_REFUSED`)."""
     lib = open_library(MULTI_SOURCES[source])
     pointer = ctypes.c_void_p
-    argtypes = ([pointer] * 3 + [ctypes.c_int64] * 3 + [ctypes.c_int] * 5
+    argtypes = ([pointer] * 8 + [ctypes.c_int64] * 3 + [ctypes.c_int] * 5
                 + [pointer, ctypes.c_double, ctypes.c_int, pointer])
     if source == "stream_collide":
         entries = [("bgk", KERNEL_STENCIL_NAMES)]
@@ -757,16 +759,16 @@ def stream_collide(f: torch.Tensor, e: np.ndarray, w: np.ndarray,
     output, the spec's adjoint in the backward); ``out`` and ``u_out``
     cannot be given then, nor ``dev_storage``, a throughput mode.
 
-    ``n_sub > 1`` runs the blocked kernel on a periodic grid in every
-    storage (a 16-bit state rounded once per launch); it raises for
-    masks, ``u_out`` and a state that requires grad
-    (:func:`.fused_step.fused_multi_step` is its differentiable form).
+    ``n_sub > 1`` runs the blocked kernel, periodic or with the same
+    masks, in every storage (a 16-bit state rounded once per launch); it
+    raises for ``u_out`` and a state that requires grad
+    (:func:`.fused_step.fused_multi_step` is its differentiable form on a
+    periodic grid).
     """
     spec = ("bgk", tau_inv) if collision_spec is None else collision_spec
     emit_u = u_out is not None
     masks = dict(ncm=ncm, nsm=nsm, table=table, feq_field=feq_field)
-    _check_span(n_sub, emit_u, any(m is not None for m in masks.values()),
-                f.requires_grad and torch.is_grad_enabled())
+    _check_span(n_sub, emit_u, f.requires_grad and torch.is_grad_enabled())
     if f.requires_grad and torch.is_grad_enabled():
         if out is not None or emit_u:
             raise ValueError("out and u_out would bypass autograd: a state "
@@ -793,7 +795,7 @@ def stream_collide(f: torch.Tensor, e: np.ndarray, w: np.ndarray,
                          f"got {f.device}")
     if n_sub > 1:
         return _launch_multi(f, out, pack_spec(spec, e, w, opposite), n_sub,
-                             e, cs, dev_storage)
+                             e, cs, dev_storage, **masks)
     if emit_u:
         _check_emit_u(spec, f.dtype, dev_storage)
     suffix = storage_suffix(f.dtype, dev_storage)
@@ -864,31 +866,39 @@ stream_collide.fragment_launches = Counter()
 # launches of the 16-bit instances (K1e, K1f), BGK included, by variant,
 # fragment and storage ("bgk_bf16_dev", "masked_trt_f16", ...)
 stream_collide.half_launches = Counter()
-# launches of the blocked kernel (K2), BGK included, by fragment, storage
-# and span ("bgk_f32_x2", "trt_bf16_dev_x4", ...)
+# launches of the blocked kernel (K2), BGK included, by variant, fragment,
+# storage and span ("bgk_f32_x2", "trt_bf16_dev_x4", "masked_bgk_f32_x2",
+# ...)
 stream_collide.multi_launches = Counter()
 
 
-def multi_plan(f: torch.Tensor, e, halo: int, values_per_cell: int):
+def multi_plan(f: torch.Tensor, e, halo: int, values_per_cell: int,
+               masked: bool = False, frozen: bool = False):
     """The tiles of a blocked launch over the state ``f`` (:func:`.build.
     plan_tile`): a halo of ``halo`` cells and ``values_per_cell`` values of
     the compute type (float64 for a float64 state, else float32) per tile
-    cell; and the global scratch it needs (None in shared memory)."""
+    cell, plus the masks' bytes of a ``masked`` launch with ``frozen``
+    populations or without (:func:`.build.mask_bytes`); and the global
+    scratch it needs (None in shared memory)."""
     wide = torch.float64 if f.dtype == torch.float64 else torch.float32
+    itemsize = torch.finfo(wide).bits // 8
     dims = tuple(int(n) for n in launch_dims(f, e, half=True))
     plan = plan_tile(dims, moving_axes(e), int(halo), int(values_per_cell),
-                     torch.finfo(wide).bits // 8)
+                     itemsize, mask_bytes(f.shape[0], itemsize, masked,
+                                          frozen))
     scratch = None
     if plan.scratch:
-        scratch = torch.empty(plan.blocks * plan.cells * values_per_cell,
-                              dtype=wide, device=f.device)
+        scratch = torch.empty(plan.blocks * tile_stride(plan.bytes),
+                              dtype=torch.uint8, device=f.device)
     return dims, plan, scratch
 
 
 def _launch_multi(f: torch.Tensor, out, spec: PackedSpec, n_sub: int, e,
-                  cs: float, dev_storage: bool) -> torch.Tensor:
+                  cs: float, dev_storage: bool, ncm=None, nsm=None,
+                  table=None, feq_field=None) -> torch.Tensor:
     """One launch of the blocked kernel (K2): ``n_sub`` steps of the
-    packed ``spec`` on the CUDA state ``f`` into ``out``."""
+    packed ``spec`` on the CUDA state ``f`` into ``out``, masked when
+    ``ncm`` is given (with the optional ``nsm`` and ``feq_field``)."""
     suffix = storage_suffix(f.dtype, dev_storage)
     if dev_storage and spec.fragment in DEV_REFUSED:
         raise NotImplementedError(
@@ -898,18 +908,30 @@ def _launch_multi(f: torch.Tensor, out, spec: PackedSpec, n_sub: int, e,
     source = ("stream_collide" if spec.fragment == "bgk"
               else FRAGMENTS[spec.fragment][0])
     lib = load_multi_library(source)
-    dims, plan, scratch = multi_plan(f, e, n_sub, np.asarray(e).shape[0])
+    masked = ncm is not None
+    pointers = [None] * 5
+    if masked:
+        # alive until the call returns
+        table = checked_table(f, ncm, nsm, table, feq_field)
+        pointers = [ncm.data_ptr(),
+                    None if nsm is None else nsm.data_ptr(),
+                    None if feq_field is None else feq_field.data_ptr(),
+                    table.kinds.ctypes.data, table.values.ctypes.data]
+    dims, plan, scratch = multi_plan(f, e, n_sub, np.asarray(e).shape[0],
+                                     masked, masked and nsm is not None)
     out = check_out(out, f, f.shape, "out", f)
     launch = getattr(lib, f"lt_multi_{spec.fragment}_{spec.stencil}_"
                           f"{suffix}")
     rc = launch(f.data_ptr(), out.data_ptr(),
-                None if scratch is None else scratch.data_ptr(), *dims,
-                int(n_sub), *plan.interior, plan.blocks,
+                None if scratch is None else scratch.data_ptr(), *pointers,
+                *dims, int(n_sub), *plan.interior, plan.blocks,
                 spec.params.ctypes.data, float(cs), f.device.index,
                 torch.cuda.current_stream(f.device).cuda_stream)
+    variant = "masked_" if masked else ""
     check_launch(lib, rc, f"stream_collide ({spec.fragment}, blocked "
-                          f"x{n_sub} {spec.stencil}_{suffix})")
-    stream_collide.multi_launches[f"{spec.fragment}_{suffix}_x{n_sub}"] += 1
+                          f"{variant}x{n_sub} {spec.stencil}_{suffix})")
+    stream_collide.multi_launches[
+        f"{variant}{spec.fragment}_{suffix}_x{n_sub}"] += 1
     return out
 
 
@@ -1105,16 +1127,46 @@ def gate_fused_params(simulation: "Simulation",
     return params, tuple(hybrid)
 
 
-def blocking_refusals(simulation: "Simulation") -> list:
+def without_nsm(params: dict) -> dict:
+    """The gate's ``params`` with the no-streaming mask dropped and the
+    table checked and packed again without it: for a kernel whose frozen
+    populations all lie on planes the window replay rewrites
+    (:func:`.hybrid_outlets.nsm_outside_regions`)."""
+    shape, dtype, device, ncm, _, feq_field = params["table"].checked
+    like = torch.empty((), dtype=dtype, device=device).expand(shape)
+    return dict(params, nsm=None, table=checked_table(
+        like, ncm, None, tuple(params["table"]), feq_field))
+
+
+def blocking_refusals(simulation: "Simulation", span: int,
+                      dev_storage: bool = False) -> list:
     """Why a Simulation on the kernel path cannot run the blocked kernel
-    (K2): its periodic form alone is ported, so any boundary (masks,
-    outlets) keeps the single-step kernel. Host-side checks only."""
-    names = [type(b).__name__ for b in simulation.boundaries[1:]]
-    if not names:
-        return []
-    return [f"boundaries {', '.join(names)}: the blocked kernel runs "
-            f"periodic grids only (its masked form and the outlets' "
-            f"n_sub window replay are not ported)"]
+    (K2) at ``span`` steps per launch, as lettuce_tpu's
+    ``build_fused_multi_step`` refuses (:2216-2331): deviation storage
+    with outlets (the window replay operates on f) or with the closed-form
+    MRT bases, and an outlet whose replay window at this span covers its
+    whole axis. Host-side checks only."""
+    reasons = []
+    spec, _ = collision_spec_of(simulation)
+    if (dev_storage and spec is not None
+            and fragment_of(spec) in DEV_REFUSED):
+        reasons.append("the analytic-moment MRT fragment is not "
+                       "shift-invariant: no deviation storage")
+    for code, boundary in enumerate(simulation.boundaries[1:], start=1):
+        if type(boundary) not in HYBRID_OUTLET_TYPES:
+            continue
+        name = type(boundary).__name__
+        if dev_storage:
+            reasons.append(f"outlet '{name}': the window replay operates on "
+                           f"f, not on deviations")
+            continue
+        try:
+            outlet_window(simulation.no_collision_mask, code,
+                          boundary.face_axis, span)
+        except NotImplementedError as refusal:
+            reasons.append(f"outlet '{name}' has no window replay at span "
+                           f"{span} ({refusal})")
+    return reasons
 
 
 def build_fused_multi_step(simulation: "Simulation",
@@ -1128,16 +1180,23 @@ def build_fused_multi_step(simulation: "Simulation",
     ``n_sub``; with neither it is None, on a CUDA context too: blocking
     has not been shown to pay on this card yet. When a span is asked for
     and the configuration cannot block (:func:`blocking_refusals`) it
-    prints the reason, as the capability probe does, and returns None;
+    prints the reasons, as the capability probe does, and returns None;
     the single-step kernel then runs. A span that no tile holds raises
     (:func:`.build.plan_tile`); a build or launch error is never caught.
 
-    ``step`` is :func:`.fused_step.fused_multi_step` bound to the gate's
-    parameters (with ``dev_storage``, those of bfloat16 deviations). Its
-    ``adjoint_kernel`` says whether the blocked adjoint (K4) takes its
-    gradient: float32 and float64, the f-linear specs and the identity
-    (:func:`.adjoint.adjoint_multi_refusal`, whose reason it prints
-    otherwise); never under deviations."""
+    ``step`` is :func:`.fused_step.fused_multi_step` bound to the launch's
+    parameters (``step.params``: the gate's, with ``dev_storage`` those of
+    bfloat16 deviations) and to the outlets' window replay at this span
+    (``step.fixup``, None without outlets), applied after each launch. The
+    kernel runs without the no-streaming mask when every frozen
+    population lies on the planes that replay rewrites, so the mask may be
+    dropped here and kept for the single-step kernel, or the reverse.
+    ``step.adjoint_kernel`` says whether the blocked adjoint (K4) takes
+    its gradient: a periodic grid in float32 or float64, the f-linear
+    specs and the identity (:func:`.adjoint.adjoint_multi_refusal`, whose
+    reason it prints otherwise); never under deviations, masks or a
+    replay (lettuce_tpu :2360-2362), whose gradients run the single-step
+    kernels."""
     from .adjoint import adjoint_multi_refusal
     from .fused_step import fused_multi_step
     env = os.environ.get("LETTUCE_NSUB")
@@ -1145,24 +1204,37 @@ def build_fused_multi_step(simulation: "Simulation",
     if span is None or int(span) <= 1:
         return None
     span = int(span)
-    reasons = blocking_refusals(simulation)
+    reasons = blocking_refusals(simulation, span, dev_storage)
     for reason in reasons:
         print(f"temporal blocking (span {span}) was requested, but "
               f"{reason}; the single-step kernel runs.")
     if reasons:
         return None
-    params = gate_fused_params(simulation, dev_storage)[0]
+    params, hybrid = gate_fused_params(simulation, dev_storage)
+    fixup = None
+    if hybrid:
+        fixup, regions = build_hybrid_fixup(simulation, hybrid, n_sub=span)
+        if (params["nsm"] is not None
+                and not nsm_outside_regions(params["nsm"], regions)):
+            params = without_nsm(params)
     stencil = simulation.flow.stencil
     dtype = simulation.flow.f.dtype
     dims = tuple(int(n) for n in simulation.flow.f.shape[1:])
+    itemsize = 8 if dtype == torch.float64 and not dev_storage else 4
+    masked = params.get("ncm") is not None
     plan_tile((1,) * (3 - len(dims)) + dims, moving_axes(stencil.e), span,
-              stencil.q, 8 if dtype == torch.float64 and not dev_storage
-              else 4)  # raises past what a tile holds
-    step = functools.partial(fused_multi_step, n_sub=span, **params)
-    reason = (None if dev_storage else
-              adjoint_multi_refusal(params["collision_spec"], dtype))
-    if reason is not None:
-        print(f"temporal blocking (span {span}) runs, but {reason}; "
-              f"gradients run the single-step adjoint.")
-    step.adjoint_kernel = not dev_storage and reason is None
+              stencil.q, itemsize,
+              mask_bytes(stencil.q, itemsize, masked,
+                         params.get("nsm") is not None)
+              )  # raises past what a tile holds
+    step = functools.partial(fused_multi_step, n_sub=span, fixup=fixup,
+                             **params)
+    step.params, step.fixup = params, fixup
+    step.adjoint_kernel = False
+    if not (dev_storage or masked):
+        reason = adjoint_multi_refusal(params["collision_spec"], dtype)
+        if reason is not None:
+            print(f"temporal blocking (span {span}) runs, but {reason}; "
+                  f"gradients run the single-step adjoint.")
+        step.adjoint_kernel = reason is None
     return step, span

@@ -29,13 +29,15 @@ Two step paths:
     autograd.
 
 Temporal blocking (``LETTUCE_NSUB=n``, 0 disables; off by default, as on
-lettuce_tpu off the TPU): on a periodic grid the throughput loop runs the
-bulk of a run as ``n // span`` launches of the blocked kernel (K2, ``span``
-steps each) and the remainder single-step, as lettuce_tpu's ``_run_mixed``;
-``step_path`` says ``'cuda x<span>'``. Gradient segments (and a state that
-requires grad) scan the span-2 blocked step, whose backward is the blocked
-adjoint (K4), when K4 takes the collision; ``make_step_fn`` stays
-single-step.
+lettuce_tpu off the TPU): the throughput loop runs the bulk of a run as
+``n // span`` launches of the blocked kernel (K2, ``span`` steps each,
+periodic or masked) and the remainder single-step, as lettuce_tpu's
+``_run_mixed``; outlets replay their window at that span after each
+blocked launch. ``step_path`` says ``'cuda x<span>'`` or
+``'cuda+hybrid x<span>'``. On a periodic grid gradient segments (and a
+state that requires grad) scan the span-2 blocked step, whose backward is
+the blocked adjoint (K4), when K4 takes the collision; a bounded flow's
+gradients, and ``make_step_fn``, stay single-step.
 
 ``half_storage=True`` keeps the state of the throughput loop (``__call__``
 and ``rollout``) as bfloat16 deviations g = f - w_q between steps, as
@@ -71,10 +73,10 @@ from .ops.cuda import adjoint
 from .ops.cuda.fused_step import fused_multi_step, fused_step
 from .ops.cuda.hybrid_outlets import build_hybrid_fixup, nsm_outside_regions
 from .ops.cuda.stream_collide import (build_fused_multi_step,
-                                      checked_table, decode_deviations,
-                                      encode_deviations, gate_fused_params,
-                                      kernel_refusals, load_libraries,
-                                      stream_collide)
+                                      decode_deviations, encode_deviations,
+                                      gate_fused_params, kernel_refusals,
+                                      load_libraries, stream_collide,
+                                      without_nsm)
 from .ops.streaming import compose_step
 
 __all__ = ["Collision", "Reporter", "Simulation"]
@@ -178,18 +180,17 @@ class Simulation:
         buffers the throughput loop steps between (out of place); they
         are never handed out. The differentiable step is ``fused_step``
         with the gate's parameters and the replay. ``_step_multi`` is the
-        blocked step when a span is asked for and the grid is periodic
-        (:func:`build_fused_multi_step`)."""
+        blocked step when a span is asked for and nothing refuses it
+        (:func:`build_fused_multi_step`), with its own parameters and its
+        replay at that span: the two replays, and whether each kernel
+        reads the no-streaming mask, are kept apart."""
         params, hybrid = gate_fused_params(self)
         self._fixup = None
         if hybrid:
             self._fixup, regions = build_hybrid_fixup(self, hybrid)
             if (params["nsm"] is not None
                     and not nsm_outside_regions(params["nsm"], regions)):
-                params["nsm"] = None
-                params["table"] = checked_table(
-                    self.flow.f, params["ncm"], None, params["table"],
-                    params["feq_field"])
+                params = without_nsm(params)
         self._kernel_params = params
         self._buffers = [None, None]
         if self._fixup is None:
@@ -236,6 +237,16 @@ class Simulation:
         span = 1 if multi is None else multi[1]
         return [span] * (n // span) + [1] * (n % span)
 
+    @staticmethod
+    def _blocked(multi, f: torch.Tensor, out: torch.Tensor = None
+                 ) -> torch.Tensor:
+        """One launch of the blocked step ``multi`` (``(step, span)``) from
+        ``f`` into ``out`` (a fresh tensor when None), then its replay over
+        it."""
+        step, span = multi
+        out = stream_collide(f, out=out, n_sub=span, **step.params)
+        return out if step.fixup is None else step.fixup(f, out)
+
     def _run_half(self, g: torch.Tensor, n: int) -> torch.Tensor:
         """``n`` steps of the deviations ``g`` between the simulation's two
         buffers: the blocked bulk and the single-step remainder."""
@@ -243,7 +254,10 @@ class Simulation:
             out = self._buffer(0, g)
             if out.data_ptr() == g.data_ptr():
                 out = self._buffer(1, g)
-            g = stream_collide(g, out=out, n_sub=n_sub, **self._half_params)
+            if n_sub == 1:
+                g = stream_collide(g, out=out, **self._half_params)
+            else:
+                g = self._blocked(self._half_multi, g, out)
         return g
 
     def _half_run_of(self, f: torch.Tensor) -> bool:
@@ -279,7 +293,8 @@ class Simulation:
         """``n`` steps from ``f``. The kernel path outside autograd steps
         between the simulation's two buffers, and its last step writes a
         fresh tensor, so neither ``f`` nor any tensor returned earlier is
-        written. The bulk runs blocked when ``_step_multi`` is set. Under
+        written. The bulk runs blocked when ``_step_multi`` is set, each
+        launch followed by its replay. Under
         half storage ``f`` is encoded once, stepped in deviations and
         decoded once into a fresh tensor. A state that requires grad runs
         the gradient segment's route (:meth:`make_segment_fn`)."""
@@ -297,8 +312,7 @@ class Simulation:
             if n_sub == 1:
                 f = self._cuda_step(f, out)
             else:
-                f = stream_collide(f, out=out, n_sub=n_sub,
-                                   **self._kernel_params)
+                f = self._blocked(self._step_multi, f, out)
         return f
 
     def make_step_fn(self):
@@ -382,8 +396,8 @@ class Simulation:
         """The selected step path: ``'cuda x1'`` (fused kernel, one step
         per launch), ``'cuda x<span>'`` (the blocked kernel, ``span`` steps
         per launch, under half storage the deviations' span),
-        ``'cuda+hybrid x1'`` (the kernel, then the outlets' window replay)
-        or ``'torch x1'`` (plain tensor step)."""
+        ``'cuda+hybrid x<span>'`` (the kernel, then the outlets' window
+        replay) or ``'torch x1'`` (plain tensor step)."""
         hybrid = "+hybrid" if self._fixup is not None else ""
         multi = (self._half_multi if self._half_params is not None
                  else self._step_multi)

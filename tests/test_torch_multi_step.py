@@ -278,21 +278,37 @@ def test_blocking_is_off_by_default(monkeypatch):
 
 
 def test_masked_flow_keeps_the_single_step_kernel(monkeypatch, capsys):
-    """Boundaries keep the single-step (masked) kernel, and the reason is
-    printed, as the capability probe prints its reasons."""
-    monkeypatch.setenv("LETTUCE_NSUB", "2")
-    flow = ltt.CouetteFlow2D(ltt.Context(device="cpu", dtype=torch.float64),
-                             [16, 32], reynolds_number=10, mach_number=0.05)
+    """What the blocked path still refuses for a bounded flow keeps the
+    single-step (masked) kernel, and the reason is printed, as the
+    capability probe prints its reasons: an outlet whose replay window at
+    the span covers its whole axis (lettuce_tpu :2328-2331), and an outlet
+    under deviation storage (:2220). A masked flow otherwise blocks."""
+    from tests.test_torch_hybrid import obstacle
+    monkeypatch.setenv("LETTUCE_NSUB", "4")
+    flow = obstacle(ltt, ltt.Context(device="cpu", dtype=torch.float64),
+                    resolution=(16, 128))
     sim = port_kernel(flow, ltt.BGKCollision(
         flow.units.relaxation_parameter_lu))
-    assert sim._step_multi is None and sim.step_path == "cuda x1"
+    assert sim._step_multi is None and sim.step_path == "cuda+hybrid x1"
     printed = capsys.readouterr().out
-    assert ("temporal blocking (span 2) was requested, but boundaries"
+    assert ("temporal blocking (span 4) was requested, but outlet "
+            "'AntiBounceBackOutlet' has no window replay at span 4 (fix-up "
+            "window spans the whole axis (17 planes at span 4, axis of 16))"
             in printed)
-    assert "periodic grids only" in printed
     calls = counted_launches(monkeypatch)
     sim(3)
     assert calls == [(1, False)] * 3
+    assert sc.build_fused_multi_step(sim, dev_storage=True, n_sub=2) is None
+    assert "the window replay operates on f, not on deviations" in \
+        capsys.readouterr().out
+    monkeypatch.setenv("LETTUCE_NSUB", "2")
+    sim._use_kernel()
+    assert sim.step_path == "cuda+hybrid x2"
+    couette = ltt.CouetteFlow2D(ltt.Context(device="cpu",
+                                            dtype=torch.float64),
+                                [16, 32], reynolds_number=10,
+                                mach_number=0.05)
+    assert port_kernel(couette, ltt.BGKCollision(0.8)).step_path == "cuda x2"
 
 
 def test_blocked_wrapper_refusals():
@@ -306,9 +322,11 @@ def test_blocked_wrapper_refusals():
         sc.stream_collide(f, *args, u_out=u, n_sub=2)
     with pytest.raises(ValueError, match="emit_u"):
         sc.stream_collide_plain(f, *args, emit_u=True, n_sub=2)
-    with pytest.raises(ValueError, match="periodic"):
-        sc.stream_collide(f, *args, ncm=torch.zeros((6, 8), dtype=torch.uint8),
-                          table=[("collide", None)], n_sub=2)
+    # masks run at any span: n_sub masked steps
+    masks = dict(ncm=torch.zeros((6, 8), dtype=torch.uint8),
+                 table=[("collide", None)])
+    assert torch.equal(sc.stream_collide(f, *args, **masks, n_sub=2),
+                       sc.stream_collide_plain(f, *args, n_sub=2))
     with pytest.raises(ValueError, match="requires grad"):
         sc.stream_collide(f.clone().requires_grad_(True), *args, n_sub=2)
     with pytest.raises(ValueError, match="positive integer"):
