@@ -27,7 +27,12 @@ states) against its plain version, the main path and the fragment cells
 under ``half_storage``, and 16-bit states through the CLI; then temporal
 blocking: every blocked instance (K2) and the blocked adjoint (K4)
 against their plain versions, the main path at ``LETTUCE_NSUB=2`` and 4
-in float32 and under half storage, and the 8-step gradient at span 2.
+in float32 and under half storage, and the 8-step gradient at span 2;
+the blocked bounded flows; then the gradient of a 16-bit state: every
+16-bit emit-u, adjoint and blocked-adjoint instance against its plain
+version, the main path's gradient in bfloat16 and float16 and the
+fragment, split and obstacle cells in bfloat16 at full width, and the
+blocked bfloat16 gradient at span 2.
 Every failed check exits non-zero; nothing is caught.
 
 Phases:
@@ -178,7 +183,35 @@ Phases:
      span 2: 4 K2 and 4 K4 launches and no single-step one, within 1e-5
      of the single-step kernels' gradient, bitwise equal under
      checkpoint_every=4, fwd+bwd MLUPS against phase 7's, peak memory of
-     both; K2 + K4 per step in turns with K1d + K3a, K4 against plain.
+     both; K2 + K4 per step in turns with K1d + K3a, K4 against plain;
+ 29. every masked K2 instance against its plain version at n_sub 2-4 and
+     against n_sub masked K1 launches;
+ 30. the bounded 2D cells at span 1, 2 and 4 through the blocked kernel
+     and the outlets' n_sub window replay, float32 and half storage;
+ 31. the Ghia cavity gate at span 2;
+ 32. the gradient of a 16-bit state, instance by instance, bfloat16 and
+     float16 on the grids of phase 2: K1d at 16 bits (bgk, trt, reg,
+     mrt_from_feq; periodic and masked; the state within one storage ulp,
+     u in float32 within 5e-6), K3 at 16 bits (every full-mode spec;
+     periodic, codes, codes+frozen, nsm-only; one storage ulp at the
+     largest magnitude) and K4 at 16 bits (n_sub 2-4; one ulp plus n_sub
+     float32 floors), each against its plain version, one launch each;
+ 33. the 16-bit gradient path at full width: the main path in bfloat16
+     and float16 through make_segment_fn(8) (8 emit-u and 8 adjoint
+     launches at 16 bits, nothing else; inf and subnormal counts; within
+     one storage ulp per step of the plain chain at 16 bits; against the
+     float32 gradient of the same loss from the upcast state, float16
+     within 2 %, bfloat16 reported;
+     peak memory; fwd+bwd MLUPS; K1d and K3 at 16 bits per launch against
+     plain and their bounds at 3.35 TB/s and at the saxpy), then in
+     bfloat16 the TRT, MRT, Smagorinsky D3Q19 and regularized D3Q27 cells
+     at 256^3, split mode's Guo BGK D2Q9 2048^2 and obstacle2d_2048
+     through the replay (each against its float32 gradient, reported);
+ 34. the blocked bfloat16 gradient at LETTUCE_NSUB=2: 4 K2 and 4 K4
+     launches at 16 bits, within one storage ulp per launch of the plain
+     chain and 2 % of the float32 gradient, fwd+bwd
+     MLUPS against phase 33's single-step run, K2 + K4 per two steps in
+     turns with K1d + K3, K4 against plain.
 
 Prints, before the last line, one JSON line describing the kernels (K2
 and K4 with their span and per-step time; with each launch's bound: its
@@ -500,6 +533,7 @@ def reset_launch_counts():
     sc.stream_collide.half_launches.clear()
     sc.stream_collide.multi_launches.clear()
     adjoint.stream_collide_adjoint.fragment_launches.clear()
+    adjoint.stream_collide_adjoint.half_launches.clear()
     adjoint.stream_collide_adjoint_multi.launches.clear()
 
 
@@ -1988,7 +2022,10 @@ def kernel_pair(params, f, g):
     ct = torch.empty_like(f)
     if spec.residual == "u":
         d = np.asarray(params["e"]).shape[1]
-        res = torch.empty((d, *f.shape[1:]), dtype=f.dtype, device=f.device)
+        # u in the compute type: float32 for a 16-bit state
+        res = torch.empty((d, *f.shape[1:]), dtype=torch.float64
+                          if f.dtype == torch.float64 else torch.float32,
+                          device=f.device)
         sc.stream_collide(f, **params, out=out, u_out=res)
 
         def forward():
@@ -3536,6 +3573,648 @@ def phase31_cavity_gate_blocked(card, x1_deviation):
     return gate
 
 
+# ----------------------------------------------------------------------
+# the gradient of a 16-bit state: K1d, K3 and K4 at 16 bits
+# ----------------------------------------------------------------------
+# the adjoints of a 16-bit state: csrc/adjoint_half.cu (K3 at 16 bits) and
+# csrc/adjoint_multi_half.cu (K4 at 16 bits); the emit-u forward of a
+# 16-bit state lives in csrc/half_*.cu
+ADJOINT_HALF_SOURCE = "lettuce_tpu_torch/csrc/adjoint_half.cu"
+ADJOINT_MULTI_HALF_SOURCE = "lettuce_tpu_torch/csrc/adjoint_multi_half.cu"
+# the TPU kernels' 16-bit storage with float32 compute: the adjoint's
+# compute_dtype (:167-174) and emit-u's float32 u (:1778-1779)
+ADJOINT_HALF_REPLACES = "lettuce_tpu/ops/pallas/adjoint.py:167"
+EMIT_U_HALF_REPLACES = "lettuce_tpu/ops/pallas/stream_collide.py:1778"
+# D3Q19 at 16 bits: q populations in and out, 2 bytes each, plus 3 float32
+# u components (the emit-u forward writes them, the adjoint reads them)
+HALF_GRAD_BYTES_PER_UPDATE = 19 * 2 * 2 + 3 * 4
+# K4 at 16 bits reads f and g and writes the cotangent once per launch
+ADJOINT_MULTI_HALF_BYTES_PER_UPDATE = 19 * 2 * 3
+# the float32 floor K4's bar adds per sub-step at the largest magnitude
+F32_FLOOR = 2.0 ** -23
+# a 16-bit gradient against the float32 one, at its largest magnitude:
+# the bar half storage's u is held to (phase 23). It holds for float16
+# (8 single steps) and the span-2 bfloat16 gradient (4 roundings each
+# way), not for 8 single bfloat16 steps: 2.2 % on the card at 256^3, as
+# the plain versions on the CPU (1.5-2.0 % at 16^3-128^3) and
+# lettuce_tpu's own bfloat16 gradient (1.5 % at 32^2, where the port's
+# reads 1.2 %), so that one is reported and its kernels are held to the
+# plain chain at 16 bits instead
+HALF_GRAD_RTOL = 0.02
+
+
+def half_adjoint_launches():
+    from lettuce_tpu_torch.ops.cuda import adjoint
+    return dict(adjoint.stream_collide_adjoint.half_launches)
+
+
+def ulps_at_max(got, ref):
+    """(|got - ref| in storage ulps at ref's largest magnitude, that
+    magnitude, max |got - ref|, that ulp)."""
+    a, b = got.double(), ref.double()
+    scale = b.abs().max().item()
+    ulp = 2.0 ** (np.floor(np.log2(scale)) - MANTISSA_BITS[got.dtype])
+    err = (a - b).abs().max().item()
+    return err / ulp, scale, err, ulp
+
+
+def phase32_half_gradient_instances_vs_plain():
+    """Every instance of a 16-bit state's gradient against its plain
+    version on the grids of phase 2, bfloat16 and float16, one launch
+    each: K1d at 16 bits (bgk, trt, reg, mrt_from_feq; periodic and
+    masked: the state within one storage ulp entrywise, u within 5e-6);
+    K3 at 16 bits for every full-mode spec (bgk, trt, matvec for reg and
+    mrt_from_feq, smag, none; periodic, codes, codes+frozen and the
+    nsm-only entry split mode runs: within one storage ulp at the largest
+    magnitude); K4 at 16 bits per blocked spec at n_sub 2, 3 and 4 (one
+    storage ulp plus n_sub float32 floors at the largest magnitude)."""
+    import lettuce_tpu_torch as lt
+    from lettuce_tpu_torch.ops.cuda import adjoint
+    import lettuce_tpu_torch.ops.cuda.stream_collide as sc
+    worst = {}
+    seed = 3200
+    count = 0
+
+    def note(key, err, ulps):
+        w_err, w_ulps = worst.get(key, (0.0, 0.0))
+        worst[key] = (max(w_err, err), max(w_ulps, ulps))
+
+    for stencil, shape in phase2_cases():
+        name = type(stencil).__name__
+        d = stencil.d
+        context = lt.Context(device="cuda", dtype=torch.float32,
+                             use_native=False)
+        flow = lt.TaylorGreenVortex(context, list(shape), 1600, 0.05,
+                                    stencil=stencil, initialize_fneq=False)
+        collisions = {"bgk": lt.BGKCollision(FRAGMENT_TAU),
+                      **fragment_collisions(flow, FRAGMENT_TAU)}
+        for fragment, collision in collisions.items():
+            spec = fragment_spec(flow, collision)
+            if spec.mode == "split":
+                continue  # K1f forward (phase 22), the none adjoint here
+            args = (stencil.e, stencil.w, stencil.opposite, stencil.cs,
+                    spec[1] if fragment == "bgk" else None)
+            line = []
+            for dtype, suffix in HALF_KEYS.items():
+                seed += 1
+                f32, _ = tgv_state(stencil, shape, torch.float32, seed)
+                x = f32.to(dtype)
+                masks = bounded_case(stencil, shape, torch.float32, seed)[1]
+                masks["feq_field"] = masks["feq_field"].to(dtype)
+                g = torch.as_tensor(np.random.default_rng(seed)
+                                    .standard_normal(tuple(x.shape)),
+                                    dtype=torch.float32,
+                                    device="cuda").to(dtype)
+                readings = []
+                if fragment in sc.EMIT_U_FRAGMENTS:
+                    for variant, mk in (("emit_u_", {}),
+                                        ("masked_emit_u_", masks)):
+                        key = f"{variant}{fragment}_{suffix}"
+                        before = half_launches().get(key, 0)
+                        u = torch.empty((d, *shape), dtype=torch.float32,
+                                        device="cuda")
+                        out, _ = sc.stream_collide(x, *args, **mk, u_out=u,
+                                                   collision_spec=spec)
+                        torch.cuda.synchronize()
+                        launched = half_launches().get(key, 0) - before
+                        ref, u_ref = sc.stream_collide_plain(
+                            x, *args, **mk, collision_spec=spec,
+                            emit_u=True)
+                        ulps, _, err = check_storage(out, ref, suffix,
+                                                     f"{key} {name}")
+                        err_u = (u - u_ref).abs().max().item()
+                        check(launched == 1, f"{key} {name}: {launched} "
+                                             f"launches")
+                        check(u_ref.dtype == torch.float32
+                              and bool(torch.isfinite(u).all())
+                              and err_u <= ATOL[torch.float32],
+                              f"{key} {name}: u error {err_u}")
+                        note(key, max(err, err_u), ulps)
+                        readings.append(f"{variant}fwd {ulps:.2f}")
+                        count += 1
+                res = None
+                if spec.residual == "u":
+                    _, res = sc.stream_collide_plain(x, *args,
+                                                     collision_spec=spec,
+                                                     emit_u=True)
+                elif spec.residual == "f":
+                    res = x
+                kind = spec.adjoint[0]
+                codes = dict(masks, nsm=None)
+                for label, variant, mk in (
+                        ("periodic", "", {}), ("codes", "masked_", codes),
+                        ("codes+frozen", "masked_", masks),
+                        ("nsm-only", "frozen_", {"nsm": masks["nsm"]})):
+                    key = f"{variant}{kind}_{suffix}"
+                    before = half_adjoint_launches().get(key, 0)
+                    ct = adjoint.stream_collide_adjoint(
+                        g, res, *args, **mk, collision_spec=spec)
+                    torch.cuda.synchronize()
+                    launched = half_adjoint_launches().get(key, 0) - before
+                    ref = adjoint.stream_collide_adjoint_plain(
+                        g, res, *args, **mk, collision_spec=spec)
+                    ulps, scale, err, _ = ulps_at_max(ct, ref)
+                    check(launched == 1, f"adjoint {key} {name}: "
+                                         f"{launched} launches")
+                    check(ct.dtype == dtype
+                          and bool(torch.isfinite(ct.float()).all())
+                          and ulps <= 1.0,
+                          f"adjoint {key} ({fragment}, {label}) {name}: "
+                          f"{ulps:.2f} ulps at {scale:.3e}")
+                    note("adjoint_" + key, err, ulps)
+                    readings.append(f"adjoint {label} {ulps:.2f}")
+                    count += 1
+                if fragment in adjoint.ADJOINT_MULTI_FRAGMENTS:
+                    for span in (2, 3, 4):
+                        key = f"{fragment}_{suffix}_x{span}"
+                        before = adjoint_multi_launches().get(key, 0)
+                        ct = adjoint.stream_collide_adjoint_multi(
+                            x, g, span, *args, collision_spec=spec)
+                        torch.cuda.synchronize()
+                        launched = (adjoint_multi_launches().get(key, 0)
+                                    - before)
+                        ref = adjoint.stream_collide_adjoint_multi_plain(
+                            x, g, span, *args, collision_spec=spec)
+                        ulps, scale, err, ulp = ulps_at_max(ct, ref)
+                        bar = 1.0 + span * F32_FLOOR * scale / ulp
+                        check(launched == 1, f"K4 {key} {name}: {launched} "
+                                             f"launches")
+                        check(ct.dtype == dtype
+                              and bool(torch.isfinite(ct.float()).all())
+                              and ulps <= bar,
+                              f"K4 {key} {name}: {ulps:.2f} ulps at "
+                              f"{scale:.3e} (bar {bar:.3f})")
+                        note("multi_" + key, err, ulps)
+                        readings.append(f"K4 x{span} {ulps:.2f}")
+                        count += 1
+                line.append(f"{suffix} " + ", ".join(readings))
+            print(f"phase 32: {fragment} {name} {'x'.join(map(str, shape))} "
+                  f"(ulps; adjoints at the largest magnitude): "
+                  + "; ".join(line))
+    print(f"phase 32: {count} launches of 16-bit gradient instances, each "
+          f"within its bar of plain")
+    return worst
+
+
+def half_plain_chain(params, f0, blocked=False):
+    """The gradient of sum(f_8^2) through the plain versions at 16 bits:
+    8 plain emit-u steps saving u, then 8 plain adjoint steps (with
+    ``blocked``, 4 plain K2 launches of 2 steps saving each input, then 4
+    plain K4 launches), from the cotangent the loss hands the segment's
+    16-bit output."""
+    from lettuce_tpu_torch.ops.cuda import adjoint
+    import lettuce_tpu_torch.ops.cuda.stream_collide as sc
+    with torch.no_grad():
+        x, saved = f0.detach(), []
+        if blocked:
+            for _ in range(SEGMENT_STEPS // 2):
+                saved.append(x)
+                x = sc.stream_collide_plain(x, **params, n_sub=2)
+        else:
+            for _ in range(SEGMENT_STEPS):
+                x, u = sc.stream_collide_plain(x, **params, emit_u=True)
+                saved.append(u)
+        ct = (2 * x.float()).to(x.dtype)
+        del x
+        while saved:
+            if blocked:
+                ct = adjoint.stream_collide_adjoint_multi_plain(
+                    saved.pop(), ct, 2, **params)
+            else:
+                ct = adjoint.stream_collide_adjoint_plain(ct, saved.pop(),
+                                                          **params)
+    return ct
+
+
+def half_gradient_cell(card, saxpy_gbps, cell, simulation, reference,
+                       seed, rtol=None, repeats=50, chain=False):
+    """One 16-bit gradient cell on the kernel path: the 8-step gradient of
+    sum(f_8^2) through make_segment_fn with its launch counts (every one a
+    16-bit instance) and peak memory above the state, the count of inf and
+    subnormal entries, with ``chain`` the gradient against the plain
+    versions' chain at 16 bits (half_plain_chain; one storage ulp per
+    step at its largest magnitude), the gradient against the float32
+    ``reference`` simulation's from the upcast state (at most ``rtol`` of
+    its largest magnitude when given, else reported), fwd+bwd MLUPS (3
+    repeats after a warm-up), and per launch the forward and adjoint
+    kernels against their plain versions by CUDA events, in turns."""
+    flow = simulation.flow
+    dtype = flow.f.dtype
+    suffix = HALF_KEYS[dtype]
+    params = simulation._kernel_params
+    spec = params["collision_spec"]
+    masked = params.get("ncm") is not None
+    fwd_key = (("masked_" if masked else "")
+               + ("emit_u_" if spec.residual == "u" else "")
+               + f"{spec.fragment}_{suffix}")
+    if spec.mode == "full":
+        adj_variant = "masked_" if masked else ""
+    else:
+        adj_variant = "frozen_" if params.get("nsm") is not None else ""
+    adj_key = f"{adj_variant}{adjoint_key(spec)}_{suffix}"
+    f0 = flow.f.detach().clone().requires_grad_(True)
+    cells = f0[0].numel()
+
+    def grad_of(seg, x):
+        (grad,) = torch.autograd.grad((seg(x).float() ** 2).sum(), x)
+        return grad
+
+    segment = simulation.make_segment_fn(SEGMENT_STEPS)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    grad = grad_of(segment, f0)
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    launches = (half_launches(), half_adjoint_launches())
+    check(launches == ({fwd_key: SEGMENT_STEPS}, {adj_key: SEGMENT_STEPS})
+          and launch_counts() == (0, 0, 0)
+          and masked_launch_counts() == (0, 0, 0)
+          and not fragment_launches() and not adjoint_fragment_launches()
+          and not multi_launches() and not adjoint_multi_launches(),
+          f"{cell}: launches {launches}, float32 {launch_counts()}, "
+          f"{fragment_launches()}, {adjoint_fragment_launches()}")
+    wide = grad.float()
+    n_inf = int((~torch.isfinite(wide)).sum())
+    n_sub = int(((wide != 0) & (wide.abs() < torch.finfo(dtype).tiny))
+                .sum())
+    check(n_inf == 0 and wide.abs().max().item() > 0,
+          f"{cell}: {n_inf} non-finite entries, or a zero gradient")
+    chain_ulps = None
+    if chain:
+        chain_ulps = ulps_at_max(grad, half_plain_chain(params, f0))[0]
+        check(chain_ulps <= SEGMENT_STEPS,
+              f"{cell}: {str(dtype)[6:]} gradient vs the plain chain "
+              f"{chain_ulps:.2f} ulps at the largest magnitude")
+    x32 = f0.detach().float().requires_grad_(True)
+    grad32 = grad_of(reference.make_segment_fn(SEGMENT_STEPS), x32)
+    err_g, scale_g = scaled_err(wide, grad32)
+    del wide, x32, grad32
+    if rtol is not None:
+        check(err_g <= rtol * scale_g,
+              f"{cell}: {str(dtype)[6:]} gradient vs float32 {err_g} of "
+              f"{scale_g}")
+    grad_of(segment, f0)
+    torch.cuda.synchronize()
+    beg = time.perf_counter()
+    for _ in range(3):
+        grad_of(segment, f0)
+    torch.cuda.synchronize()
+    seconds = (time.perf_counter() - beg) / 3
+    mlups = cells * SEGMENT_STEPS / seconds / 1e6
+    del grad
+    torch.cuda.empty_cache()
+
+    f = f0.detach()
+    g = torch.randn(f.shape, generator=torch.Generator(device="cuda")
+                    .manual_seed(seed), device="cuda").to(dtype)
+    (forward, forward_plain, backward, backward_plain, vjp, out, ct,
+     res) = kernel_pair(params, f, g)
+    forward()
+    ref = forward_plain()
+    torch.cuda.synchronize()
+    if spec.residual == "u":
+        ref, ref_u = ref
+        err_u = (res - ref_u).abs().max().item()
+        check(res.dtype == torch.float32 and err_u <= ATOL[torch.float32],
+              f"{cell}: emitted u {res.dtype}, error {err_u}")
+        del ref_u
+    else:
+        err_u = 0.0
+    fwd_ulps, _, err_f = check_storage(out, ref, suffix, f"{cell} forward")
+    del ref
+    backward()
+    ref = backward_plain()
+    torch.cuda.synchronize()
+    adj_ulps, scale_a, err_a, _ = ulps_at_max(ct, ref)
+    del ref
+    torch.cuda.empty_cache()
+    check(adj_ulps <= 1.0, f"{cell} adjoint vs plain: {adj_ulps:.2f} ulps "
+                           f"at {scale_a:.3e}")
+    fwd_ms, fwd_plain_ms, fwd_turns = time_in_turns(
+        forward, forward_plain, kernel_repeats=repeats, plain_repeats=2)
+    adj_ms, adj_plain_ms, adj_turns = time_in_turns(
+        backward, backward_plain, kernel_repeats=repeats, plain_repeats=2)
+    vjp_ms = None if vjp is None else cuda_ms(vjp, 3)
+    q, d = np.asarray(params["e"]).shape
+    code = 1 if masked else 0
+    fwd_bytes = 2 * q * 2 + (4 * d if spec.residual == "u" else 0) + code
+    adj_bytes = (2 * q * 2 + {"u": 4 * d, "f": 2 * q, None: 0}[spec.residual]
+                 + code if spec.mode == "full" else 2 * q * 2)
+    fwd_bound = fwd_bytes * cells / HBM_BYTES_PER_S * 1e3
+    adj_bound = adj_bytes * cells / HBM_BYTES_PER_S * 1e3
+    saxpy_b = 1e9 * saxpy_gbps
+    print(f"phase 33: {cell} {str(dtype)[6:]} ({spec.mode} mode, {fwd_key} "
+          f"+ {adj_key}), {simulation.step_path}: {SEGMENT_STEPS}-step "
+          f"gradient launches {launches}; {n_inf} inf, {n_sub} subnormal "
+          f"entries; "
+          + ("" if chain_ulps is None else
+             f"vs the plain chain {chain_ulps:.2f} ulps at the largest "
+             f"magnitude (bar {SEGMENT_STEPS}); ")
+          + f"vs the float32 gradient {err_g:.3e} of {scale_g:.3e} "
+          f"({err_g / scale_g:.2e}"
+          + (f", bar {rtol:.0%}" if rtol is not None else ", reported")
+          + f"); peak memory above the state {peak:.2f} GiB; fwd+bwd "
+          f"{mlups:.1f} MLUPS ({seconds * 1e3:.2f} ms per gradient); per "
+          f"launch, CUDA events: forward {fwd_turns[1]:.4f} / "
+          f"{fwd_turns[2]:.4f} ms (plain {fwd_turns[0]:.4f} / "
+          f"{fwd_turns[3]:.4f}; {fwd_bytes} B/update, bound "
+          f"{fwd_bound:.4f} ms at 3.35 TB/s, "
+          f"{fwd_bytes * cells / saxpy_b * 1e3:.4f} at the saxpy), adjoint "
+          f"{adj_turns[1]:.4f} / {adj_turns[2]:.4f} ms (plain "
+          f"{adj_turns[0]:.4f} / {adj_turns[3]:.4f}; {adj_bytes} B/update, "
+          f"bound {adj_bound:.4f} ms at 3.35 TB/s, "
+          f"{adj_bytes * cells / saxpy_b * 1e3:.4f} at the saxpy)"
+          + ("" if vjp_ms is None else
+             f", split mode's pointwise VJP in torch {vjp_ms:.4f} ms")
+          + f"; kernel vs plain: forward {fwd_ulps:.2f} ulps (u "
+          f"{err_u:.1e}), adjoint {adj_ulps:.2f} ulps at the largest "
+          f"magnitude ({card})")
+    del f0, f, g, out, ct, res, segment
+    torch.cuda.empty_cache()
+    fragment = spec.fragment
+    return dict(
+        cell=cell, mode=spec.mode, dtype=dtype, mlups=mlups, err=err_g,
+        scale=scale_g, peak=peak, n_inf=n_inf, n_sub=n_sub,
+        chain_ulps=chain_ulps,
+        forward=dict(key=fwd_key, launches=SEGMENT_STEPS,
+                     err=max(err_f, err_u), ms=fwd_ms, plain_ms=fwd_plain_ms,
+                     cells=cells, bytes=fwd_bytes,
+                     ops=q * OPS_PER_POPULATION[
+                         "emit_u" if spec.residual == "u"
+                         and fragment == "bgk" else fragment],
+                     fragment=fragment, emit_u=spec.residual == "u"),
+        adjoint=dict(key=adj_key, launches=SEGMENT_STEPS, err=err_a,
+                     ms=adj_ms, plain_ms=adj_plain_ms, cells=cells,
+                     bytes=adj_bytes,
+                     ops=q * OPS_PER_POPULATION[
+                         "adjoint_" + adjoint_key(spec)],
+                     spec=adjoint_key(spec)),
+        vjp_ms=vjp_ms)
+
+
+def half_gradient_cells():
+    """The 16-bit gradient cells beside the main path, in bfloat16: the
+    full-mode fragment cells of phase 20 (TRT, MRT from_feq, Smagorinsky
+    D3Q19 and regularized D3Q27, 256^3), split mode's Guo BGK D2Q9 2048^2,
+    and obstacle2d_2048 through the masked kernels and the replay: (cell,
+    flow factory, collision factory). The MRT transform is built in
+    float32: a bfloat16 transform would round M^-1."""
+    import lettuce_tpu_torch as lt
+    cells = {cell: (make_flow, make_collision)
+             for cell, make_flow, make_collision, _ in gradient_cells()}
+
+    def mrt(flow):
+        wide = lt.Context(device="cuda", dtype=torch.float32)
+        return lt.MRTCollision(lt.D3Q19DHumieres(flow.stencil, wide),
+                               [flow.units.relaxation_parameter_lu] * 19,
+                               wide)
+
+    def obstacle(context):
+        flow = obstacle_flow(context)
+        if context.dtype != torch.float32:
+            wide = lt.Context(device="cuda", dtype=torch.float32)
+            flow.mask = obstacle_flow(wide).mask
+            flow.initialize()
+        return flow
+
+    return [
+        ("trt3d_256_d3q19", *cells["trt3d_256_d3q19"]),
+        ("mrt3d_256_d3q19", cells["mrt3d_256_d3q19"][0], mrt),
+        ("smagorinsky_d3q19", *cells["smagorinsky_d3q19"]),
+        ("reg3d_256_d3q27", *cells["reg3d_256_d3q27"]),
+        ("bgk_guo_d2q9", *cells["bgk_guo_d2q9"]),
+        ("obstacle2d_2048", obstacle,
+         lambda flow: lt.BGKCollision(flow.units.relaxation_parameter_lu)),
+    ]
+
+
+def phase33_half_gradient_path(card, saxpy_gbps, single_mlups):
+    """The gradient of a 16-bit state at full width: the main path (D3Q19
+    BGK TGV 256^3) in bfloat16 and float16 through make_segment_fn(8),
+    each within one storage ulp per step of the plain chain at 16 bits,
+    against the float32 gradient of the same loss from the upcast state
+    (float16 within 2 %, bfloat16 reported: HALF_GRAD_RTOL); then the
+    cells of half_gradient_cells in bfloat16, each
+    against its float32 gradient (reported). Launch counts, inf and
+    subnormal counts, peak memory, fwd+bwd MLUPS, and K1d and K3 at 16
+    bits per launch against plain and their bounds (half_gradient_cell)."""
+    import lettuce_tpu_torch as lt
+    runs = []
+    for seed, dtype in enumerate((torch.bfloat16, torch.float16),
+                                 start=3300):
+        simulation = tgv256(lt.Context(device="cuda", dtype=dtype,
+                                       use_native=True))
+        check(simulation.step_path == "cuda x1"
+              and simulation.adjoint_mode == "full",
+              f"{dtype} main path: {simulation.step_path}, "
+              f"{simulation.adjoint_mode}")
+        # float16 keeps the 2 % bar; bfloat16 reads 2.2 % at 8
+        # steps (HALF_GRAD_RTOL's note), so its distance is reported and
+        # its kernels are held to the plain chain at full width
+        runs.append(half_gradient_cell(
+            card, saxpy_gbps, "tgv3d_256_d3q19", simulation,
+            tgv256_simulation(), seed, repeats=100, chain=True,
+            rtol=HALF_GRAD_RTOL if dtype == torch.float16 else None))
+        del simulation
+        torch.cuda.empty_cache()
+    print(f"phase 33: main path fwd+bwd bfloat16 {runs[0]['mlups']:.1f}, "
+          f"float16 {runs[1]['mlups']:.1f} MLUPS against float32's "
+          f"{single_mlups:.1f} (phase 7) ({card})")
+    for seed, (cell, make_flow, make_collision) in enumerate(
+            half_gradient_cells(), start=3310):
+        flows = [make_flow(lt.Context(device="cuda", dtype=dtype,
+                                      use_native=True))
+                 for dtype in (torch.bfloat16, torch.float32)]
+        simulation, reference = (lt.Simulation(flow, make_collision(flow),
+                                               []) for flow in flows)
+        check(simulation.step_path == reference.step_path
+              and simulation._step_kind == "cuda"
+              and simulation.adjoint_mode == reference.adjoint_mode,
+              f"{cell}: {simulation.step_path}, {simulation.adjoint_mode}")
+        runs.append(half_gradient_cell(card, saxpy_gbps, cell, simulation,
+                                       reference, seed, repeats=50))
+        del simulation, reference, flows
+        torch.cuda.empty_cache()
+    return runs
+
+
+def phase34_half_blocked_gradient(card, saxpy_gbps, half_runs):
+    """The blocked gradient of a bfloat16 state: the main path at
+    LETTUCE_NSUB=2 through make_segment_fn(8) (4 K2 and 4 K4 launches at
+    16 bits, no single-step one), within one storage ulp per launch of the
+    plain chain and within 2 % of the float32 gradient;
+    fwd+bwd MLUPS against phase 33's single-step bfloat16 run in this
+    process; K2 + K4 at 16 bits per two steps in turns with K1d + K3 at
+    16 bits, and K4 at 16 bits per launch against its plain version."""
+    import lettuce_tpu_torch as lt
+    from lettuce_tpu_torch.ops.cuda import adjoint
+    import lettuce_tpu_torch.ops.cuda.stream_collide as sc
+    with_span(2)
+    simulation = tgv256(lt.Context(device="cuda", dtype=torch.bfloat16,
+                                   use_native=True))
+    with_span(None)
+    check(simulation.step_path == "cuda x2"
+          and simulation._step_multi[0].adjoint_kernel,
+          f"bfloat16 blocked gradient path: {simulation.step_path}")
+    f0 = simulation.flow.f.detach().clone().requires_grad_(True)
+    cells = f0[0].numel()
+
+    def grad_of(seg, x):
+        (grad,) = torch.autograd.grad((seg(x).float() ** 2).sum(), x)
+        return grad
+
+    segment = simulation.make_segment_fn(SEGMENT_STEPS)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    grad = grad_of(segment, f0)
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    k2, k4 = multi_launches(), adjoint_multi_launches()
+    check(k2 == {"bgk_bf16_x2": 4} and k4 == {"bgk_bf16_x2": 4}
+          and not half_launches() and not half_adjoint_launches()
+          and launch_counts() == (0, 0, 0),
+          f"bfloat16 blocked gradient: K2 {k2}, K4 {k4}, single-step "
+          f"{half_launches()}, {half_adjoint_launches()}")
+    wide = grad.float()
+    check(bool(torch.isfinite(wide).all()) and wide.abs().max().item() > 0,
+          "bfloat16 blocked gradient not finite or zero")
+    chain_ulps = ulps_at_max(grad, half_plain_chain(
+        simulation._kernel_params, f0, blocked=True))[0]
+    check(chain_ulps <= SEGMENT_STEPS // 2,
+          f"bfloat16 blocked gradient vs the plain chain {chain_ulps:.2f} "
+          f"ulps at the largest magnitude")
+    x32 = f0.detach().float().requires_grad_(True)
+    grad32 = grad_of(tgv256_simulation().make_segment_fn(SEGMENT_STEPS), x32)
+    err, scale = scaled_err(wide, grad32)
+    del wide, x32, grad32
+    check(err <= HALF_GRAD_RTOL * scale,
+          f"bfloat16 blocked gradient vs float32: {err} of {scale}")
+    grad_of(segment, f0)
+    torch.cuda.synchronize()
+    beg = time.perf_counter()
+    for _ in range(3):
+        grad_of(segment, f0)
+    torch.cuda.synchronize()
+    seconds = (time.perf_counter() - beg) / 3
+    mlups = cells * SEGMENT_STEPS / seconds / 1e6
+    del grad
+    torch.cuda.empty_cache()
+
+    params = simulation._kernel_params
+    f = f0.detach()
+    g1 = torch.randn(f.shape, generator=torch.Generator(device="cuda")
+                     .manual_seed(34), device="cuda").to(torch.bfloat16)
+    out, ct = torch.empty_like(f), torch.empty_like(f)
+    u = torch.empty((3, *f.shape[1:]), dtype=torch.float32, device="cuda")
+    got = adjoint.stream_collide_adjoint_multi(f, g1, 2, **params, out=ct)
+    ref = adjoint.stream_collide_adjoint_multi_plain(f, g1, 2, **params)
+    torch.cuda.synchronize()
+    ulps4, scale4, err4, ulp4 = ulps_at_max(got, ref)
+    bar = 1.0 + 2 * F32_FLOOR * scale4 / ulp4
+    check(ulps4 <= bar, f"256^3 K4 bf16 vs plain: {ulps4:.2f} ulps")
+    del ref, got
+
+    def single_pair():
+        for _ in range(2):
+            sc.stream_collide(f, **params, out=out, u_out=u)
+            adjoint.stream_collide_adjoint(g1, u, **params, out=ct)
+
+    def blocked_pair():
+        sc.stream_collide(f, **params, out=out, n_sub=2)
+        adjoint.stream_collide_adjoint_multi(f, g1, 2, **params, out=ct)
+
+    def k2_launch():
+        sc.stream_collide(f, **params, out=out, n_sub=2)
+
+    def k4_launch():
+        adjoint.stream_collide_adjoint_multi(f, g1, 2, **params, out=ct)
+
+    def k4_plain():
+        adjoint.stream_collide_adjoint_multi_plain(f, g1, 2, **params)
+
+    single_pair()
+    blocked_pair()
+    s_a = cuda_ms(single_pair, 20)
+    b_a = cuda_ms(blocked_pair, 20)
+    b_b = cuda_ms(blocked_pair, 20)
+    s_b = cuda_ms(single_pair, 20)
+    k2_ms = cuda_ms(k2_launch, 20)
+    k4_ms, k4_plain_ms, turns = time_in_turns(k4_launch, k4_plain,
+                                              kernel_repeats=20,
+                                              plain_repeats=2)
+    single_mlups = half_runs[0]["mlups"]
+    bytes4 = ADJOINT_MULTI_HALF_BYTES_PER_UPDATE
+    print(f"phase 34: {SEGMENT_STEPS}-step gradient at 256^3 bfloat16, span "
+          f"2: K2 {k2}, K4 {k4}, no single-step launch; vs the plain chain "
+          f"{chain_ulps:.2f} ulps at the largest magnitude (bar "
+          f"{SEGMENT_STEPS // 2}); vs the float32 "
+          f"gradient {err:.3e} of {scale:.3e} ({err / scale:.2e}, bar "
+          f"{HALF_GRAD_RTOL:.0%}); fwd+bwd {mlups:.1f} MLUPS ({seconds * 1e3:.2f}"
+          f" ms per gradient) against the single-step bfloat16 kernels' "
+          f"{single_mlups:.1f} (phase 33); peak memory above the state "
+          f"{peak:.2f} GiB; per step, CUDA events in turns: K1d + K3 at 16 "
+          f"bits {s_a / 2:.4f} / {s_b / 2:.4f} ms, K2 + K4 at span 2 "
+          f"{b_a / 2:.4f} / {b_b / 2:.4f} ms; K2 per launch {k2_ms:.4f} ms; "
+          f"K4 per launch {turns[1]:.4f} / {turns[2]:.4f} ms, plain "
+          f"{turns[0]:.2f} / {turns[3]:.2f} ms, {ulps4:.2f} ulps from plain "
+          f"at {scale4:.3e}; {bytes4} B per update per launch, bound "
+          f"{bytes4 * cells / HBM_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s, "
+          f"{bytes4 * cells / (1e9 * saxpy_gbps) * 1e3:.4f} at the saxpy "
+          f"({card})")
+    del simulation, f0, f, out, ct, u, g1, segment
+    torch.cuda.empty_cache()
+    return dict(k2_launches=k2["bgk_bf16_x2"], k4_launches=k4["bgk_bf16_x2"],
+                err=err4, ms=k4_ms, plain_ms=k4_plain_ms, cells=cells,
+                mlups=mlups, peak=peak, k2_ms=k2_ms,
+                pair_ms=(b_a + b_b) / 4, single_pair_ms=(s_a + s_b) / 4)
+
+
+def half_gradient_entries(worst, runs, blocked):
+    """The kernels-line entries of a 16-bit state's gradient: per cell of
+    phase 33 its K1d at 16 bits (the emit-u forward; the forward of the
+    f-residual and split cells is K1f, listed by phase 25) and its K3 at
+    16 bits, and K4 at 16 bits from phase 34; max_abs_err also covers
+    phase 32's runs of the instance."""
+    import lettuce_tpu_torch.ops.cuda.stream_collide as sc
+    entries = []
+    for run in runs:
+        fwd, adj = run["forward"], run["adjoint"]
+        label = f"[{run['cell']}]"
+        if fwd["emit_u"]:
+            base = ("stream_collide" if fwd["fragment"] == "bgk"
+                    else sc.FRAGMENTS[fwd["fragment"]][0])
+            entries.append(kernel_entry(
+                f"stream_collide_{fwd['key']}{label}",
+                f"lettuce_tpu_torch/csrc/{sc.HALF_SOURCES[base]}.cu",
+                EMIT_U_HALF_REPLACES, fwd["launches"],
+                max(fwd["err"], worst.get(fwd["key"], (0.0, 0.0))[0]),
+                fwd["ms"], fwd["plain_ms"], fwd["cells"], fwd["bytes"],
+                fwd["ops"], cell=run["cell"]))
+        entries.append(kernel_entry(
+            f"stream_collide_adjoint_{adj['key']}{label}",
+            ADJOINT_HALF_SOURCE, ADJOINT_HALF_REPLACES, adj["launches"],
+            max(adj["err"], worst.get("adjoint_" + adj["key"],
+                                      (0.0, 0.0))[0]),
+            adj["ms"], adj["plain_ms"], adj["cells"], adj["bytes"],
+            adj["ops"], cell=run["cell"], mode=run["mode"]))
+    entries.append(kernel_entry(
+        "stream_collide_adjoint_multi_bgk_bf16_x2",
+        ADJOINT_MULTI_HALF_SOURCE, ADJOINT_MULTI_REPLACES,
+        blocked["k4_launches"],
+        max(blocked["err"], worst.get("multi_bgk_bf16_x2", (0.0, 0.0))[0]),
+        blocked["ms"], blocked["plain_ms"], blocked["cells"],
+        ADJOINT_MULTI_HALF_BYTES_PER_UPDATE,
+        2 * 19 * (OPS_PER_POPULATION["bgk"]
+                  + OPS_PER_POPULATION["adjoint_bgk"]),
+        span=2, ms_per_step=blocked["ms"] / 2,
+        k2_launches=blocked["k2_launches"]))
+    return entries
+
+
 def masked_multi_entries(worst_masked_multi, bounded):
     """The kernels-line entries of K2 masked: one per bounded cell and
     span (float32 x2 and x4, bf16-dev x2 for Couette and the cavity), with
@@ -3732,6 +4411,11 @@ def main():
     worst_masked_multi = phase29_masked_multi_instances_vs_plain()
     bounded = phase30_blocked_bounded_cells(card, saxpy_gbps)
     phase31_cavity_gate_blocked(card, cavity_dev)
+    worst_half_gradient = phase32_half_gradient_instances_vs_plain()
+    half_gradient = phase33_half_gradient_path(card, saxpy_gbps,
+                                               grad_path["mlups"])
+    half_blocked = phase34_half_blocked_gradient(card, saxpy_gbps,
+                                                 half_gradient)
     print(f"build {build_s:.2f} s; whole run {time.perf_counter() - beg:.1f} "
           f"s")
     print(card)
@@ -3806,6 +4490,8 @@ def main():
     kernels += half_entries(worst_half, half_main, half_cells, half_state)
     kernels += multi_entries(worst_multi, blocked, blocked_gradient)
     kernels += masked_multi_entries(worst_masked_multi, bounded)
+    kernels += half_gradient_entries(worst_half_gradient, half_gradient,
+                                     half_blocked)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -66,14 +66,13 @@ struct BgkAdjoint {
         [&] { return p.tau_inv * h[0]; }, NoExtra{}, NoExtra{}, sink);
   }
 
-  __device__ __forceinline__ static void transpose(const Params& p,
-                                                   T (&h)[S::Q],
-                                                   const T* __restrict__ res,
-                                                   int64_t n, int64_t cell,
-                                                   T* __restrict__ out) {
+  template <class St>
+  __device__ __forceinline__ static void transpose(
+      const Params& p, T (&h)[S::Q], const T* __restrict__ res, int64_t n,
+      int64_t cell, typename St::V* __restrict__ out) {
     T u[S::D];
     load_u<S, T>(res, n, cell, u);
-    transpose_u(p, h, u, CellSink<T>{out, n, cell});
+    transpose_u(p, h, u, CellSink<St>{out, n, cell});
   }
 };
 

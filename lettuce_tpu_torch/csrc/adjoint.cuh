@@ -13,8 +13,9 @@
 // [d, *grid], the step's input f [q, *grid], or nothing), a Params struct
 // (passed by value as a __grid_constant__ kernel parameter), a host-side
 // Params load(params, cs) from the C entry's float64 array, and a
-// __device__ transpose(p, h, res, n, cell, out) that writes the q values of
-// ct = J^T h for one cell; the policies with a u residual (or none) also
+// __device__ transpose<St>(p, h, res, n, cell, out) that writes the q
+// values of ct = J^T h for one cell in the storage St; the policies with a
+// u residual (or none) also
 // have transpose_u(p, h, u, sink), the same with u given, handing each
 // value to a sink's put<q> (the blocked adjoint, adjoint_multi.cuh, sinks
 // into its tile). Every f-linear policy (f' = f - M (f - feq(f)))
@@ -39,6 +40,17 @@
 //     frozen re-route alone, which split mode's streaming transpose needs
 //     (build_adjoint_step :763-764, :786-788).
 //
+// The storage policy St (stream_collide.cuh's Same<T>, half_storage.cuh's
+// Bf16 and F16Storage) says how the cotangent is held in device memory. A
+// 16-bit cotangent (K3 at 16 bits, adjoint_half.cu) loads as float32
+// (exact), every sum runs in float32 in the same order, and each stored
+// value rounds once to nearest even (the TPU kernel's compute_dtype,
+// adjoint.py:167-174). A u residual is always in the compute type (the
+// 16-bit emit-u forward writes it in float32, stream_collide.py:1778-1779);
+// an f residual is stored like the state and loads like the cotangent.
+// Same<T> converts nothing, so the float32 and float64 instances compile
+// to what they were before the storage split.
+//
 // What bounds it: device memory. The shifted accesses are the loads (a
 // warp's g_q loads straddle two 128 B lines for e_q with a component along
 // the fastest axis); every store is aligned and coalesced, the mirror image
@@ -47,6 +59,7 @@
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 
@@ -62,28 +75,35 @@ __host__ __device__ constexpr int sym(int a, int b) {
   return a * S::D - a * (a - 1) / 2 + (b - a);
 }
 
-template <class S, class T, int q = 0>
-__device__ __forceinline__ void pull(const T* __restrict__ g,
-                                     const Neighbours& nb, T (&h)[S::Q]) {
+// The residual a policy reads: the pre-collision u in the compute type,
+// or the step's input f stored like the state (St::V).
+template <class A, class St>
+using residual_t = std::conditional_t<A::kResidual == kResidualF,
+                                      typename St::V, typename A::T>;
+
+template <class S, class St, int q = 0>
+__device__ __forceinline__ void pull(const typename St::V* __restrict__ g,
+                                     const Neighbours& nb,
+                                     typename St::T (&h)[S::Q]) {
   if constexpr (q < S::Q) {
-    h[q] = __ldg(g + shifted_index<S, q, 1>(nb));
-    pull<S, T, q + 1>(g, nb, h);
+    h[q] = St::raw(g + shifted_index<S, q, 1>(nb));
+    pull<S, St, q + 1>(g, nb, h);
   }
 }
 
 // Pull with frozen populations (see the header comment).
-template <class S, class T, int q = 0>
-__device__ __forceinline__ void pull_frozen(const T* __restrict__ g,
-                                            const uint8_t* __restrict__ nsm,
-                                            const Neighbours& nb,
-                                            int64_t cell, T (&h)[S::Q]) {
+template <class S, class St, int q = 0>
+__device__ __forceinline__ void pull_frozen(
+    const typename St::V* __restrict__ g, const uint8_t* __restrict__ nsm,
+    const Neighbours& nb, int64_t cell, typename St::T (&h)[S::Q]) {
+  using T = typename St::T;
   if constexpr (q < S::Q) {
     const int64_t src = shifted_index<S, q, 1>(nb);
     const int64_t here = q * nb.n + cell;
-    const T streamed = nsm[src] ? T(0) : __ldg(g + src);
-    const T kept = nsm[here] ? __ldg(g + here) : T(0);
+    const T streamed = nsm[src] ? T(0) : St::raw(g + src);
+    const T kept = nsm[here] ? St::raw(g + here) : T(0);
     h[q] = streamed + kept;
-    pull_frozen<S, T, q + 1>(g, nsm, nb, cell, h);
+    pull_frozen<S, St, q + 1>(g, nsm, nb, cell, h);
   }
 }
 
@@ -132,15 +152,15 @@ EquilibriumConsts<T> equilibrium_consts(double cs) {
                               T(0.5 * inv_cs2 * inv_cs2)};
 }
 
-// Where a cell's cotangent goes: out[q, cell].
-template <class T>
+// Where a cell's cotangent goes: out[q, cell], in the storage St.
+template <class St>
 struct CellSink {
-  T* __restrict__ out;
+  typename St::V* __restrict__ out;
   int64_t n, cell;
 
   template <int q>
-  __device__ __forceinline__ void put(T value) const {
-    out[q * n + cell] = value;
+  __device__ __forceinline__ void put(typename St::T value) const {
+    out[q * n + cell] = St::pack(value);
   }
 };
 
@@ -244,11 +264,11 @@ __device__ __forceinline__ void load_u(const T* __restrict__ res, int64_t n,
 }
 
 // The transpose of a boundary cell's replacement.
-template <class S, class T, int q = 0>
-__device__ __forceinline__ void boundary_adjoint(int kind,
-                                                 const T (&h)[S::Q],
-                                                 T* __restrict__ out,
-                                                 int64_t n, int64_t cell) {
+template <class S, class St, int q = 0>
+__device__ __forceinline__ void boundary_adjoint(
+    int kind, const typename St::T (&h)[S::Q],
+    typename St::V* __restrict__ out, int64_t n, int64_t cell) {
+  using T = typename St::T;
   if constexpr (q < S::Q) {
     T v;
     if (kind == kBounceBack) {
@@ -258,19 +278,19 @@ __device__ __forceinline__ void boundary_adjoint(int kind,
     } else {  // the equilibrium kinds are constant in f
       v = T(0);
     }
-    out[q * n + cell] = v;
-    boundary_adjoint<S, T, q + 1>(kind, h, out, n, cell);
+    out[q * n + cell] = St::pack(v);
+    boundary_adjoint<S, St, q + 1>(kind, h, out, n, cell);
   }
 }
 
 // ---------------------------------------------------------------------------
 // the kernels
 // ---------------------------------------------------------------------------
-template <class A>
+template <class A, class St>
 __global__ void __launch_bounds__(kBlock)
-    adjoint_kernel(const typename A::T* __restrict__ g,
-                   const typename A::T* __restrict__ res,
-                   typename A::T* __restrict__ out, int64_t n0, int64_t n1,
+    adjoint_kernel(const typename St::V* __restrict__ g,
+                   const residual_t<A, St>* __restrict__ res,
+                   typename St::V* __restrict__ out, int64_t n0, int64_t n1,
                    int64_t n2, const __grid_constant__ typename A::Params p) {
   using S = typename A::S;
   using T = typename A::T;
@@ -282,14 +302,15 @@ __global__ void __launch_bounds__(kBlock)
   const int64_t cell = (i * n1 + j) * n2 + k;
 
   T h[S::Q];
-  pull<S, T>(g, nb, h);
-  A::transpose(p, h, res, nb.n, cell, out);
+  pull<S, St>(g, nb, h);
+  A::template transpose<St>(p, h, res, nb.n, cell, out);
 }
 
-template <class A>
+template <class A, class St>
 __global__ void __launch_bounds__(kBlock) masked_adjoint_kernel(
-    const typename A::T* __restrict__ g,
-    const typename A::T* __restrict__ res, typename A::T* __restrict__ out,
+    const typename St::V* __restrict__ g,
+    const residual_t<A, St>* __restrict__ res,
+    typename St::V* __restrict__ out,
     const uint8_t* __restrict__ ncm, const uint8_t* __restrict__ nsm,
     const __grid_constant__ CodeKinds kinds, int64_t n0, int64_t n1,
     int64_t n2, const __grid_constant__ typename A::Params p) {
@@ -304,28 +325,38 @@ __global__ void __launch_bounds__(kBlock) masked_adjoint_kernel(
 
   T h[S::Q];
   if (nsm == nullptr) {
-    pull<S, T>(g, nb, h);
+    pull<S, St>(g, nb, h);
   } else {
-    pull_frozen<S, T>(g, nsm, nb, cell, h);
+    pull_frozen<S, St>(g, nsm, nb, cell, h);
   }
   const int kind =
       ncm == nullptr ? int(kCollide) : kind_of(kinds.kind, ncm[cell]);
   if (kind == kCollide) {
-    A::transpose(p, h, res, nb.n, cell, out);
+    A::template transpose<St>(p, h, res, nb.n, cell, out);
   } else {
-    boundary_adjoint<S, T>(kind, h, out, nb.n, cell);
+    boundary_adjoint<S, St>(kind, h, out, nb.n, cell);
   }
 }
 
 // ---------------------------------------------------------------------------
 // host launchers: each returns cudaGetLastError()
 // ---------------------------------------------------------------------------
-template <class A>
+// The storage St computes in the policy's type and holds the state itself
+// (the adjoints take no deviations: deviation storage has no gradient).
+template <class A, class St>
+constexpr bool adjoint_storage_ok() {
+  return std::is_same_v<typename A::T, typename St::T> && !St::kDeviation;
+}
+
+template <class A, class St = Same<typename A::T>>
 int launch_adjoint(const void* g, const void* res, void* out, int64_t n0,
                    int64_t n1, int64_t n2, const typename A::Params& p,
                    int device, void* stream) {
   using S = typename A::S;
-  using T = typename A::T;
+  using V = typename St::V;
+  using R = residual_t<A, St>;
+  static_assert(adjoint_storage_ok<A, St>(),
+                "the storage computes in the policy's type, no deviations");
   static_assert(pair_weights_symmetric<S>(),
                 "the pair-folded moments need w[q] == w[opposite[q]]");
   static_assert(is_rest<S>(0), "the rest direction is q = 0");
@@ -333,23 +364,26 @@ int launch_adjoint(const void* g, const void* res, void* out, int64_t n0,
                 "kernel parameters exceed the launch's parameter space");
   const int err = use_device(device);
   if (err != 0) return err;
-  adjoint_kernel<A><<<launch_grid(n0, n1, n2), kBlock, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(g), static_cast<const T*>(res),
-      static_cast<T*>(out), n0, n1, n2, p);
+  adjoint_kernel<A, St><<<launch_grid(n0, n1, n2), kBlock, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const V*>(g), static_cast<const R*>(res),
+      static_cast<V*>(out), n0, n1, n2, p);
   return static_cast<int>(cudaGetLastError());
 }
 
 // ncm may be null (no code routing; kinds is then unread and may be null),
 // nsm may be null (nothing frozen).
-template <class A>
+template <class A, class St = Same<typename A::T>>
 int launch_masked_adjoint(const void* g, const void* res, void* out,
                           const void* ncm, const void* nsm,
                           const int32_t* kinds, int64_t n0, int64_t n1,
                           int64_t n2, const typename A::Params& p, int device,
                           void* stream) {
   using S = typename A::S;
-  using T = typename A::T;
+  using V = typename St::V;
+  using R = residual_t<A, St>;
+  static_assert(adjoint_storage_ok<A, St>(),
+                "the storage computes in the policy's type, no deviations");
   static_assert(pair_weights_symmetric<S>(),
                 "the pair-folded moments need w[q] == w[opposite[q]]");
   static_assert(is_rest<S>(0), "the rest direction is q = 0");
@@ -361,10 +395,10 @@ int launch_masked_adjoint(const void* g, const void* res, void* out,
     return static_cast<int>(cudaErrorInvalidValue);
   const int err = use_device(device);
   if (err != 0) return err;
-  masked_adjoint_kernel<A><<<launch_grid(n0, n1, n2), kBlock, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(g), static_cast<const T*>(res),
-      static_cast<T*>(out), static_cast<const uint8_t*>(ncm),
+  masked_adjoint_kernel<A, St><<<launch_grid(n0, n1, n2), kBlock, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const V*>(g), static_cast<const R*>(res),
+      static_cast<V*>(out), static_cast<const uint8_t*>(ncm),
       static_cast<const uint8_t*>(nsm), table, n0, n1, n2, p);
   return static_cast<int>(cudaGetLastError());
 }
@@ -375,25 +409,28 @@ int launch_masked_adjoint(const void* g, const void* res, void* out,
 // float64, for the policy template POLICY on stencil S. ``params`` is the
 // host float64 array the policy's load() reads.
 #define LT_ADJOINT_ENTRIES(FRAG, STENCIL, POLICY, S)                          \
-  LT_ADJOINT_ENTRY(FRAG, STENCIL, POLICY, S, f32, float)                      \
-  LT_ADJOINT_ENTRY(FRAG, STENCIL, POLICY, S, f64, double)
+  LT_ADJOINT_ENTRY(FRAG, STENCIL, POLICY, S, f32, lt::Same<float>)            \
+  LT_ADJOINT_ENTRY(FRAG, STENCIL, POLICY, S, f64, lt::Same<double>)
 
-#define LT_ADJOINT_ENTRY(FRAG, STENCIL, POLICY, S, SUFFIX, T)                 \
+// The periodic and masked entries of POLICY on S with the storage policy
+// STORAGE of the cotangent, whose compute type the policy runs in.
+#define LT_ADJOINT_ENTRY(FRAG, STENCIL, POLICY, S, SUFFIX, STORAGE)           \
   int lt_adjoint_##FRAG##_##STENCIL##_##SUFFIX(                               \
       const void* g, const void* res, void* out, int64_t n0, int64_t n1,     \
       int64_t n2, const double* params, double cs, int device,               \
       void* stream) {                                                         \
-    using A = POLICY<lt::S, T>;                                               \
-    return lt::launch_adjoint<A>(g, res, out, n0, n1, n2,                     \
-                                 A::load(params, cs), device, stream);        \
+    using A = POLICY<lt::S, typename STORAGE::T>;                             \
+    return lt::launch_adjoint<A, STORAGE>(g, res, out, n0, n1, n2,            \
+                                          A::load(params, cs), device,       \
+                                          stream);                            \
   }                                                                           \
   int lt_adjoint_##FRAG##_masked_##STENCIL##_##SUFFIX(                        \
       const void* g, const void* res, void* out, const void* ncm,            \
       const void* nsm, const int32_t* kinds, int64_t n0, int64_t n1,         \
       int64_t n2, const double* params, double cs, int device,               \
       void* stream) {                                                         \
-    using A = POLICY<lt::S, T>;                                               \
-    return lt::launch_masked_adjoint<A>(g, res, out, ncm, nsm, kinds, n0,    \
-                                        n1, n2, A::load(params, cs), device, \
-                                        stream);                              \
+    using A = POLICY<lt::S, typename STORAGE::T>;                             \
+    return lt::launch_masked_adjoint<A, STORAGE>(                             \
+        g, res, out, ncm, nsm, kinds, n0, n1, n2, A::load(params, cs),       \
+        device, stream);                                                      \
   }

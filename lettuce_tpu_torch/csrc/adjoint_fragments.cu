@@ -58,12 +58,12 @@ struct NoneAdjoint {
     });
   }
 
-  __device__ __forceinline__ static void transpose(const Params&,
-                                                   T (&h)[S::Q], const T*,
-                                                   int64_t n, int64_t cell,
-                                                   T* __restrict__ out) {
+  template <class St>
+  __device__ __forceinline__ static void transpose(
+      const Params&, T (&h)[S::Q], const T*, int64_t n, int64_t cell,
+      typename St::V* __restrict__ out) {
 #pragma unroll
-    for (int q = 0; q < S::Q; ++q) out[q * n + cell] = h[q];
+    for (int q = 0; q < S::Q; ++q) out[q * n + cell] = St::pack(h[q]);
   }
 };
 
@@ -102,14 +102,13 @@ struct TrtAdjoint {
         [&] { return p.two_cp * h[0]; }, NoExtra{}, NoExtra{}, sink);
   }
 
-  __device__ __forceinline__ static void transpose(const Params& p,
-                                                   T (&h)[S::Q],
-                                                   const T* __restrict__ res,
-                                                   int64_t n, int64_t cell,
-                                                   T* __restrict__ out) {
+  template <class St>
+  __device__ __forceinline__ static void transpose(
+      const Params& p, T (&h)[S::Q], const T* __restrict__ res, int64_t n,
+      int64_t cell, typename St::V* __restrict__ out) {
     T u[S::D];
     load_u<S, T>(res, n, cell, u);
-    transpose_u(p, h, u, CellSink<T>{out, n, cell});
+    transpose_u(p, h, u, CellSink<St>{out, n, cell});
   }
 };
 
@@ -174,14 +173,13 @@ struct MatvecAdjoint {
         NoExtra{}, NoExtra{}, sink);
   }
 
-  __device__ __forceinline__ static void transpose(const Params& p,
-                                                   T (&h)[S::Q],
-                                                   const T* __restrict__ res,
-                                                   int64_t n, int64_t cell,
-                                                   T* __restrict__ out) {
+  template <class St>
+  __device__ __forceinline__ static void transpose(
+      const Params& p, T (&h)[S::Q], const T* __restrict__ res, int64_t n,
+      int64_t cell, typename St::V* __restrict__ out) {
     T u[S::D];
     load_u<S, T>(res, n, cell, u);
-    transpose_u(p, h, u, CellSink<T>{out, n, cell});
+    transpose_u(p, h, u, CellSink<St>{out, n, cell});
   }
 };
 
@@ -228,15 +226,15 @@ struct SmagAdjoint {
                   T(cs2), T(0.25 / (cs2 * cs2)), equilibrium_consts<T>(cs)};
   }
 
-  __device__ __forceinline__ static void transpose(const Params& p,
-                                                   T (&h)[S::Q],
-                                                   const T* __restrict__ res,
-                                                   int64_t n, int64_t cell,
-                                                   T* __restrict__ out) {
+  // res is the step's input f, stored like the cotangent (St)
+  template <class St>
+  __device__ __forceinline__ static void transpose(
+      const Params& p, T (&h)[S::Q], const typename St::V* __restrict__ res,
+      int64_t n, int64_t cell, typename St::V* __restrict__ out) {
     constexpr int D = S::D;
     T fv[S::Q];
 #pragma unroll
-    for (int q = 0; q < S::Q; ++q) fv[q] = __ldg(res + q * n + cell);
+    for (int q = 0; q < S::Q; ++q) fv[q] = St::raw(res + q * n + cell);
     T rho = T(0), jm[D];
 #pragma unroll
     for (int a = 0; a < D; ++a) jm[a] = T(0);
@@ -323,7 +321,7 @@ struct SmagAdjoint {
           xp = c0 * (even - T(2) * godd);
           xm = c0 * (even + T(2) * godd);
         },
-        [&] { return c0 * base; }, CellSink<T>{out, n, cell});
+        [&] { return c0 * base; }, CellSink<St>{out, n, cell});
   }
 };
 

@@ -7,8 +7,18 @@
 // Replaces lettuce_tpu/ops/pallas/adjoint.py::_adjoint_multi_kernel (:984,
 // fused_adjoint_multi :1097): periodic grids, the f-linear collisions whose
 // adjoint reads the pre-collision u (BGK, TRT, the regularized and the
-// folded MRT through matvec) and the identity, float32 and float64. The
-// forward's only residual is the launch input f.
+// folded MRT through matvec) and the identity, float32 and float64, and a
+// bfloat16 or float16 state and cotangent (the storage policy St of
+// half_storage.cuh, adjoint_multi_half.cu). The forward's only residual is
+// the launch input f.
+//
+// At 16 bits the tile stays float32 throughout: f and g convert on load
+// (exact), the replay and the backward sweep compute in float32 between
+// levels, as K2 keeps its tile (multi_sweep.cuh), and the cotangent rounds
+// once, at the store. The TPU kernel keeps its slabs and computes in the
+// storage dtype (adjoint.py:1007, :1152-1154) while its forward keeps a
+// float32 slab (stream_collide.py:1760-1762): it replays a trajectory its
+// forward never took. This kernel replays the forward's own (ROADMAP F11).
 //
 // What it computes, per tile (multi_sweep.cuh's tiles, with a halo of
 // max(n_sub, 2 (n_sub - 1)) cells, adjoint.py:954-981):
@@ -113,9 +123,9 @@ __device__ __forceinline__ void adjoint_level(const typename A::Params& p,
 }
 
 // Phase: level 0 on the interior, into out.
-template <class A>
+template <class A, class St>
 __device__ __forceinline__ void adjoint_store(const typename A::Params& p,
-                                              typename A::T* __restrict__ out,
+                                              typename St::V* __restrict__ out,
                                               const typename A::T* buf,
                                               const typename A::T* ubuf,
                                               const TileGeom& t,
@@ -131,14 +141,15 @@ __device__ __forceinline__ void adjoint_store(const typename A::Params& p,
     if (!interior_cell(t, o, i, c, gi)) continue;
     T h[S::Q], u[S::D];
     pulled<S, T>(buf, ubuf, t, c, n_sub, 0, h, u);
-    A::transpose_u(p, h, u, CellSink<T>{out, n, gi});
+    A::transpose_u(p, h, u, CellSink<St>{out, n, gi});
   }
 }
 
-template <class C, class A>
+template <class C, class A, class St>
 __global__ void __launch_bounds__(kMultiBlock) adjoint_multi_kernel(
-    const typename C::T* __restrict__ f, const typename C::T* __restrict__ g,
-    typename C::T* __restrict__ out, typename C::T* scratch,
+    const typename St::V* __restrict__ f,
+    const typename St::V* __restrict__ g, typename St::V* __restrict__ out,
+    typename C::T* scratch,
     const __grid_constant__ TileGeom t, int n_sub, int halo,
     const __grid_constant__ typename C::Params pf,
     const __grid_constant__ typename A::Params pa) {
@@ -149,26 +160,27 @@ __global__ void __launch_bounds__(kMultiBlock) adjoint_multi_kernel(
   for (int64_t tile = blockIdx.x; tile < t.ntiles; tile += gridDim.x) {
     int64_t o[3];
     tile_origin(t, tile, o);
-    load_tile<S, Same<T>>(f, buf, t, o);
+    load_tile<S, St>(f, buf, t, o);
     __syncthreads();
     for (int k = 0; k < n_sub; ++k) {
       replay_level<C>(pf, buf, ubuf, t, k, k == n_sub - 1);
       __syncthreads();
     }
-    load_tile<S, Same<T>>(g, buf, t, o);
+    load_tile<S, St>(g, buf, t, o);
     __syncthreads();
     for (int kk = n_sub - 1; kk > 0; --kk) {
       adjoint_level<A>(pa, buf, ubuf, t, kk, n_sub, halo);
       __syncthreads();
     }
-    adjoint_store<A>(pa, out, buf, ubuf, t, o, n_sub);
+    adjoint_store<A, St>(pa, out, buf, ubuf, t, o, n_sub);
     __syncthreads();
   }
 }
 
 // Host launcher: as launch_multi, with the halo (at least
-// max(n_sub, 2 (n_sub - 1))) and a tile of q + n_sub d values per cell.
-template <class C, class A>
+// max(n_sub, 2 (n_sub - 1))) and a tile of q + n_sub d values of the
+// compute type per cell, whatever the storage St.
+template <class C, class A, class St = Same<typename C::T>>
 int launch_adjoint_multi(const void* f, const void* g, void* out,
                          void* scratch, int64_t n0, int64_t n1, int64_t n2,
                          int n_sub, int halo, int b0, int b1, int b2,
@@ -177,9 +189,12 @@ int launch_adjoint_multi(const void* f, const void* g, void* out,
                          void* stream) {
   using S = typename C::S;
   using T = typename C::T;
+  using V = typename St::V;
   static_assert(std::is_same_v<S, typename A::S> &&
                     std::is_same_v<T, typename A::T>,
                 "the forward and adjoint policies share stencil and type");
+  static_assert(adjoint_storage_ok<A, St>(),
+                "the storage computes in the policies' type, no deviations");
   static_assert(A::kResidual != kResidualF,
                 "the blocked adjoint keeps u per level, not the state");
   static_assert(sizeof(typename C::Params) + sizeof(typename A::Params) +
@@ -193,36 +208,37 @@ int launch_adjoint_multi(const void* f, const void* g, void* out,
     return static_cast<int>(cudaErrorInvalidValue);
   int err = use_device(device);
   if (err != 0) return err;
-  const auto kernel = adjoint_multi_kernel<C, A>;
+  const auto kernel = adjoint_multi_kernel<C, A, St>;
   const size_t bytes = size_t(t.cells) * (S::Q + n_sub * S::D) * sizeof(T);
   const int64_t smem =
-      tile_smem<TileTag<C, A>>(kernel, bytes, scratch, device, err);
+      tile_smem<TileTag<C, A, St>>(kernel, bytes, scratch, device, err);
   if (smem < 0) return err;
   kernel<<<blocks, kMultiBlock, static_cast<size_t>(smem),
            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(f), static_cast<const T*>(g),
-      static_cast<T*>(out), static_cast<T*>(scratch), t, n_sub, halo, pf, pa);
+      static_cast<const V*>(f), static_cast<const V*>(g),
+      static_cast<V*>(out), static_cast<T*>(scratch), t, n_sub, halo, pf, pa);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace lt
 
 // The blocked adjoint entry of the forward policy FWD with the adjoint
-// policy ADJ on S in the scalar T: the forward's float64 parameters and
-// the adjoint's (PackedSpec.params, .adjoint_params).
-#define LT_ADJOINT_MULTI_ENTRY(FRAG, STENCIL, FWD, ADJ, S, SUFFIX, T)         \
+// policy ADJ on S in the storage STORAGE (computing in its type T): the
+// forward's float64 parameters and the adjoint's (PackedSpec.params,
+// .adjoint_params).
+#define LT_ADJOINT_MULTI_ENTRY(FRAG, STENCIL, FWD, ADJ, S, SUFFIX, STORAGE)   \
   int lt_adjoint_multi_##FRAG##_##STENCIL##_##SUFFIX(                         \
       const void* f, const void* g, void* out, void* scratch, int64_t n0,    \
       int64_t n1, int64_t n2, int n_sub, int halo, int b0, int b1, int b2,   \
       int blocks, const double* fwd_params, const double* adj_params,        \
       double cs, int device, void* stream) {                                  \
-    using C = FWD<lt::S, T>;                                                  \
-    using A = ADJ<lt::S, T>;                                                  \
-    return lt::launch_adjoint_multi<C, A>(                                    \
+    using C = FWD<lt::S, typename STORAGE::T>;                                \
+    using A = ADJ<lt::S, typename STORAGE::T>;                                \
+    return lt::launch_adjoint_multi<C, A, STORAGE>(                           \
         f, g, out, scratch, n0, n1, n2, n_sub, halo, b0, b1, b2, blocks,     \
         C::load(fwd_params, cs), A::load(adj_params, cs), device, stream);   \
   }
 
 #define LT_ADJOINT_MULTI_ENTRIES(FRAG, STENCIL, FWD, ADJ, S)                  \
-  LT_ADJOINT_MULTI_ENTRY(FRAG, STENCIL, FWD, ADJ, S, f32, float)             \
-  LT_ADJOINT_MULTI_ENTRY(FRAG, STENCIL, FWD, ADJ, S, f64, double)
+  LT_ADJOINT_MULTI_ENTRY(FRAG, STENCIL, FWD, ADJ, S, f32, lt::Same<float>)   \
+  LT_ADJOINT_MULTI_ENTRY(FRAG, STENCIL, FWD, ADJ, S, f64, lt::Same<double>)

@@ -78,6 +78,12 @@ using Bf16Dev = Bf16Storage<true>;
   LT_HALF_STATE_ENTRIES(FRAG, STENCIL, POLICY, S)                             \
   LT_COLLIDE_ENTRY(FRAG, STENCIL, POLICY, S, bf16_dev, lt::Bf16Dev)
 
+// K1d at 16 bits: the emit-u entries of a fragment on a bfloat16 or
+// float16 state, u in float32 (deviation storage has no gradient).
+#define LT_HALF_EMIT_U_ENTRIES(FRAG, STENCIL, POLICY, S)                      \
+  LT_COLLIDE_EMIT_U_ENTRY(FRAG, STENCIL, POLICY, S, bf16, lt::Bf16)           \
+  LT_COLLIDE_EMIT_U_ENTRY(FRAG, STENCIL, POLICY, S, f16, lt::F16Storage)
+
 // K1f only: a fragment that deviation storage refuses.
 #define LT_HALF_STATE_ENTRIES(FRAG, STENCIL, POLICY, S)                       \
   LT_COLLIDE_ENTRY(FRAG, STENCIL, POLICY, S, bf16, lt::Bf16)                  \

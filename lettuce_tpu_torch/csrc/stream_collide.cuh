@@ -521,27 +521,30 @@ int launch_masked(const void* f, void* out, void* u_out, const void* ncm,
 // The emit-u entries of a collision fragment: periodic and masked, float32
 // and float64, also writing the pre-collision u to u_out [d, *grid].
 #define LT_COLLIDE_EMIT_U_ENTRIES(FRAG, STENCIL, POLICY, S)                   \
-  LT_COLLIDE_EMIT_U_ENTRY(FRAG, STENCIL, POLICY, S, f32, float)               \
-  LT_COLLIDE_EMIT_U_ENTRY(FRAG, STENCIL, POLICY, S, f64, double)
+  LT_COLLIDE_EMIT_U_ENTRY(FRAG, STENCIL, POLICY, S, f32, lt::Same<float>)     \
+  LT_COLLIDE_EMIT_U_ENTRY(FRAG, STENCIL, POLICY, S, f64, lt::Same<double>)
 
-#define LT_COLLIDE_EMIT_U_ENTRY(FRAG, STENCIL, POLICY, S, SUFFIX, T)          \
+// The emit-u entries of POLICY on S with the storage policy STORAGE; u is
+// written in its compute type (float32 for a 16-bit state, as the TPU
+// kernel's u_dtype, stream_collide.py:1778-1779).
+#define LT_COLLIDE_EMIT_U_ENTRY(FRAG, STENCIL, POLICY, S, SUFFIX, STORAGE)    \
   int lt_collide_##FRAG##_emit_u_##STENCIL##_##SUFFIX(                        \
       const void* f, void* out, void* u_out, int64_t n0, int64_t n1,         \
       int64_t n2, const double* params, double cs, int device,               \
       void* stream) {                                                         \
-    using C = POLICY<lt::S, T>;                                               \
-    return lt::launch<C, true>(f, out, u_out, n0, n1, n2,                     \
-                               C::load(params, cs), device, stream);          \
+    using C = POLICY<lt::S, typename STORAGE::T>;                             \
+    return lt::launch<C, true, STORAGE>(f, out, u_out, n0, n1, n2,            \
+                                        C::load(params, cs), device, stream); \
   }                                                                           \
   int lt_collide_##FRAG##_masked_emit_u_##STENCIL##_##SUFFIX(                 \
       const void* f, void* out, void* u_out, const void* ncm,                \
       const void* nsm, const void* feq_field, const int32_t* kinds,          \
       const double* values, int64_t n0, int64_t n1, int64_t n2,              \
       const double* params, double cs, int device, void* stream) {           \
-    using C = POLICY<lt::S, T>;                                               \
-    return lt::launch_masked<C, true>(f, out, u_out, ncm, nsm, feq_field,    \
-                                      kinds, values, n0, n1, n2,             \
-                                      C::load(params, cs), device, stream);  \
+    using C = POLICY<lt::S, typename STORAGE::T>;                             \
+    return lt::launch_masked<C, true, STORAGE>(                               \
+        f, out, u_out, ncm, nsm, feq_field, kinds, values, n0, n1, n2,       \
+        C::load(params, cs), device, stream);                                 \
   }
 
 #define LT_ERROR_STRING_ENTRY                                                 \

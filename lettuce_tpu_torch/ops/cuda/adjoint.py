@@ -59,6 +59,18 @@ forward fragments of :data:`ADJOINT_MULTI_FRAGMENTS`. It reads f and g and
 writes the cotangent once per launch: 228 / n_sub B per D3Q19 float32
 lattice update.
 
+A bfloat16 or float16 state differentiates on the same kernels at 16-bit
+storage (``csrc/adjoint_half.cu``, K3 at 16 bits, every spec;
+``csrc/adjoint_multi_half.cu``, K4 at 16 bits): the cotangent (and
+Smagorinsky's f residual) is stored in the state's dtype, the u residual
+in float32, every sum runs in float32 and each stored value rounds once,
+as lettuce_tpu's adjoint kernel computes in float32 (:167-174). D3Q19
+moves 88 B per lattice update with the u residual, 114 B with the f
+residual. The blocked adjoint keeps its tile in float32 between levels and
+rounds once per launch, where lettuce_tpu's computes in the storage dtype
+(ROADMAP F11). The plain versions widen to float32, compute and round
+once. Deviation storage has no gradient.
+
 :func:`stream_collide_adjoint` and :func:`stream_collide_adjoint_multi`
 run their plain versions only for a CPU tensor. For a CUDA tensor they
 launch a kernel or raise.
@@ -73,8 +85,10 @@ from collections import Counter
 import numpy as np
 import torch
 
-from .build import (DTYPES, KERNEL_STENCIL_NAMES, check_launch, check_out,
-                    kernel_stencil_name, launch_dims, open_library)
+from .build import (DTYPES, HALF_DTYPES, KERNEL_STENCIL_NAMES,
+                    check_launch, check_out, compute_dtype,
+                    kernel_stencil_name, launch_dims, open_library,
+                    storage_suffix)
 from .stream_collide import (FRAGMENTS, check_nsm, checked_table,
                              multi_plan, pack_spec, prestream_plain,
                              stream_collide_plain)
@@ -83,11 +97,15 @@ __all__ = ["stream_collide_adjoint", "stream_collide_adjoint_plain",
            "stream_collide_adjoint_multi",
            "stream_collide_adjoint_multi_plain", "adjoint_multi_refusal",
            "adjoint_multi_halo", "prestream_vjp", "load_library",
-           "load_fragment_library", "load_multi_library", "load_libraries",
+           "load_fragment_library", "load_multi_library",
+           "load_half_library", "load_libraries",
            "ADJOINT_FRAGMENTS", "ADJOINT_MULTI_FRAGMENTS", "NONE_SPEC"]
 
 # the adjoint specs of csrc/adjoint_fragments.cu, each on every stencil
 ADJOINT_FRAGMENTS = ("none", "trt", "matvec", "smag")
+# the adjoint specs of csrc/adjoint_half.cu (K3 at 16 bits), each on every
+# stencil in bfloat16 and float16
+HALF_ADJOINT_FRAGMENTS = ("bgk", *ADJOINT_FRAGMENTS)
 # the forward fragments of the blocked adjoint (csrc/adjoint_multi.cu): the
 # f-linear collisions whose adjoint reads the pre-collision u (bgk, trt,
 # and through matvec the regularized and the folded MRT) and the identity,
@@ -186,7 +204,22 @@ def stream_collide_adjoint_plain(g: torch.Tensor, res: torch.Tensor,
     matvec, the state f for smag, unused for none), and the boundary codes
     of ``table`` where ``ncm`` holds them. ``feq_field`` is unused (an
     equilibrium replacement is constant in f); it is taken so that one
-    parameter set serves the forward and the adjoint."""
+    parameter set serves the forward and the adjoint.
+
+    A 16-bit ``g`` (and f residual) is widened to float32 and the result
+    rounded once to ``g``'s dtype, as the 16-bit kernels compute; the u
+    residual is then float32."""
+    if g.dtype in HALF_DTYPES:
+        return _adjoint_plain(
+            g.float(), None if res is None else res.float(), e, w, opposite,
+            cs, tau_inv, ncm, nsm, table, collision_spec).to(g.dtype)
+    return _adjoint_plain(g, res, e, w, opposite, cs, tau_inv, ncm, nsm,
+                          table, collision_spec)
+
+
+def _adjoint_plain(g, res, e, w, opposite, cs, tau_inv, ncm, nsm, table,
+                   collision_spec) -> torch.Tensor:
+    """:func:`stream_collide_adjoint_plain` in the dtype of ``g``."""
     adjoint = _adjoint_of(collision_spec, tau_inv, e, w, opposite)
     kind = adjoint[0]
     e = np.asarray(e)
@@ -255,9 +288,9 @@ def adjoint_multi_refusal(spec, dtype: torch.dtype):
                 f"(it takes {', '.join(ADJOINT_MULTI_FRAGMENTS)}: "
                 f"Smagorinsky's Jacobian reads every sub-step's state, the "
                 f"others run split mode)")
-    if dtype not in DTYPES:
-        return (f"the blocked adjoint runs float32 and float64, not "
-                f"{dtype}")
+    if dtype not in DTYPES and dtype not in HALF_DTYPES:
+        return (f"the blocked adjoint runs float32, float64, bfloat16 and "
+                f"float16 states, not {dtype}")
     return None
 
 
@@ -278,8 +311,14 @@ def stream_collide_adjoint_multi_plain(f: torch.Tensor, g: torch.Tensor,
     PyTorch, the blocked adjoint's plain version: the forward replayed
     with plain emit-u steps, then ``n_sub`` plain adjoint steps
     (:func:`stream_collide_adjoint_plain`) in reverse on the cotangent
-    ``g`` of the last step's output."""
+    ``g`` of the last step's output. A 16-bit ``f`` and ``g`` are widened
+    once, replayed and pulled back in float32, and the result rounded
+    once, as the blocked kernels keep their tile in float32."""
     spec = _multi_spec(collision_spec, tau_inv, e, w, opposite, f.dtype)
+    if g.dtype in HALF_DTYPES:
+        return stream_collide_adjoint_multi_plain(
+            f.float(), g.float(), n_sub, e, w, opposite, cs, tau_inv,
+            collision_spec=spec).to(g.dtype)
     us, x = [], f
     for _ in range(int(n_sub)):
         if spec.residual == "u":
@@ -303,7 +342,15 @@ def prestream_vjp(f: torch.Tensor, h: torch.Tensor, *, e, w, opposite,
     ``collision_spec`` and the boundary codes) at the state ``f``, applied
     to the streaming-transposed cotangent ``h``. The map is recomputed
     here, under autograd, and its graph is freed on return, so a rollout
-    never holds more than one step's graph."""
+    never holds more than one step's graph. A 16-bit state runs the map's
+    VJP on float32 copies (``f``, ``h`` and the field), as the 16-bit
+    kernels compute, and rounds the result once to its dtype."""
+    if f.dtype in HALF_DTYPES:
+        return prestream_vjp(
+            f.float(), h.float(), e=e, w=w, opposite=opposite, cs=cs,
+            collision_spec=collision_spec, ncm=ncm, table=table,
+            feq_field=None if feq_field is None else feq_field.float()
+        ).to(f.dtype)
     with torch.enable_grad():
         x = f.detach().requires_grad_(True)
         fpost = prestream_plain(x, collision_spec, e, w, opposite, cs, ncm,
@@ -360,21 +407,47 @@ def load_fragment_library() -> ctypes.CDLL:
 
 
 @functools.cache
-def load_multi_library() -> ctypes.CDLL:
+def load_half_library() -> ctypes.CDLL:
+    """Build (if needed) and load the adjoints at 16-bit storage
+    (``csrc/adjoint_half.cu``: every spec of :data:`HALF_ADJOINT_FRAGMENTS`
+    in bfloat16 and float16, the arguments of
+    :func:`load_fragment_library`'s entries), with ``argtypes`` set on
+    every entry."""
+    lib = open_library("adjoint_half")
+    pointer = ctypes.c_void_p
+    tail = ([ctypes.c_int64] * 3
+            + [pointer, ctypes.c_double, ctypes.c_int, pointer])
+    for fragment in HALF_ADJOINT_FRAGMENTS:
+        for name in KERNEL_STENCIL_NAMES:
+            for dtype in HALF_DTYPES:
+                suffix = storage_suffix(dtype)
+                for variant, n_pointers in (("", 3), ("masked_", 6)):
+                    fn = getattr(lib, f"lt_adjoint_{fragment}_{variant}"
+                                      f"{name}_{suffix}")
+                    fn.argtypes = [pointer] * n_pointers + tail
+                    fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def load_multi_library(half: bool = False) -> ctypes.CDLL:
     """Build (if needed) and load the blocked adjoint library
-    (``csrc/adjoint_multi.cu``), with ``argtypes`` set on every entry: f,
-    g, out, scratch, the grid, n_sub, the halo, the tile's interior, the
-    blocks, the forward's and the adjoint's float64 parameters, cs,
-    device, stream."""
-    lib = open_library("adjoint_multi")
+    (``csrc/adjoint_multi.cu``, float32 and float64; with ``half``
+    ``csrc/adjoint_multi_half.cu``, bfloat16 and float16), with
+    ``argtypes`` set on every entry: f, g, out, scratch, the grid, n_sub,
+    the halo, the tile's interior, the blocks, the forward's and the
+    adjoint's float64 parameters, cs, device, stream."""
+    lib = open_library("adjoint_multi_half" if half else "adjoint_multi")
     pointer = ctypes.c_void_p
     argtypes = ([pointer] * 4 + [ctypes.c_int64] * 3 + [ctypes.c_int] * 6
                 + [pointer, pointer, ctypes.c_double, ctypes.c_int, pointer])
+    suffixes = ([storage_suffix(dtype) for dtype in HALF_DTYPES] if half
+                else [suffix for suffix, _ in DTYPES.values()])
     for fragment in ADJOINT_MULTI_FRAGMENTS:
         names = (KERNEL_STENCIL_NAMES if fragment == "bgk"
                  else FRAGMENTS[fragment][1])
         for name in names:
-            for suffix, _ in DTYPES.values():
+            for suffix in suffixes:
                 fn = getattr(lib, f"lt_adjoint_multi_{fragment}_{name}_"
                                   f"{suffix}")
                 fn.argtypes = argtypes
@@ -383,19 +456,24 @@ def load_multi_library() -> ctypes.CDLL:
 
 
 def load_libraries() -> None:
-    """Build (if needed) and load the adjoint libraries, the blocked one
-    included."""
+    """Build (if needed) and load the adjoint libraries, the blocked and
+    the 16-bit ones included."""
     load_library()
     load_fragment_library()
+    load_half_library()
     load_multi_library()
+    load_multi_library(half=True)
 
 
-def _check_residual(res, g, shape, what):
-    if (res is None or res.device != g.device or res.dtype != g.dtype
+def _check_residual(res, g, shape, what, dtype=None):
+    """Raise unless ``res`` is a contiguous tensor of ``shape`` on g's
+    device in ``dtype`` (g's when None)."""
+    dtype = g.dtype if dtype is None else dtype
+    if (res is None or res.device != g.device or res.dtype != dtype
             or tuple(res.shape) != tuple(shape) or not res.is_contiguous()):
         raise ValueError(f"the {what} residual must be a contiguous tensor "
-                         f"of shape {tuple(shape)} on g's device in g's "
-                         f"dtype")
+                         f"of shape {tuple(shape)} on g's device in "
+                         f"{dtype}")
 
 
 def stream_collide_adjoint(g: torch.Tensor, res: torch.Tensor,
@@ -409,8 +487,9 @@ def stream_collide_adjoint(g: torch.Tensor, res: torch.Tensor,
     """The cotangent of one step's input from the cotangent ``g``
     (``[q, *grid]``) of its output and the forward's residual ``res``: the
     pre-collision velocity u (``[d, *grid]``) for BGK, TRT and the
-    ``matvec`` specs, the step's input f for Smagorinsky, None for the
-    identity. ``collision_spec`` is the forward's (BGK with ``tau_inv``
+    ``matvec`` specs, in float32 for a 16-bit ``g``), the step's input f
+    for Smagorinsky (in g's dtype), None for the identity.
+    ``collision_spec`` is the forward's (BGK with ``tau_inv``
     when None); its adjoint spec selects the kernel, and a split-mode spec
     raises ValueError (split mode is ``fused_step``'s: this function with
     :data:`NONE_SPEC`, then :func:`prestream_vjp`). With ``ncm`` and
@@ -422,7 +501,8 @@ def stream_collide_adjoint(g: torch.Tensor, res: torch.Tensor,
     On a CPU tensor this is :func:`stream_collide_adjoint_plain`; on a
     CUDA tensor it launches a kernel (allocating ``out`` when none is
     given) or raises. ``out`` must not be ``g``: the kernel pulls from
-    neighbours.
+    neighbours. A bfloat16 or float16 ``g`` runs the 16-bit instances
+    (K3 at 16 bits, counted in ``half_launches``).
     """
     spec = _packed(collision_spec, tau_inv, e, w, opposite)
     masks = dict(ncm=ncm, nsm=nsm, table=table, feq_field=feq_field)
@@ -437,9 +517,11 @@ def stream_collide_adjoint(g: torch.Tensor, res: torch.Tensor,
     fragment = _adjoint_of(spec, None, e, w, opposite)[0]
     name = kernel_stencil_name(e, w, opposite)
     n0, n1, n2 = launch_dims(g, e)
+    half = g.dtype in HALF_DTYPES
     if spec.residual == "u":
         d = np.asarray(e).shape[1]
-        _check_residual(res, g, (d, *g.shape[1:]), "u")
+        _check_residual(res, g, (d, *g.shape[1:]), "u",
+                        compute_dtype(g.dtype))
     elif spec.residual == "f":
         _check_residual(res, g, g.shape, "state")
     else:
@@ -462,9 +544,20 @@ def stream_collide_adjoint(g: torch.Tensor, res: torch.Tensor,
         variant = "frozen_"
     else:
         variant = ""
-    suffix = DTYPES[g.dtype][0]
+    suffix = storage_suffix(g.dtype)
     entry = "masked_" if variant else ""
     stream = torch.cuda.current_stream(g.device).cuda_stream
+    if half:
+        lib = load_half_library()
+        launch = getattr(lib, f"lt_adjoint_{fragment}_{entry}{name}_"
+                              f"{suffix}")
+        rc = launch(*pointers, n0, n1, n2, spec.adjoint_params.ctypes.data,
+                    float(cs), g.device.index, stream)
+        check_launch(lib, rc, f"stream_collide_adjoint ({fragment}, "
+                              f"{variant or 'periodic_'}{name}_{suffix})")
+        stream_collide_adjoint.half_launches[
+            f"{variant}{fragment}_{suffix}"] += 1
+        return out
     if fragment == "bgk":
         lib = load_library()
         launch = getattr(lib, f"lt_stream_collide_adjoint_{entry}{name}_"
@@ -492,6 +585,10 @@ stream_collide_adjoint.masked_launches = 0  # masked BGK launches
 # launches of the other adjoint specs, by variant and spec ("trt",
 # "masked_matvec", "frozen_none", ...)
 stream_collide_adjoint.fragment_launches = Counter()
+# launches of the 16-bit instances (K3 at 16 bits), BGK included, by
+# variant, spec and storage ("bgk_bf16", "masked_matvec_f16",
+# "frozen_none_bf16", ...)
+stream_collide_adjoint.half_launches = Counter()
 
 
 def stream_collide_adjoint_multi(f: torch.Tensor, g: torch.Tensor,
@@ -506,8 +603,9 @@ def stream_collide_adjoint_multi(f: torch.Tensor, g: torch.Tensor,
     tensor (allocating ``out`` when none is given), else
     :func:`stream_collide_adjoint_multi_plain`. Periodic only: ``masks``
     (the gate's ``ncm``, ``nsm``, ``table``, ``feq_field``) must be None.
-    Raises NotImplementedError for a spec or dtype it does not take
-    (:func:`adjoint_multi_refusal`)."""
+    A bfloat16 or float16 state runs K4 at 16 bits (a float32 tile,
+    rounded once). Raises NotImplementedError for a spec or dtype it does
+    not take (:func:`adjoint_multi_refusal`)."""
     if any(m is not None for m in masks.values()):
         raise ValueError("the blocked adjoint runs periodic grids: no masks")
     spec = _multi_spec(collision_spec, tau_inv, e, w, opposite, g.dtype)
@@ -524,8 +622,8 @@ def stream_collide_adjoint_multi(f: torch.Tensor, g: torch.Tensor,
     d = np.asarray(e).shape[1]
     halo = adjoint_multi_halo(n_sub)
     dims, plan, scratch = multi_plan(g, e, halo, g.shape[0] + n_sub * d)
-    suffix = DTYPES[g.dtype][0]
-    lib = load_multi_library()
+    suffix = storage_suffix(g.dtype)
+    lib = load_multi_library(half=g.dtype in HALF_DTYPES)
     launch = getattr(lib, f"lt_adjoint_multi_{spec.fragment}_"
                           f"{spec.stencil}_{suffix}")
     rc = launch(f.data_ptr(), g.data_ptr(), out.data_ptr(),
@@ -542,5 +640,5 @@ def stream_collide_adjoint_multi(f: torch.Tensor, g: torch.Tensor,
 
 
 # launches of the blocked adjoint (K4) by forward fragment, dtype and span
-# ("bgk_f32_x2", "reg_f64_x4", ...)
+# ("bgk_f32_x2", "reg_f64_x4", "bgk_bf16_x2", ...)
 stream_collide_adjoint_multi.launches = Counter()

@@ -38,21 +38,24 @@ __all__ = ["SOURCES", "find_nvcc", "library_path", "ptxas_log",
            "open_library", "check_launch", "kernel_stencil_name",
            "launch_dims", "check_out", "KERNEL_STENCILS",
            "KERNEL_STENCIL_NAMES", "DTYPES", "STORAGE", "HALF_DTYPES",
-           "storage_suffix", "plan_tile", "TilePlan", "TILE_SMEM_BYTES",
+           "storage_suffix", "compute_dtype", "plan_tile", "TilePlan",
+           "TILE_SMEM_BYTES",
            "moving_axes", "mask_bytes", "tile_stride"]
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 # csrc/<name>.cu, one library each: the BGK step (K1a, K1d, K1b), its
 # adjoint (K3a, K3c), the other collision fragments (K1c, with emit-u
 # instances), their adjoints (K3b, K3d's streaming transpose), and the
-# 16-bit forward instances of BGK and of each fragment source (K1e, K1f),
-# the blocked forward of BGK and of each fragment source in every storage
-# (K2) and the blocked adjoint (K4)
+# 16-bit forward instances of BGK and of each fragment source (K1e, K1f,
+# and K1d on a 16-bit state), the blocked forward of BGK and of each
+# fragment source in every storage (K2), the blocked adjoint (K4), and the
+# adjoints of a 16-bit state (K3 and K4 at 16 bits)
 SOURCES = ("stream_collide", "adjoint", "collide_basic", "collide_moments",
            "collide_mrt", "collide_kbc", "adjoint_fragments",
            "half_stream_collide", "half_basic", "half_moments", "half_mrt",
            "half_kbc", "multi_stream_collide", "multi_basic",
-           "multi_moments", "multi_mrt", "multi_kbc", "adjoint_multi")
+           "multi_moments", "multi_mrt", "multi_kbc", "adjoint_multi",
+           "adjoint_half", "adjoint_multi_half")
 _BUILD_DIR = (Path(__file__).resolve().parents[3] / "build"
               / "lettuce_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -66,10 +69,11 @@ KERNEL_STENCILS = tuple(_KERNEL_STENCILS.values())
 KERNEL_STENCIL_NAMES = tuple(_KERNEL_STENCILS)
 DTYPES = {torch.float32: ("f32", ctypes.c_float),
           torch.float64: ("f64", ctypes.c_double)}
-# the 16-bit storage of the forward kernels, computed in float32 (so the
-# BGK entries take tau_inv as a c_float): (state dtype, deviation storage)
-# -> entry suffix. K1f stores a bfloat16 or float16 state, K1e the
-# bfloat16 deviations g = f - w_q. The adjoint kernels take none of them.
+# the 16-bit storage of the kernels, computed in float32 (so the BGK
+# forward entries take tau_inv as a c_float): (state dtype, deviation
+# storage) -> entry suffix. K1f stores a bfloat16 or float16 state, K1e the
+# bfloat16 deviations g = f - w_q. The adjoints (K3, K4) and the emit-u
+# forward take a 16-bit state, never deviations (no gradient).
 STORAGE = {(torch.bfloat16, False): "bf16", (torch.float16, False): "f16",
            (torch.bfloat16, True): "bf16_dev"}
 HALF_DTYPES = (torch.bfloat16, torch.float16)
@@ -210,16 +214,20 @@ def storage_suffix(dtype: torch.dtype, dev_storage: bool = False) -> str:
     return STORAGE[dtype, dev_storage]
 
 
-def launch_dims(x: torch.Tensor, e, half: bool = False) -> tuple:
+def compute_dtype(dtype: torch.dtype) -> torch.dtype:
+    """What the kernels compute in for a state of ``dtype``: float64 for
+    float64, else float32 (the 16-bit storage). The emit-u forward writes u
+    in it, and the adjoints read it."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def launch_dims(x: torch.Tensor, e) -> tuple:
     """(n0, n1, n2) of the kernels' 3D launch grid for a contiguous CUDA
-    tensor ``x`` of shape ``[q, *grid]`` in float32 or float64, or with
-    ``half`` (the forward kernels) also bfloat16 or float16; raises on
-    anything the kernels do not take."""
-    if x.dtype not in DTYPES and not (half and x.dtype in HALF_DTYPES):
-        which = ("float32, float64, bfloat16 or float16" if half
-                 else "float32 or float64")
-        raise TypeError(f"these kernels take {which} tensors, got "
-                        f"{x.dtype}")
+    tensor ``x`` of shape ``[q, *grid]`` in float32, float64, bfloat16 or
+    float16; raises on anything the kernels do not take."""
+    if x.dtype not in DTYPES and x.dtype not in HALF_DTYPES:
+        raise TypeError(f"these kernels take float32, float64, bfloat16 or "
+                        f"float16 tensors, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("the kernels need contiguous tensors")
     q, d = np.asarray(e).shape
@@ -235,15 +243,18 @@ def launch_dims(x: torch.Tensor, e, half: bool = False) -> tuple:
 
 
 def check_out(out: torch.Tensor, like: torch.Tensor, shape, name: str,
-              *inputs: torch.Tensor) -> torch.Tensor:
-    """``out``, or a new tensor of ``shape`` like ``like`` when it is None;
-    raises when ``out`` does not fit or shares memory with an input."""
+              *inputs: torch.Tensor, dtype: torch.dtype = None
+              ) -> torch.Tensor:
+    """``out``, or a new tensor of ``shape`` like ``like`` (in ``dtype``
+    when given) when it is None; raises when ``out`` does not fit or
+    shares memory with an input."""
+    dtype = like.dtype if dtype is None else dtype
     if out is None:
-        return torch.empty(shape, dtype=like.dtype, device=like.device)
-    if (tuple(out.shape) != tuple(shape) or out.dtype != like.dtype
+        return torch.empty(shape, dtype=dtype, device=like.device)
+    if (tuple(out.shape) != tuple(shape) or out.dtype != dtype
             or out.device != like.device or not out.is_contiguous()):
         raise ValueError(f"{name} must be a contiguous tensor of shape "
-                         f"{tuple(shape)}, dtype {like.dtype} and device "
+                         f"{tuple(shape)}, dtype {dtype} and device "
                          f"{like.device}")
     for x in inputs:
         if out.data_ptr() == x.data_ptr():

@@ -46,10 +46,14 @@ forward from f. Periodic grids, and the specs of
 (masks, the outlets' replay) runs forward only, as lettuce_tpu's does
 (:2360-2362): its gradients step one step at a time.
 
-A 16-bit state runs forward through its 16-bit instances (K1f). Its
-gradient would need the adjoint kernels at 16-bit storage, which the port
-does not have yet: a 16-bit state that requires grad raises before any
-launch.
+A bfloat16 or float16 state runs the same routes on the 16-bit
+instances, computing in float32 as lettuce_tpu's custom_vjp does at 16
+bits: the emit-u forward at 16 bits (K1d) saves u in float32, the adjoint
+kernels at 16-bit storage (K3) pull a 16-bit cotangent back, split mode's
+pointwise VJP runs on float32 copies and rounds once, and the blocked step
+runs K2 and K4 at 16 bits. Deviation storage (bfloat16 deviations) is a
+throughput mode with no gradient, as in lettuce_tpu
+(stream_collide.py:2073-2077).
 """
 
 from __future__ import annotations
@@ -60,7 +64,7 @@ from torch.autograd.function import once_differentiable
 
 from .adjoint import (NONE_SPEC, adjoint_multi_refusal, prestream_vjp,
                       stream_collide_adjoint, stream_collide_adjoint_multi)
-from .build import HALF_DTYPES
+from .build import compute_dtype
 from .stream_collide import pack_spec, stream_collide
 
 __all__ = ["fused_step", "fused_multi_step"]
@@ -79,7 +83,9 @@ class _FusedStep(torch.autograd.Function):
             ctx.save_for_backward(f)
             return stream_collide(f, **params)
         d = np.asarray(params["e"]).shape[1]
-        u = torch.empty((d, *f.shape[1:]), dtype=f.dtype, device=f.device)
+        # float32 for a 16-bit state: what the emit-u kernel writes
+        u = torch.empty((d, *f.shape[1:]), dtype=compute_dtype(f.dtype),
+                        device=f.device)
         out, u = stream_collide(f, u_out=u, **params)
         ctx.save_for_backward(u)
         return out
@@ -115,15 +121,10 @@ def fused_step(f: torch.Tensor, *, e, w, opposite, cs: float,
     collision ``collision_spec``, BGK with ``tau_inv`` when None), and the
     window replay ``fixup`` of :mod:`.hybrid_outlets` after the kernel
     when the flow has outlets. The spec's ``mode`` (``'full'`` or
-    ``'split'``) says how its backward runs."""
+    ``'split'``) says how its backward runs. A bfloat16 or float16 state
+    runs the 16-bit instances both ways, with a float32 u residual."""
     if not torch.is_grad_enabled():
         f = f.detach()  # no graph: the forward saves nothing
-    if f.dtype in HALF_DTYPES and f.requires_grad:
-        raise NotImplementedError(
-            f"the gradient of a {f.dtype} state needs the adjoint kernels "
-            f"at 16-bit storage (K3 at 16-bit storage, queued in "
-            f"ROADMAP.md), which are not ported: run the gradient in "
-            f"float32 or float64")
     spec = pack_spec(("bgk", tau_inv) if collision_spec is None
                      else collision_spec, e, w, opposite)
     out = _FusedStep.apply(f, dict(
@@ -164,9 +165,9 @@ def fused_multi_step(f: torch.Tensor, *, n_sub: int, e, w, opposite,
     the outlets' window replay ``fixup`` at span ``n_sub`` after it. A
     state that requires grad, with grad mode on, goes through
     ``_FusedMultiStep``, whose backward is one launch of the blocked
-    adjoint (K4) on a periodic grid; masks, a replay, or a spec or dtype
-    that K4 does not take raise NotImplementedError then. Returns a fresh
-    tensor."""
+    adjoint (K4, at 16 bits for a bfloat16 or float16 state) on a periodic
+    grid; deviation storage, masks, a replay, or a spec that K4 does not
+    take raise NotImplementedError then. Returns a fresh tensor."""
     spec = pack_spec(("bgk", tau_inv) if collision_spec is None
                      else collision_spec, e, w, opposite)
     params = dict(e=e, w=w, opposite=opposite, cs=cs, tau_inv=tau_inv,

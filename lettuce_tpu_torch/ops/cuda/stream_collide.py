@@ -33,7 +33,10 @@ Every forward instance also comes in 16 bits, computing in float32
 (``csrc/half_*.cu``): a bfloat16 or float16 state (K1f), and with
 ``dev_storage`` the bfloat16 deviations g = f - w_q (K1e, every fragment
 but the closed-form MRT bases, :data:`DEV_REFUSED`), which halve the
-bytes per update. :func:`encode_deviations` and :func:`decode_deviations`
+bytes per update. The emit-u instances take a 16-bit state too (K1d at
+16 bits, the forward of its gradient) and write u in float32, as
+lettuce_tpu's kernel does (:1778-1779); deviations have no gradient and
+no emit-u. :func:`encode_deviations` and :func:`decode_deviations`
 convert a state to and from deviation storage.
 
 The temporally blocked kernel (K2, ``csrc/multi_*.cu``) runs ``n_sub``
@@ -76,9 +79,9 @@ from ...utils.moments import (HERMITE_MULTIINDICES, dellar_meq, hermite_meq,
 from ..utils_moments_shim import resolve_mrt_spec
 from .build import (DTYPES, HALF_DTYPES, KERNEL_STENCIL_NAMES,
                     KERNEL_STENCILS, STORAGE, check_launch, check_out,
-                    kernel_stencil_name, launch_dims, mask_bytes,
-                    moving_axes, open_library, plan_tile, storage_suffix,
-                    tile_stride)
+                    compute_dtype, kernel_stencil_name, launch_dims,
+                    mask_bytes, moving_axes, open_library, plan_tile,
+                    storage_suffix, tile_stride)
 from .hybrid_outlets import (build_hybrid_fixup, nsm_outside_regions,
                              outlet_window)
 
@@ -292,9 +295,11 @@ def _check_emit_u(spec, dtype: torch.dtype, dev_storage: bool) -> None:
         raise ValueError(f"emit_u is for {', '.join(EMIT_U_FRAGMENTS)} (the "
                          f"residual of their adjoint kernels), not "
                          f"{fragment_of(spec)!r}")
-    if dev_storage or dtype not in DTYPES:
-        raise ValueError(f"emit_u has no 16-bit instance (a {dtype} state"
-                         f"{' in deviation storage' if dev_storage else ''})")
+    if dev_storage:
+        raise ValueError("emit_u has no deviation-storage instance: "
+                         "deviation storage is a throughput mode with no "
+                         "gradient")
+    storage_suffix(dtype)  # raises on a dtype no kernel stores
 
 
 def _check_span(n_sub, emit_u: bool = False, grad: bool = False) -> None:
@@ -325,9 +330,10 @@ def stream_collide_plain(f: torch.Tensor, e: np.ndarray, w: np.ndarray,
     of ``collision_spec`` (BGK with ``tau_inv`` when None,
     :func:`prestream_plain`, 16-bit states and ``dev_storage`` included),
     then a per-q ``torch.roll`` with the populations of ``nsm`` frozen.
-    With ``emit_u`` (a fragment of :data:`EMIT_U_FRAGMENTS`, float32 or
-    float64) it returns ``(out, u)``, u = j / rho the pre-collision
-    velocity ``[d, *grid]``.
+    With ``emit_u`` (a fragment of :data:`EMIT_U_FRAGMENTS`, not under
+    ``dev_storage``) it returns ``(out, u)``, u = j / rho the pre-collision
+    velocity ``[d, *grid]``, in float32 for a 16-bit state (computed from
+    the widened state, as the 16-bit emit-u kernel does).
 
     ``n_sub`` steps at once are the blocked kernel's (K2) plain version:
     ``n_sub`` plain steps, masks and all; a 16-bit state is widened once
@@ -355,8 +361,9 @@ def stream_collide_plain(f: torch.Tensor, e: np.ndarray, w: np.ndarray,
     out = stream(fpost, e, nsm)
     if not emit_u:
         return out
-    et = torch.as_tensor(np.asarray(e), dtype=f.dtype, device=f.device)
-    u = torch.tensordot(et.T, f, dims=1) / torch.sum(f, dim=0, keepdim=True)
+    x = f.to(compute_dtype(f.dtype))
+    et = torch.as_tensor(np.asarray(e), dtype=x.dtype, device=f.device)
+    u = torch.tensordot(et.T, x, dims=1) / torch.sum(x, dim=0, keepdim=True)
     return out, u
 
 
@@ -582,7 +589,9 @@ def load_half_library(source: str) -> ctypes.CDLL:
     ``csrc/<source>.cu`` (``"stream_collide"`` or a source of
     :data:`FRAGMENTS`; the library of :data:`HALF_SOURCES`), with
     ``argtypes`` set on every entry: periodic and masked, for each storage
-    of :data:`.build.STORAGE` (no deviations for :data:`DEV_REFUSED`)."""
+    of :data:`.build.STORAGE` (no deviations for :data:`DEV_REFUSED`), and
+    the emit-u entries of :data:`EMIT_U_FRAGMENTS` on a bfloat16 or
+    float16 state."""
     lib = open_library(HALF_SOURCES[source])
     pointer = ctypes.c_void_p
     grid = [ctypes.c_int64] * 3
@@ -598,10 +607,13 @@ def load_half_library(source: str) -> ctypes.CDLL:
         for suffix in STORAGE.values():
             if suffix == "bf16_dev" and fragment in DEV_REFUSED:
                 continue
+            # periodic f, out (+ u); masked f, out (+ u), ncm, nsm, feq
+            # field, host kinds, host values
+            variants = [("", 2), ("masked_", 7)]
+            if fragment in EMIT_U_FRAGMENTS and suffix != "bf16_dev":
+                variants += [("emit_u_", 3), ("masked_emit_u_", 8)]
             for name in names:
-                # periodic f, out; masked f, out, ncm, nsm, feq field, host
-                # kinds, host values
-                for variant, n_pointers in (("", 2), ("masked_", 7)):
+                for variant, n_pointers in variants:
                     fn = getattr(lib, f"lt_{prefix}_{variant}{name}_"
                                       f"{suffix}")
                     fn.argtypes = [pointer] * n_pointers + grid + tail
@@ -745,9 +757,9 @@ def stream_collide(f: torch.Tensor, e: np.ndarray, w: np.ndarray,
     ``out`` must not be ``f``: the kernel pushes to neighbours. With
     ``ncm`` (the uint8 code per cell) and its ``table`` the masked kernel
     runs, with the optional ``nsm`` and ``feq_field``. With ``u_out``
-    (``[d, *grid]``, a fragment of :data:`EMIT_U_FRAGMENTS`) the emit-u
-    kernel also writes the pre-collision velocity there, and the call
-    returns ``(out, u_out)``.
+    (``[d, *grid]``, a fragment of :data:`EMIT_U_FRAGMENTS`; float32 for a
+    16-bit state) the emit-u kernel also writes the pre-collision velocity
+    there, and the call returns ``(out, u_out)``.
 
     A bfloat16 or float16 ``f`` runs the 16-bit instances (K1f); with
     ``dev_storage`` a bfloat16 ``f`` (and ``feq_field``) holds the
@@ -802,12 +814,13 @@ def stream_collide(f: torch.Tensor, e: np.ndarray, w: np.ndarray,
     half = dev_storage or f.dtype in HALF_DTYPES
     bgk = spec[0] == "bgk"
     name = kernel_stencil_name(e, w, opposite)
-    n0, n1, n2 = launch_dims(f, e, half=True)
+    n0, n1, n2 = launch_dims(f, e)
     out = check_out(out, f, f.shape, "out", f)
     pointers = [f.data_ptr(), out.data_ptr()]
     if emit_u:
         d = np.asarray(e).shape[1]
-        u_out = check_out(u_out, f, (d, *f.shape[1:]), "u_out", f, out)
+        u_out = check_out(u_out, f, (d, *f.shape[1:]), "u_out", f, out,
+                          dtype=compute_dtype(f.dtype))
         pointers.append(u_out.data_ptr())
     masked = ncm is not None
     if masked:
@@ -863,8 +876,9 @@ stream_collide.masked_emit_u_launches = 0  # masked BGK emit-u launches
 # launches of the other fragments, by variant and fragment ("trt",
 # "masked_trt", "emit_u_trt", "masked_emit_u_trt", ...)
 stream_collide.fragment_launches = Counter()
-# launches of the 16-bit instances (K1e, K1f), BGK included, by variant,
-# fragment and storage ("bgk_bf16_dev", "masked_trt_f16", ...)
+# launches of the 16-bit instances (K1e, K1f, and K1d on a 16-bit state),
+# BGK included, by variant, fragment and storage ("bgk_bf16_dev",
+# "masked_trt_f16", "emit_u_bgk_bf16", ...)
 stream_collide.half_launches = Counter()
 # launches of the blocked kernel (K2), BGK included, by variant, fragment,
 # storage and span ("bgk_f32_x2", "trt_bf16_dev_x4", "masked_bgk_f32_x2",
@@ -880,9 +894,8 @@ def multi_plan(f: torch.Tensor, e, halo: int, values_per_cell: int,
     cell, plus the masks' bytes of a ``masked`` launch with ``frozen``
     populations or without (:func:`.build.mask_bytes`); and the global
     scratch it needs (None in shared memory)."""
-    wide = torch.float64 if f.dtype == torch.float64 else torch.float32
-    itemsize = torch.finfo(wide).bits // 8
-    dims = tuple(int(n) for n in launch_dims(f, e, half=True))
+    itemsize = torch.finfo(compute_dtype(f.dtype)).bits // 8
+    dims = tuple(int(n) for n in launch_dims(f, e))
     plan = plan_tile(dims, moving_axes(e), int(halo), int(values_per_cell),
                      itemsize, mask_bytes(f.shape[0], itemsize, masked,
                                           frozen))
@@ -1192,11 +1205,11 @@ def build_fused_multi_step(simulation: "Simulation",
     population lies on the planes that replay rewrites, so the mask may be
     dropped here and kept for the single-step kernel, or the reverse.
     ``step.adjoint_kernel`` says whether the blocked adjoint (K4) takes
-    its gradient: a periodic grid in float32 or float64, the f-linear
-    specs and the identity (:func:`.adjoint.adjoint_multi_refusal`, whose
-    reason it prints otherwise); never under deviations, masks or a
-    replay (lettuce_tpu :2360-2362), whose gradients run the single-step
-    kernels."""
+    its gradient: a periodic grid in float32, float64, bfloat16 or
+    float16 (K4 at 16 bits), the f-linear specs and the identity
+    (:func:`.adjoint.adjoint_multi_refusal`, whose reason it prints
+    otherwise); never under deviations, masks or a replay (lettuce_tpu
+    :2360-2362), whose gradients run the single-step kernels."""
     from .adjoint import adjoint_multi_refusal
     from .fused_step import fused_multi_step
     env = os.environ.get("LETTUCE_NSUB")

@@ -31,12 +31,13 @@ def resolve_mrt_spec(collision) -> tuple:
         raise NotImplementedError(
             f"MRT transform '{type(tr).__name__}' has no closed-form "
             f"equilibrium in the kernel")
+    # through float64 on the host: numpy takes no 16-bit torch tensor
     M = tuple(tuple(float(x) for x in row)
-              for row in np.asarray(tr.matrix.cpu(), dtype=np.float64))
+              for row in tr.matrix.cpu().double().numpy())
     Minv = tuple(tuple(float(x) for x in row)
-                 for row in np.asarray(tr.inverse.cpu(), dtype=np.float64))
-    taus = tuple(float(t) for t in np.asarray(
-        collision.relaxation_parameters.cpu(), dtype=np.float64).ravel())
+                 for row in tr.inverse.cpu().double().numpy())
+    taus = tuple(float(t) for t in collision.relaxation_parameters.cpu()
+                 .double().numpy().ravel())
     if len(taus) != len(M):
         raise NotImplementedError("per-moment relaxation list required")
     return ("mrt", M, Minv, taus, meq_kind)

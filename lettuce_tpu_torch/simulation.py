@@ -13,7 +13,9 @@ Two step paths:
     collision's fragment (masked when the flow has boundaries), chosen on
     a CUDA context with ``use_native`` when every component supports it,
     for a float32, float64, bfloat16 or float16 state (16-bit states run
-    the 16-bit instances, K1f, computing in float32).
+    the 16-bit instances, K1f, computing in float32, and differentiate on
+    the 16-bit emit-u and adjoint kernels, K1d and K3 at 16 bits, with a
+    float32 u residual).
     Outlets ride it through the window replay of
     ``ops/cuda/hybrid_outlets.py`` (``'cuda+hybrid'``). The capability
     probe makes host-side checks only (component types, the collision
@@ -36,8 +38,9 @@ periodic or masked) and the remainder single-step, as lettuce_tpu's
 blocked launch. ``step_path`` says ``'cuda x<span>'`` or
 ``'cuda+hybrid x<span>'``. On a periodic grid gradient segments (and a
 state that requires grad) scan the span-2 blocked step, whose backward is
-the blocked adjoint (K4), when K4 takes the collision; a bounded flow's
-gradients, and ``make_step_fn``, stay single-step.
+the blocked adjoint (K4, at 16 bits for a 16-bit state), when K4 takes
+the collision; a bounded flow's gradients, and ``make_step_fn``, stay
+single-step.
 
 ``half_storage=True`` keeps the state of the throughput loop (``__call__``
 and ``rollout``) as bfloat16 deviations g = f - w_q between steps, as
@@ -47,8 +50,8 @@ so ``flow.f`` stays in the context's dtype between calls. It halves the
 bytes per step; compute stays float32. It needs the kernel path and
 refuses what lettuce_tpu refuses (the closed-form MRT bases, outlets);
 then it warns and runs at full precision. Gradients (``make_step_fn``,
-``make_segment_fn``, a state that requires grad) always run at full
-precision.
+``make_segment_fn``, a state that requires grad) never run in
+deviations: they run in the context's dtype.
 
 No step ever writes into a tensor that a caller holds: the kernel path's
 throughput loop ping-pongs between two buffers the simulation allocated

@@ -8,8 +8,10 @@ Lallemand MRT, and BGK with the bounded codes, over 1 and 3 steps along the
 Pallas trajectory, every entry within one ulp of the storage type at the
 larger magnitude. Then what half storage refuses (the closed-form MRT
 bases, outlets, the torch step), each warning with its reason and running
-at full precision; a 16-bit state that requires grad on the kernel path;
-and the CLI's ``--half-storage`` and ``-p half``."""
+at full precision; a 16-bit state that requires grad on the kernel path
+(the 16-bit emit-u forward and adjoint; tests/test_torch_half_gradient.py
+holds them against lettuce_tpu); and the CLI's ``--half-storage`` and
+``-p half``."""
 
 import warnings
 
@@ -170,22 +172,45 @@ def test_deviation_refusals_leave_the_probe_alone():
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
                          ids=["bfloat16", "float16"])
-def test_16_bit_gradient_raises_on_the_kernel_path(dtype):
-    """A 16-bit state that requires grad on the kernel path raises before
-    any launch (no adjoint kernel at 16-bit storage), through the step
-    function and through a call; the torch step differentiates it."""
+def test_16_bit_gradient_raises_on_the_kernel_path(dtype, monkeypatch):
+    """A 16-bit state that requires grad on the kernel path no longer
+    raises: it runs the 16-bit emit-u forward and the 16-bit adjoint
+    (their plain versions on the CPU, counted where the wrappers call
+    them), through the step function and through a call; the gradient is
+    finite, non-zero and in the state's dtype, and the forward saves u in
+    float32. (The name is the one this test had when the gradient
+    raised.)"""
+    import lettuce_tpu_torch.ops.cuda.adjoint as ad
     flow = _tgv(dtype)
     sim = ltt.Simulation(flow, ltt.BGKCollision(0.6), [])
     f0 = flow.f.clone().requires_grad_(True)
     assert sim.make_step_fn()(f0).dtype == dtype  # torch step: autograd
     sim._use_kernel()
-    before = sum(sc.stream_collide.half_launches.values())
-    with pytest.raises(NotImplementedError, match="K3 at 16-bit storage"):
-        sim.make_step_fn()(f0)
+    calls = []
+    forward, backward = sc.stream_collide_plain, ad.stream_collide_adjoint_plain
+
+    def counted_forward(f, *args, **kwargs):
+        out = forward(f, *args, **kwargs)
+        if kwargs.get("emit_u"):
+            calls.append(("emit_u", f.dtype, out[1].dtype))
+        return out
+
+    def counted_backward(g, res, *args, **kwargs):
+        calls.append(("adjoint", g.dtype, res.dtype))
+        return backward(g, res, *args, **kwargs)
+
+    monkeypatch.setattr(sc, "stream_collide_plain", counted_forward)
+    monkeypatch.setattr(ad, "stream_collide_adjoint_plain", counted_backward)
+    (grad,) = torch.autograd.grad(
+        (sim.make_step_fn()(f0).float() ** 2).sum(), f0)
+    assert calls == [("emit_u", dtype, torch.float32),
+                     ("adjoint", dtype, torch.float32)]
+    assert grad.dtype == dtype and bool(torch.isfinite(grad.float()).all())
+    assert float(grad.float().abs().max()) > 0
     flow.f = f0
-    with pytest.raises(NotImplementedError, match="16-bit storage"):
-        sim(1)
-    assert sum(sc.stream_collide.half_launches.values()) == before
+    sim(1)
+    (grad_call,) = torch.autograd.grad((flow.f.float() ** 2).sum(), f0)
+    assert len(calls) == 4 and torch.equal(grad_call, grad)
     with torch.no_grad():
         assert sim.make_step_fn()(f0).dtype == dtype
 
