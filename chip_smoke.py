@@ -32,7 +32,9 @@ the blocked bounded flows; then the gradient of a 16-bit state: every
 16-bit emit-u, adjoint and blocked-adjoint instance against its plain
 version, the main path's gradient in bfloat16 and float16 and the
 fragment, split and obstacle cells in bfloat16 at full width, and the
-blocked bfloat16 gradient at span 2.
+blocked bfloat16 gradient at span 2; last, the march plans the planner
+offers the main path's blocked launches, each timed and held to the
+default plan's output.
 Every failed check exits non-zero; nothing is caught.
 
 Phases:
@@ -211,7 +213,16 @@ Phases:
      launches at 16 bits, within one storage ulp per launch of the plain
      chain and 2 % of the float32 gradient, fwd+bwd
      MLUPS against phase 33's single-step run, K2 + K4 per two steps in
-     turns with K1d + K3, K4 against plain.
+     turns with K1d + K3, K4 against plain;
+ 35. the periodic K2's and K4's march plans at full width (D3Q19 BGK
+     256^3: K2 float32 and bfloat16 deviations at x2 and x4, K4 float32
+     and bfloat16 at x2): every candidate of build.march_candidates (two
+     budgets, narrow and wide rows, more segments) against the default
+     plan's output, timed in turns with K1a; ms per launch and per step,
+     the share of the saxpy, the default and the fastest.
+Phases 26-28 and 34 also print each launch's march plan, phase 26 how
+many float32 and float64 instance-spans are bitwise equal to n_sub K1
+launches.
 
 Prints, before the last line, one JSON line describing the kernels (K2
 and K4 with their span and per-step time; with each launch's bound: its
@@ -2764,19 +2775,35 @@ def with_span(span):
         os.environ["LETTUCE_NSUB"] = str(span)
 
 
+def plan_text(plan):
+    """A march plan in one phrase: the cross-section's interior and
+    extent, the segment, the bytes per block, where they live and how many
+    blocks share an SM, the units, blocks and threads."""
+    cross = [b for a, b in enumerate(plan.interior) if a != plan.axis]
+    where = ("global scratch" if plan.scratch
+             else f"shared memory, {plan.blocks_per_sm}/SM")
+    return (f"march axis {plan.axis}, cross {cross[0]}x{cross[1]} of "
+            f"{plan.cells} cells, segment {plan.segment}, {plan.bytes} B "
+            f"of rings and grid offsets in {where}, {plan.units} units on "
+            f"{plan.blocks} blocks of {plan.threads} threads, stored share "
+            f"{plan.share:.3f}")
+
+
 def phase26_multi_instances_vs_plain():
     """Every periodic K2 instance (BGK and every K1c fragment, in float32,
     float64, bfloat16 and float16 state and bfloat16 deviations) against
     its plain version at the grids of phase 2, at n_sub 2, 3 and 4: two
     launches each, the second from the plain state of the first; float32
     and float64 to ATOL, and also against n_sub launches of the
-    single-step kernel (K1); 16 bits within one storage ulp (deviations
-    plus n_sub times the float32 floor); launches counted."""
+    single-step kernel (K1), counting those bitwise equal; 16 bits within
+    one storage ulp (deviations plus n_sub times the float32 floor);
+    launches counted; the march plan of each stencil, storage and span."""
     import lettuce_tpu_torch as lt
     import lettuce_tpu_torch.ops.cuda.stream_collide as sc
     worst = {}
     seed = 900
     count = 0
+    bitwise, differing = 0, []
     for stencil, shape in phase2_cases():
         name = type(stencil).__name__
         # the specs in float64: an MRT transform built in float32 rounds
@@ -2839,6 +2866,11 @@ def phase26_multi_instances_vs_plain():
                                       f"{what}: max |K2 - {span} K1| "
                                       f"{err_k1}")
                                 reading += f"/K1 {err_k1:.1e}"
+                                if torch.equal(got, y):
+                                    bitwise += 1
+                                else:
+                                    differing.append(f"{key} {name} "
+                                                     f"{err_k1:.1e}")
                         else:
                             ulps, _, err = check_storage(got, ref, suffix,
                                                          what, floor)
@@ -2855,8 +2887,16 @@ def phase26_multi_instances_vs_plain():
             print(f"phase 26: {fragment} {name} {'x'.join(map(str, shape))} "
                   f"(first launch at n_sub 2/3/4; f32/f64 max |err|, 16-bit "
                   f"ulps): " + "; ".join(line))
+        for suffix, (dtype, dev) in MULTI_STORAGES.items():
+            x = torch.empty((stencil.q, *shape), dtype=dtype, device="cuda")
+            for span in (2, 3, 4):
+                print(f"phase 26: {name} {suffix} x{span} plan: "
+                      f"{plan_text(sc.march_plan(x, stencil.e, span))}")
     print(f"phase 26: {count} instance-spans of 2 launches each, every one "
-          f"within its bound")
+          f"within its bound; {bitwise} of {bitwise + len(differing)} "
+          f"float32/float64 instance-spans bitwise equal to n_sub K1 "
+          f"launches" + (f"; not bitwise: {', '.join(differing)}"
+                         if differing else ""))
     return worst
 
 
@@ -2915,6 +2955,7 @@ def phase27_blocked_main_path(card, saxpy_gbps):
     import contextlib
     import io
     import lettuce_tpu_torch as lt
+    import lettuce_tpu_torch.ops.cuda.stream_collide as sc
     from lettuce_tpu_torch import cli
     runs = {}
     cells = 256 ** 3
@@ -2963,6 +3004,9 @@ def phase27_blocked_main_path(card, saxpy_gbps):
                   f"|K2 - plain| {timing['err']:.3e}; K2 moves {nbytes} B "
                   f"per update per launch: {gbps:.1f} GB/s, "
                   f"{gbps / saxpy_gbps:.1%} of the saxpy ({card})")
+            plan = sc.march_plan(simulation._encode(flow.f) if half
+                                 else flow.f, flow.stencil.e, span)
+            print(f"phase 27: {key} plan: {plan_text(plan)}")
             runs[key] = dict(timing, mlups=mlups, launches=launched[key],
                              span=span, suffix=suffix, cells=cells,
                              bytes=nbytes)
@@ -3157,6 +3201,11 @@ def phase28_blocked_gradient(card, saxpy_gbps, single_mlups):
           f"{err4:.3e} of {scale4:.3e}; {ADJOINT_MULTI_BYTES_PER_UPDATE} B "
           f"per update per launch: {gbps:.1f} GB/s, "
           f"{gbps / saxpy_gbps:.1%} of the saxpy ({card})")
+    e = simulation.flow.stencil.e
+    k4_plan = sc.march_plan(f, e, 2, adjoint=True,
+                            halo=adjoint.adjoint_multi_halo(2))
+    print(f"phase 28: K2 x2 plan: {plan_text(sc.march_plan(f, e, 2))}; K4 "
+          f"x2 plan: {plan_text(k4_plan)}")
     del simulation, single, f0, f, out, ct, u, g1, segment
     torch.cuda.empty_cache()
     return dict(k2_launches=k2["bgk_f32_x2"], k4_launches=k4["bgk_f32_x2"],
@@ -4165,12 +4214,108 @@ def phase34_half_blocked_gradient(card, saxpy_gbps, half_runs):
           f"{bytes4 * cells / HBM_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s, "
           f"{bytes4 * cells / (1e9 * saxpy_gbps) * 1e3:.4f} at the saxpy "
           f"({card})")
+    e = simulation.flow.stencil.e
+    k4_plan = sc.march_plan(f, e, 2, adjoint=True,
+                            halo=adjoint.adjoint_multi_halo(2))
+    print(f"phase 34: K2 bf16 x2 plan: {plan_text(sc.march_plan(f, e, 2))}"
+          f"; K4@16 x2 plan: {plan_text(k4_plan)}")
     del simulation, f0, f, out, ct, u, g1, segment
     torch.cuda.empty_cache()
     return dict(k2_launches=k2["bgk_bf16_x2"], k4_launches=k4["bgk_bf16_x2"],
                 err=err4, ms=k4_ms, plain_ms=k4_plain_ms, cells=cells,
                 mlups=mlups, peak=peak, k2_ms=k2_ms,
                 pair_ms=(b_a + b_b) / 4, single_pair_ms=(s_a + s_b) / 4)
+
+
+# ----------------------------------------------------------------------
+# the march's plans at full width
+# ----------------------------------------------------------------------
+def phase35_march_candidates(card, saxpy_gbps):
+    """The planner's candidates (build.march_candidates: per budget, two
+    blocks or one per SM, its best cross-section, its best with rows
+    narrower and wider than 32 values, and its best cut into twice the
+    units) for the main path's launches: K2 on D3Q19 BGK 256^3 in float32
+    and bfloat16 deviations at x2 and x4, K4 in float32 and bfloat16 at x2.
+    Each candidate's output against the default plan's (bitwise, else the
+    difference is printed); each timed by CUDA events in turns with K1a
+    (K1a, every candidate, every candidate in reverse, K1a); ms per launch
+    and per step, the share of the saxpy, the default and the fastest."""
+    from lettuce_tpu_torch.ops.cuda import adjoint
+    import lettuce_tpu_torch.ops.cuda.stream_collide as sc
+    simulation = tgv256_simulation()
+    params = simulation._kernel_params
+    spec, e, cs = params["collision_spec"], params["e"], params["cs"]
+    f32 = simulation.flow.f
+    cells = f32[0].numel()
+    k1_out = torch.empty_like(f32)
+    g = torch.randn(f32.shape, generator=torch.Generator(device="cuda")
+                    .manual_seed(35), device="cuda")
+    groups = []
+    for suffix, span in (("f32", 2), ("f32", 4), ("bf16_dev", 2),
+                         ("bf16_dev", 4)):
+        dev = suffix == "bf16_dev"
+        x = sc.encode_deviations(f32, params["w"]) if dev else f32
+        out = torch.empty_like(x)
+
+        def k2(plan, x=x, out=out, span=span, dev=dev):
+            return sc._launch_multi(x, out, spec, span, e, cs, dev,
+                                    plan=plan)
+        groups.append((f"K2 {suffix} x{span}", span, 19 * 2 * (
+            2 if dev else 4), sc.march_plan(x, e, span, candidates=True),
+            k2))
+    for dtype, suffix in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        x, gx = f32.to(dtype), g.to(dtype)
+        out = torch.empty_like(gx)
+
+        def k4(plan, x=x, gx=gx, out=out):
+            return adjoint._launch_adjoint_multi(x, gx, out, spec, 2, e, cs,
+                                                 plan)
+        groups.append((f"K4 {suffix} x2", 2, 19 * 3 * (4 if suffix == "f32"
+                                                       else 2),
+                       sc.march_plan(gx, e, 2, adjoint=True,
+                                     halo=adjoint.adjoint_multi_halo(2),
+                                     candidates=True), k4))
+
+    def k1():
+        sc.stream_collide(f32, **params, out=k1_out)
+
+    for name, span, nbytes, plans, launch in groups:
+        want = launch(plans[0]).clone()
+        diffs = []
+        for plan in plans[1:]:
+            got = launch(plan)
+            torch.cuda.synchronize()
+            diff = (got.float() - want.float()).abs().max().item()
+            diffs.append("bitwise" if torch.equal(got, want) else
+                         f"max |diff| {diff:.2e}")
+        del want
+        repeats = max(4, 40 // span)
+        k1()
+        for plan in plans:
+            launch(plan)
+        k1_a = cuda_ms(k1, 50)
+        first = [cuda_ms(lambda p=plan: launch(p), repeats) for plan in plans]
+        second = [cuda_ms(lambda p=plan: launch(p), repeats)
+                  for plan in reversed(plans)][::-1]
+        k1_b = cuda_ms(k1, 50)
+        ms = [(a + b) / 2 for a, b in zip(first, second)]
+        fastest = min(range(len(plans)), key=ms.__getitem__)
+        for i, plan in enumerate(plans):
+            gbps = nbytes * cells / (ms[i] * 1e-3) / 1e9
+            print(f"phase 35: {name} candidate {i}"
+                  f"{' (default)' if i == 0 else ''}"
+                  f"{' (fastest)' if i == fastest else ''}: "
+                  f"{first[i]:.4f} / {second[i]:.4f} ms per launch "
+                  f"({ms[i] / span:.4f} per step), {gbps:.1f} GB/s, "
+                  f"{gbps / saxpy_gbps:.1%} of the saxpy; "
+                  f"{'default' if i == 0 else diffs[i - 1]}; "
+                  f"{plan_text(plan)}")
+        print(f"phase 35: {name}: K1a {k1_a:.4f} / {k1_b:.4f} ms per step "
+              f"in the same turns; default {ms[0] / span:.4f} ms per step, "
+              f"fastest candidate {fastest} {ms[fastest] / span:.4f} ({card})")
+        torch.cuda.empty_cache()
+    del simulation, f32, g, k1_out, groups
+    torch.cuda.empty_cache()
 
 
 def half_gradient_entries(worst, runs, blocked):
@@ -4416,6 +4561,7 @@ def main():
                                                grad_path["mlups"])
     half_blocked = phase34_half_blocked_gradient(card, saxpy_gbps,
                                                  half_gradient)
+    phase35_march_candidates(card, saxpy_gbps)
     print(f"build {build_s:.2f} s; whole run {time.perf_counter() - beg:.1f} "
           f"s")
     print(card)

@@ -2,7 +2,7 @@
 // any collision policy per launch, periodic or masked, as a template over
 // the collision policy C and the storage policy St of stream_collide.cuh.
 // The multi_*.cu sources hold its instances for every fragment and
-// storage; adjoint_multi.cuh reuses its tile pieces.
+// storage; adjoint_multi.cuh reuses its march pieces.
 //
 // Replaces lettuce_tpu/ops/pallas/stream_collide.py::_multi_sweep (:1270),
 // run by _stream_collide_kernel with n_sub > 1 (fused_stream_collide(n_sub=),
@@ -19,46 +19,93 @@
 // §6). A 16-bit state is held in float32 between sub-steps and
 // rounded only at the store of the last one (the TPU kernel's wide slabs,
 // :1754-1762); deviation storage keeps the float32 deviations g = f - w_q
-// in the tile, so rho = 1 + sum g at every sub-step.
-//
-// The masked form is the single-step masked kernel's mask pipeline on
-// every sub-step: a cell's uint8 code selects its kind from the per-code
-// table (collide, bounce back, a constant equilibrium, the per-node
-// equilibrium field, identity), the replacement pushed like a collided
-// population (replace_push); the bool no-streaming mask freezes a
-// population at its destination, which keeps its own post-collision value
-// (store_masked). Codes, frozen populations and the field are read at the
-// same periodically wrapped grid index as f, so a tile's halo and a
-// partial tile at the grid's end are exact. One C entry serves both forms
-// (a periodic launch passes null mask pointers) and launches one of two
-// kernels, so the periodic kernel carries none of the masked one's code.
+// between sub-steps, so rho = 1 + sum g at every sub-step.
 //
 // What bounds it: device memory, ideally. A launch reads q populations and
 // writes q per cell for n_sub steps: 152 / n_sub B per D3Q19 float32
 // lattice update, 76 / n_sub in 16 bits; the masked form adds a 1-byte code
 // per cell (73 / n_sub B per D2Q9 float32 update), q bytes of the
 // no-streaming mask when populations are frozen and the field's q values
-// where a code reads it. The price is the halo: a tile's interior is
-// surrounded by n_sub cells per side that are loaded and collided again by
-// the neighbouring tiles.
+// where a code reads it. The price is the halo (cells next to a block's
+// region are loaded and collided again by its neighbours) and, on this
+// card, the issue rate: one block fills an SM's shared memory, its levels
+// are separated by barriers, and a step's collisions, ring traffic and
+// index arithmetic keep its warps busy while device memory idles (the
+// marched launch moves its bytes at about a third of the card's rate;
+// PERF.md §6, PR 10).
 //
-// The design (simple and exact first; its speed is later work):
+// The periodic kernel (march_kernel) marches a tile along the slowest axis
+// the stencil moves along (axis 0 of a 3D grid, axis 1 of a 2D grid
+// [1, X, Y]):
+//   * a block owns a column: a cross-section of the other two axes, its
+//     interior plus an n_sub-deep halo on the cross axes the stencil moves
+//     along (loaded with periodic wrap, so a partial column at the grid's
+//     end is exact), and a segment of the march axis; ops/cuda/build.py's
+//     plan_march picks the cross-section, the segment length (the C
+//     entry's interior extents: the segment's planes on the march axis)
+//     and the block's threads (up to kMarchThreads);
+//   * a wavefront of levels walks the segment with lag 1: at march step s
+//     level 0 collides plane s (the launch input, wrapped; the segment's
+//     planes less n_sub up to its planes plus n_sub), level k collides
+//     plane s - k on the cross cells at least k from the border, pulling
+//     each population from level k - 1's post-collision plane
+//     x - e_m (e_m its march component) and cross cell c - e; at step s the
+//     store pulls plane s - n_sub from level n_sub - 1 and writes the
+//     interior to out, rounded to the storage once (build.py's
+//     march_steps is this order, walked by the tests);
+//   * each level keeps its post-collision values in a ring of planes in
+//     shared memory (the compute type; 16 bits as float32, deviations as
+//     deviations): a value with e_m = -1, 0, +1 is read in the step it is
+//     written, one or two steps later, so the ring keeps 1, 2 or 3 planes
+//     of it (2 + e_m; the compact ring, 2 q values per cross cell and
+//     level, 38 for D3Q19 where three planes of every population would
+//     take 57). The populations of one e_m form a class, stored per plane
+//     as [cross cell][population of the class]: a phase fixes each class's
+//     plane once (ring_planes), and a population's offset within a cell is
+//     an immediate (class sizes are odd, so a warp's cells fall in
+//     distinct banks); when no cross-section fits the 227 KB of
+//     shared memory the rings live in a per-block slice of a global
+//     scratch the wrapper allocates, the blocks then looping over the
+//     columns (the kernel's body is instantiated for each, so the rings in
+//     shared memory take shared-memory instructions: with_buffer);
+//   * ring hazards: a barrier follows every level and the store, so a
+//     level reads its lower level's plane s - k + 1 after it is written in
+//     the same step, and a slot is overwritten (by plane p + depth, at
+//     step p + depth + k) only after its last read (step p + 1 + e_m + k);
+//   * the cross cells' wrapped grid offsets are tabled once per column
+//     (cross_table), and the phases walk their boxes without a division
+//     per cell (BoxWalk);
+//   * each phase is a loop over the cross cells strided by blockDim.x, so
+//     a one-thread launch runs the phases in order with the barriers as
+//     no-ops.
+// Along the march axis the halo costs a warm-up of 2 n_sub planes per
+// segment; across it the interior share is By Bz / ((By + 2 n)(Bz + 2 n)),
+// not the cube's cubic one. Level 0 loads its plane itself: a staging
+// plane filled by cp.async while the levels above compute cost more than
+// it hid (its 4-byte copies took a third of a step, and it shrank the
+// cross-section; PERF.md §6, PR 10).
+//
+// The masked kernel (masked_sweep_kernel) keeps the cube tile:
 //   * one block per tile of the grid, threads along the fastest axis z;
 //     the tile is the interior plus an n_sub-deep halo on every axis the
 //     stencil moves along (a 2D grid [1, X, Y] has none on axis 0), loaded
 //     with periodic wrap, so a partial tile at the grid's end is exact;
 //   * the tile lives in ONE buffer of q values per cell (dynamic shared
-//     memory, up to 227 KB; or, when even the smallest tile does not fit,
-//     a per-block slice of a global scratch the wrapper allocates, the
-//     blocks then looping over the tiles), followed in a masked launch by
-//     the cells' codes (1 B each) and, when populations are frozen, their
-//     frozen bits (4 B) and a second buffer of q values (TileLayout);
+//     memory, up to 227 KB, or a per-block slice of a global scratch),
+//     followed by the cells' codes (1 B each) and, when populations are
+//     frozen, their frozen bits (4 B) and a second buffer of q values
+//     (TileLayout);
 //   * streaming moves no data: population q of the tile cell c at sub-step
 //     k lives in slot c - k off_q (off_q the flat offset of e_q), so a
 //     collision reads its q values from their slots and writes the
 //     post-collision values back to the same slots, and the next sub-step
 //     finds each streamed value where its source left it. No two threads
 //     touch one slot in a sub-step; a barrier separates sub-steps;
+//   * a cell's uint8 code selects its kind from the per-code table
+//     (collide, bounce back, a constant equilibrium, the per-node
+//     equilibrium field, identity), the replacement pushed like a collided
+//     population (replace_push); codes, frozen populations and the field
+//     are read at the same periodically wrapped grid index as f;
 //   * a frozen population q of cell c must find its own post-collision
 //     value in slot c - (k+1) off_q at sub-step k + 1; that slot is the one
 //     cell c - off_q read and wrote in sub-step k. Moving the value there in
@@ -72,12 +119,10 @@
 //   * sub-step k runs on the cells at least k from the tile's border (the
 //     valid region shrinks one cell per side per sub-step), so after n_sub
 //     sub-steps the interior is exact, and only it is stored.
-// The tile geometry is chosen on the host (ops/cuda/build.py's plan_tile,
-// which counts the masks' bytes per cell).
-//
-// Each phase (load, sub-step, the two copies, store) is a loop over the
-// tile's cells strided by blockDim.x, so a one-thread launch runs the
-// phases in order with the barriers as no-ops.
+// Its tile geometry is chosen on the host (build.py's plan_tile, which
+// counts the masks' bytes per cell). One C entry serves both forms (a
+// periodic launch passes null mask pointers) and launches one of the two
+// kernels, so the periodic kernel carries none of the masked one's code.
 
 #pragma once
 
@@ -93,11 +138,511 @@ extern __shared__ __align__(16) unsigned char lt_tile_smem[];
 
 namespace lt {
 
+// the threads of a masked K2 block
 constexpr int kMultiBlock = 256;
 // the dynamic shared memory a block may opt into on sm_90 (227 KB)
 constexpr size_t kMaxTileSmem = 232448;
 constexpr int kMaxDevices = 64;
 
+// Whether the stencil moves along axis a of the 3D launch grid.
+template <class S>
+__host__ __device__ constexpr bool moves_along(int a) {
+  for (int q = 0; q < S::Q; ++q)
+    if (comp3<S>(q, a) != 0) return true;
+  return false;
+}
+
+__host__ __device__ __forceinline__ int64_t wrap(int64_t x, int64_t n) {
+  x %= n;
+  return x < 0 ? x + n : x;
+}
+
+// wrap() for an x within one period of [0, n), without the division.
+__device__ __forceinline__ int64_t wrap_near(int64_t x, int64_t n) {
+  if (x < 0) {
+    x += n;
+  } else if (x >= n) {
+    x -= n;
+  }
+  return x < 0 || x >= n ? wrap(x, n) : x;
+}
+
+// A block's share of the global scratch: its buffer's bytes rounded up to
+// 16 (ops/cuda/stream_collide.py allocates blocks times this).
+__host__ __device__ __forceinline__ size_t tile_stride(size_t bytes) {
+  return (bytes + 15) / 16 * 16;
+}
+
+// The buffer of this block: its slice of the global scratch, or the
+// dynamic shared memory.
+template <class T>
+__device__ __forceinline__ T* tile_buffer(T* scratch, size_t per_block) {
+  return scratch != nullptr ? scratch + blockIdx.x * per_block
+                            : reinterpret_cast<T*>(lt_tile_smem);
+}
+
+// The tile form of a storage St (what encode() writes back to a tile or a
+// ring): its compute type, unrounded; deviations stay deviations.
+template <class St>
+struct TileStorage {
+  using T = typename St::T;
+  using V = T;
+  static constexpr bool kDeviation = St::kDeviation;
+  __device__ __forceinline__ static V pack(T x) { return x; }
+};
+
+// ---------------------------------------------------------------------------
+// the march (the periodic K2, and K4 in adjoint_multi.cuh)
+// ---------------------------------------------------------------------------
+// The march axis: the slowest axis of the 3D launch grid the stencil moves
+// along (0 in 3D, 1 for a 2D grid [1, X, Y]).
+template <class S>
+__host__ __device__ constexpr int march_axis() {
+  return moves_along<S>(0) ? 0 : (moves_along<S>(1) ? 1 : 2);
+}
+
+// Cross axis i (0 or 1): the other two axes, in order.
+template <class S, int i>
+__host__ __device__ constexpr int cross_axis() {
+  return i == 0 ? (march_axis<S>() == 0 ? 1 : 0)
+                : (march_axis<S>() == 2 ? 1 : 2);
+}
+
+// One launch's columns: the grid, the cross-section's interior b on the
+// cross axes and the segment's planes b on the march axis, the halo h and
+// extent dim = b + 2h per cross axis, the planes collided before and after
+// a segment (halo), and the units (segments x columns) the blocks take.
+struct MarchGeom {
+  int64_t n[3];
+  int b[3];
+  int h[2], dim[2];
+  int cells, halo;
+  int64_t units[3];  // segments, columns along cross axis 0, along axis 1
+  int64_t nunits;
+};
+
+// The march of interior (b0, b1, b2) (on the march axis: the segment's
+// planes) with ``halo`` cells on the cross axes the stencil moves along and
+// ``march_halo`` planes before and after a segment; false if a size is out
+// of range.
+template <class S>
+bool make_march(int64_t n0, int64_t n1, int64_t n2, int b0, int b1, int b2,
+                int halo, int march_halo, MarchGeom& t) {
+  constexpr int M = march_axis<S>();
+  const int64_t n[3] = {n0, n1, n2};
+  const int b[3] = {b0, b1, b2};
+  const int cross[2] = {cross_axis<S, 0>(), cross_axis<S, 1>()};
+  if (halo < 0 || march_halo < 0) return false;
+  for (int a = 0; a < 3; ++a) {
+    if (n[a] < 1 || b[a] < 1) return false;
+    t.n[a] = n[a];
+    t.b[a] = b[a];
+  }
+  int64_t cells = 1;
+  t.units[0] = (n[M] + b[M] - 1) / b[M];
+  t.nunits = t.units[0];
+  for (int i = 0; i < 2; ++i) {
+    const int a = cross[i];
+    t.h[i] = moves_along<S>(a) ? halo : 0;
+    t.dim[i] = b[a] + 2 * t.h[i];
+    cells *= t.dim[i];
+    t.units[i + 1] = (n[a] + b[a] - 1) / b[a];
+    t.nunits *= t.units[i + 1];
+  }
+  if (cells > (int64_t(1) << 30)) return false;
+  t.cells = static_cast<int>(cells);
+  t.halo = march_halo;
+  return true;
+}
+
+// The origin in the grid of a unit's column and segment (its first
+// interior cell, its first stored plane). Neighbouring blocks take
+// neighbouring columns of one segment, so they share halo rows in L2.
+template <class S>
+__device__ __forceinline__ void march_origin(const MarchGeom& t, int64_t unit,
+                                             int64_t (&o)[3]) {
+  constexpr int M = march_axis<S>(), A0 = cross_axis<S, 0>(),
+                A1 = cross_axis<S, 1>();
+  o[A1] = (unit % t.units[2]) * t.b[A1];
+  unit /= t.units[2];
+  o[A0] = (unit % t.units[1]) * t.b[A0];
+  o[M] = (unit / t.units[1]) * t.b[M];
+}
+
+// The wrapped grid coordinates of cross cell c of the column of origin o.
+template <class S>
+__device__ __forceinline__ void cross_coords(const MarchGeom& t,
+                                             const int64_t (&o)[3], int c,
+                                             int64_t& g0, int64_t& g1) {
+  constexpr int A0 = cross_axis<S, 0>(), A1 = cross_axis<S, 1>();
+  g0 = wrap_near(o[A0] - t.h[0] + c / t.dim[1], t.n[A0]);
+  g1 = wrap_near(o[A1] - t.h[1] + c % t.dim[1], t.n[A1]);
+}
+
+// The flat grid stride of axis a.
+__device__ __forceinline__ int64_t grid_stride(const MarchGeom& t, int a) {
+  return a == 0 ? t.n[1] * t.n[2] : (a == 1 ? t.n[2] : 1);
+}
+
+// Phase, once per unit: the flat grid offset of every cross cell of the
+// column of origin o (its wrapped cross coordinates; the march plane's
+// offset is added per plane), so the levels and the store index the grid
+// without a division or a wrap per cell.
+template <class S>
+__device__ __forceinline__ void cross_table(const MarchGeom& t,
+                                            const int64_t (&o)[3],
+                                            int64_t* table) {
+  const int64_t s0 = grid_stride(t, cross_axis<S, 0>()),
+                s1 = grid_stride(t, cross_axis<S, 1>());
+  for (int c = threadIdx.x; c < t.cells; c += blockDim.x) {
+    int64_t g0, g1;
+    cross_coords<S>(t, o, c, g0, g1);
+    table[c] = g0 * s0 + g1 * s1;
+  }
+}
+
+// A thread's walk over the cells of a box ext0 x ext1 (axis 1 fastest),
+// strided by blockDim.x: (y, z) advance without a division per cell.
+struct BoxWalk {
+  int y, z, dy, dz, ext0, ext1;
+
+  __device__ __forceinline__ BoxWalk(int e0, int e1)
+      : y(int(threadIdx.x) / e1), z(int(threadIdx.x) % e1),
+        dy(int(blockDim.x) / e1), dz(int(blockDim.x) % e1), ext0(e0),
+        ext1(e1) {}
+  __device__ __forceinline__ bool more() const { return y < ext0; }
+  __device__ __forceinline__ void next() {
+    y += dy;
+    z += dz;
+    if (z >= ext1) {
+      z -= ext1;
+      ++y;
+    }
+  }
+};
+
+// The cross cells at least r from the border on every cross axis with a
+// halo (all cells on one without): a box of ext[0] x ext[1] from lo.
+struct CrossBox {
+  int lo[2], ext[2];
+};
+
+__device__ __forceinline__ CrossBox cross_box(const MarchGeom& t, int r) {
+  CrossBox box;
+  for (int i = 0; i < 2; ++i) {
+    box.lo[i] = t.h[i] > 0 ? r : 0;
+    box.ext[i] = t.dim[i] - 2 * box.lo[i];
+  }
+  return box;
+}
+
+// The cross cell at (y, z) of a box.
+__device__ __forceinline__ int cross_cell(const MarchGeom& t,
+                                          const CrossBox& box,
+                                          const BoxWalk& w) {
+  return (w.y + box.lo[0]) * t.dim[1] + w.z + box.lo[1];
+}
+
+// The interior of a column (a box of the cross-section interiors).
+template <class S>
+__device__ __forceinline__ BoxWalk interior_walk(const MarchGeom& t) {
+  return BoxWalk(t.b[cross_axis<S, 0>()], t.b[cross_axis<S, 1>()]);
+}
+
+// Interior cell (y, z) of a column: false when it lies past the grid's end
+// (a partial column); else its cross cell.
+template <class S>
+__device__ __forceinline__ bool march_interior(const MarchGeom& t,
+                                               const int64_t (&o)[3],
+                                               const BoxWalk& w, int& c) {
+  if (o[cross_axis<S, 0>()] + w.y >= t.n[cross_axis<S, 0>()] ||
+      o[cross_axis<S, 1>()] + w.z >= t.n[cross_axis<S, 1>()])
+    return false;
+  c = (w.y + t.h[0]) * t.dim[1] + w.z + t.h[1];
+  return true;
+}
+
+// The flat cross offset of e_q.
+template <class S, int q>
+__device__ __forceinline__ int cross_offset(const MarchGeom& t) {
+  return comp3<S>(q, cross_axis<S, 0>()) * t.dim[1] +
+         comp3<S>(q, cross_axis<S, 1>());
+}
+
+// The march component e_m of population q.
+template <class S>
+__host__ __device__ constexpr int march_comp(int q) {
+  return comp3<S>(q, march_axis<S>());
+}
+
+// A ring groups its populations by class k = e_m + 1: the populations of
+// class k, and their index j within it (in the order of q).
+template <class S>
+__host__ __device__ constexpr int class_size(int k) {
+  int n = 0;
+  for (int q = 0; q < S::Q; ++q) n += march_comp<S>(q) + 1 == k;
+  return n;
+}
+
+template <class S>
+__host__ __device__ constexpr int class_index(int q) {
+  int j = 0;
+  for (int p = 0; p < q; ++p) j += march_comp<S>(p) == march_comp<S>(q);
+  return j;
+}
+
+// The planes a ring keeps of class k: Sign +1 for a forward level's
+// post-collision values, read by the level above at plane x + e_m (ages 0
+// to 1 + e_m), Sign -1 for a backward level's cotangents, read at x - e_m
+// (per population: ops/cuda/build.py's ring_depths).
+template <class S, int Sign>
+__host__ __device__ constexpr int class_depth(int k) {
+  return 2 + Sign * (k - 1);
+}
+
+// Where class k starts in a ring, in cross cells times values: the
+// classes below it, their planes of their populations.
+template <class S, int Sign>
+__host__ __device__ constexpr int class_offset(int k) {
+  int at = 0;
+  for (int i = 0; i < k; ++i) at += class_depth<S, Sign>(i) * class_size<S>(i);
+  return at;
+}
+
+// The values of one ring per cross cell: 2 q (e_m = +1 and -1 pair up).
+template <class S>
+constexpr int kRing = 2 * S::Q;
+
+// One ring as a phase sees it: per class k, its plane's block
+// ([cross cell][population of the class]) at the slot of the plane the
+// phase writes, or (pull) of the plane its populations are pulled from,
+// plane - Sign (k - 1); and the block's stride of one cross row.
+template <class S, int Sign, class T>
+struct RingPlanes {
+  T* at[3];
+  int row[3];
+};
+
+template <class S, int Sign, class T>
+__device__ __forceinline__ RingPlanes<S, Sign, T> ring_planes(
+    T* ring, const MarchGeom& t, int plane, bool pull) {
+  static_assert(class_offset<S, Sign>(3) == kRing<S>,
+                "a ring holds 2 q values per cross cell");
+  RingPlanes<S, Sign, T> r;
+  static_for<3>([&](auto K_) {
+    constexpr int k = decltype(K_)::value;
+    constexpr int depth = class_depth<S, Sign>(k), size = class_size<S>(k);
+    const int at = pull ? plane - Sign * (k - 1) : plane;
+    r.at[k] = ring + (size_t(class_offset<S, Sign>(k)) +
+                      size_t(at % depth) * size) *
+                         t.cells;
+    r.row[k] = t.dim[1] * size;
+  });
+  return r;
+}
+
+// The q values a level pulls at cross cell c: forward (Sign +1)
+// population q from cell c - e, backward (Sign -1) from c + e, each in its
+// class's block (the plane ring_planes chose).
+template <class S, int Sign, class T, class V>
+__device__ __forceinline__ void ring_pull(const RingPlanes<S, Sign, V>& r,
+                                          int c, T (&v)[S::Q]) {
+  static_for<S::Q>([&](auto Q_) {
+    constexpr int q = decltype(Q_)::value;
+    constexpr int k = march_comp<S>(q) + 1, n = class_size<S>(k),
+                  j = class_index<S>(q);
+    constexpr int e0 = comp3<S>(q, cross_axis<S, 0>()),
+                  e1 = comp3<S>(q, cross_axis<S, 1>());
+    v[q] = r.at[k][c * n - Sign * (e0 * r.row[k] + e1 * n) + j];
+  });
+}
+
+// Where a forward level's post-collision population goes: its ring's
+// block of the written plane, in the tile form of St.
+template <class S, class St>
+struct RingStore {
+  const RingPlanes<S, 1, typename St::T>& r;
+  int cell;
+
+  template <int q>
+  __device__ __forceinline__ void put(typename St::T value) const {
+    constexpr int k = march_comp<S>(q) + 1;
+    r.at[k][cell * class_size<S>(k) + class_index<S>(q)] =
+        encode<TileStorage<St>, S, q>(value);
+  }
+};
+
+// Phase: level k of the march on local plane ``plane`` (level 0: the
+// grid's plane at offset plane_at): the collision C on the cross cells at
+// least k from the border, into level k's ring. Level 0 reads the launch
+// input f, a level above it pulls from level k - 1's ring.
+template <class C, class St, bool First>
+__device__ __forceinline__ void march_level(
+    const typename C::Params& p, const typename St::V* __restrict__ f,
+    typename St::T* ring, const int64_t* table, const MarchGeom& t, int k,
+    int plane, int64_t plane_at) {
+  using S = typename C::S;
+  using T = typename C::T;
+  T* mine = ring + size_t(k) * kRing<S> * t.cells;
+  const int64_t n = t.n[0] * t.n[1] * t.n[2];
+  const RingPlanes<S, 1, T> out = ring_planes<S, 1>(mine, t, plane, false);
+  // level k - 1's ring (unused by level 0)
+  const RingPlanes<S, 1, T> below = ring_planes<S, 1>(
+      First ? mine : mine - kRing<S> * t.cells, t, First ? 1 : plane, true);
+  const CrossBox box = cross_box(t, k);
+  for (BoxWalk w(box.ext[0], box.ext[1]); w.more(); w.next()) {
+    const int c = cross_cell(t, box, w);
+    T fv[S::Q], u[S::D], rho, u2;
+    if constexpr (First) {
+      const int64_t gi = plane_at + table[c];
+#pragma unroll
+      for (int q = 0; q < S::Q; ++q) fv[q] = St::raw(f + q * n + gi);
+    } else {
+      ring_pull<S, 1>(below, c, fv);
+    }
+    cell_moments<S, St::kDeviation>(fv, rho, u, u2);
+    C::collide(p, fv, rho, u, u2, RingStore<S, St>{out, c});
+  }
+}
+
+// Phase: the store of local plane ``plane`` (the grid's plane x): the
+// interior pulled from the top level's ring into out, rounded to St.
+template <class S, class St>
+__device__ __forceinline__ void march_store(typename St::V* __restrict__ out,
+                                            const typename St::T* top,
+                                            const int64_t* table,
+                                            const MarchGeom& t,
+                                            const int64_t (&o)[3], int plane,
+                                            int64_t x) {
+  using T = typename St::T;
+  const int64_t n = t.n[0] * t.n[1] * t.n[2];
+  const int64_t plane_at = x * grid_stride(t, march_axis<S>());
+  const RingPlanes<S, 1, const T> in = ring_planes<S, 1>(top, t, plane, true);
+  for (BoxWalk w = interior_walk<S>(t); w.more(); w.next()) {
+    int c;
+    if (!march_interior<S>(t, o, w, c)) continue;
+    const int64_t gi = plane_at + table[c];
+    T v[S::Q];
+    ring_pull<S, 1>(in, c, v);
+    static_for<S::Q>([&](auto Q_) {
+      constexpr int q = decltype(Q_)::value;
+      out[q * n + gi] = St::pack(v[q]);
+    });
+  }
+}
+
+// The planes of a unit's segment (fewer in the last one).
+template <class S>
+__device__ __forceinline__ int segment_planes(const MarchGeom& t,
+                                              const int64_t (&o)[3]) {
+  constexpr int M = march_axis<S>();
+  const int64_t left = t.n[M] - o[M];
+  return static_cast<int>(left < t.b[M] ? left : t.b[M]);
+}
+
+// A marched block's buffer: ``values`` ring values of T per cross cell,
+// then (8-byte aligned) the cross cells' grid offsets (ops/cuda/build.py's
+// march_bytes).
+__host__ __device__ __forceinline__ size_t march_table_at(int cells,
+                                                          size_t values,
+                                                          size_t itemsize) {
+  return (values * cells * itemsize + 7) / 8 * 8;
+}
+
+__host__ __device__ __forceinline__ size_t march_bytes(int cells,
+                                                       size_t values,
+                                                       size_t itemsize) {
+  return march_table_at(cells, values, itemsize) +
+         size_t(cells) * sizeof(int64_t);
+}
+
+// The block's buffer: a slice of the global scratch, else the dynamic
+// shared memory. The kernels run their body once for each (march_units
+// below): from a pointer the compiler sees derive from lt_tile_smem, the
+// rings are read and written with shared-memory instructions and 32-bit
+// addresses; a pointer that may be either would make every ring access a
+// generic one (slower on the H100: PERF.md §6, PR 10).
+template <class Body>
+__device__ __forceinline__ void with_buffer(unsigned char* scratch,
+                                            size_t bytes, Body&& body) {
+  if (scratch == nullptr) {
+    body(lt_tile_smem);
+  } else {
+    body(scratch + blockIdx.x * tile_stride(bytes));
+  }
+}
+
+// The most threads a marched block takes (its __launch_bounds__, which
+// caps its registers): 512 where the compute type is 4 bytes and the
+// stencil has at most 19 populations (128 registers), else 256.
+template <class S, class T>
+constexpr int kMarchThreads = sizeof(T) == 4 && S::Q <= 19 ? 512 : 256;
+
+// The units of one block, in the buffer at base: every unit's segment
+// marched with n_sub levels and the store, a barrier after each
+// (march_steps in ops/cuda/build.py).
+template <class C, class St>
+__device__ __forceinline__ void march_units(
+    unsigned char* base, const typename St::V* __restrict__ f,
+    typename St::V* __restrict__ out, const MarchGeom& t, int n_sub,
+    const typename C::Params& p) {
+  using S = typename C::S;
+  using T = typename C::T;
+  constexpr int M = march_axis<S>();
+  const size_t values = size_t(n_sub) * kRing<S>;
+  T* ring = reinterpret_cast<T*>(base);
+  int64_t* table = reinterpret_cast<int64_t*>(
+      base + march_table_at(t.cells, values, sizeof(T)));
+  const T* top = ring + size_t(n_sub - 1) * kRing<S> * t.cells;
+  const int64_t stride = grid_stride(t, M);
+  for (int64_t unit = blockIdx.x; unit < t.nunits; unit += gridDim.x) {
+    int64_t o[3];
+    march_origin<S>(t, unit, o);
+    cross_table<S>(t, o, table);
+    __syncthreads();
+    const int planes = segment_planes<S>(t, o);
+    const int last = planes + 2 * n_sub - 1;  // the last local plane
+    for (int s = 0; s <= last; ++s) {
+      march_level<C, St, true>(p, f, ring, table, t, 0, s,
+                               wrap_near(o[M] - n_sub + s, t.n[M]) * stride);
+      __syncthreads();
+      for (int k = 1; k < n_sub; ++k) {
+        const int plane = s - k;
+        if (plane >= k && plane <= last - k)
+          march_level<C, St, false>(p, f, ring, table, t, k, plane, 0);
+        __syncthreads();
+      }
+      const int plane = s - n_sub;
+      if (plane >= n_sub && plane < n_sub + planes)
+        march_store<S, St>(out, top, table, t, o, plane,
+                           o[M] + plane - n_sub);
+      __syncthreads();
+    }
+  }
+}
+
+// The periodic kernel; scratch (null: shared memory) holds
+// tile_stride(march_bytes) per block.
+template <class C, class St>
+__global__ void __launch_bounds__(
+    kMarchThreads<typename C::S, typename C::T>) march_kernel(
+    const typename St::V* __restrict__ f, typename St::V* __restrict__ out,
+    unsigned char* scratch, const __grid_constant__ MarchGeom t, int n_sub,
+    const __grid_constant__ typename C::Params p) {
+  using S = typename C::S;
+  using T = typename C::T;
+  static_assert(std::is_same_v<T, typename St::T>,
+                "the policy computes in the storage's compute type");
+  with_buffer(scratch,
+              march_bytes(t.cells, size_t(n_sub) * kRing<S>, sizeof(T)),
+              [&](unsigned char* base) {
+                march_units<C, St>(base, f, out, t, n_sub, p);
+              });
+}
+
+// ---------------------------------------------------------------------------
+// the cube tile (the masked K2)
+// ---------------------------------------------------------------------------
 // One launch's tiles: the grid [n0, n1, n2], the interior b and halo h per
 // axis, the tile extents dim = b + 2h and the flat strides of a tile.
 struct TileGeom {
@@ -107,14 +652,6 @@ struct TileGeom {
   int tiles[3];
   int64_t ntiles;
 };
-
-// Whether the stencil moves along axis a of the 3D launch grid.
-template <class S>
-constexpr bool moves_along(int a) {
-  for (int q = 0; q < S::Q; ++q)
-    if (comp3<S>(q, a) != 0) return true;
-  return false;
-}
 
 // The geometry of interior (b0, b1, b2) with a halo of ``halo`` cells on
 // every axis the stencil moves along; false if a size is out of range.
@@ -147,11 +684,6 @@ template <class S, int q>
 __device__ __forceinline__ int tile_offset(const TileGeom& t) {
   return comp3<S>(q, 0) * t.stride0 + comp3<S>(q, 1) * t.stride1 +
          comp3<S>(q, 2);
-}
-
-__device__ __forceinline__ int64_t wrap(int64_t x, int64_t n) {
-  x %= n;
-  return x < 0 ? x + n : x;
 }
 
 // The tile's origin in the grid (its first interior cell).
@@ -190,16 +722,6 @@ __device__ __forceinline__ int box_cell(const TileGeom& t, const TileBox& box,
   return (x + box.lo[0]) * t.stride0 + (y + box.lo[1]) * t.stride1 + z +
          box.lo[2];
 }
-
-// The tile form of a storage St (what encode() writes back to the tile):
-// its compute type, unrounded; deviations stay deviations.
-template <class St>
-struct TileStorage {
-  using T = typename St::T;
-  using V = T;
-  static constexpr bool kDeviation = St::kDeviation;
-  __device__ __forceinline__ static V pack(T x) { return x; }
-};
 
 // Where a post-collision population goes at sub-step k: back to the slot
 // it was read from, encoded in the tile form of St.
@@ -243,10 +765,10 @@ __device__ __forceinline__ void load_tile(
   }
 }
 
-// The parts of a K2 tile after its q values per cell, as byte offsets
-// into the tile buffer: in a masked launch the cells' codes, and when
-// populations are frozen a second buffer of q values and the cells'
-// frozen bits (bit q: population q is frozen there).
+// The parts of a masked K2 tile after its q values per cell, as byte
+// offsets into the tile buffer: the cells' codes, and when populations are
+// frozen a second buffer of q values and the cells' frozen bits (bit q:
+// population q is frozen there).
 struct TileLayout {
   size_t keep, bits, codes, bytes;
 };
@@ -267,15 +789,9 @@ __host__ __device__ __forceinline__ TileLayout tile_layout(int cells,
   return l;
 }
 
-// A block's share of the global scratch: its tile's bytes rounded up to
-// 16 (ops/cuda/stream_collide.py allocates blocks times this).
-__host__ __device__ __forceinline__ size_t tile_stride(size_t bytes) {
-  return (bytes + 15) / 16 * 16;
-}
-
-// The masks of a K2 launch: the grid's (codes, no-streaming mask, per-node
-// field; null when absent) and their tile copies (codes, frozen bits) with
-// the second buffer for frozen values.
+// The masks of a masked K2 launch: the grid's (codes, no-streaming mask,
+// per-node field; null when absent) and their tile copies (codes, frozen
+// bits) with the second buffer for frozen values.
 template <class St>
 struct TileMasks {
   const uint8_t* __restrict__ ncm;
@@ -295,7 +811,7 @@ __device__ __forceinline__ void load_masks(const TileMasks<St>& m,
   const int64_t n = t.n[0] * t.n[1] * t.n[2];
   for (int c = threadIdx.x; c < t.cells; c += blockDim.x) {
     const int64_t gi = tile_global(t, o, c);
-    if (m.codes != nullptr) m.codes[c] = __ldg(m.ncm + gi);
+    m.codes[c] = __ldg(m.ncm + gi);
     if (m.bits != nullptr) {
       uint32_t b = 0;
 #pragma unroll
@@ -318,10 +834,10 @@ __device__ __forceinline__ void tile_populations(const T* buf,
 }
 
 // Phase: sub-step k of the collision C on the cells at least k from the
-// tile's border; in a Masked launch a cell whose code is not "collide"
-// pushes its replacement instead (the single-step masked kernel's
-// branch), the per-node field read at the cell's wrapped grid index.
-template <class C, class St, bool Masked>
+// tile's border; a cell whose code is not "collide" pushes its
+// replacement instead (the single-step masked kernel's branch), the
+// per-node field read at the cell's wrapped grid index.
+template <class C, class St>
 __device__ __forceinline__ void sub_step(
     const typename C::Params& p, typename St::T* buf, const TileGeom& t,
     int k, const TileMasks<St>& m,
@@ -335,17 +851,14 @@ __device__ __forceinline__ void sub_step(
     tile_populations<S, T>(buf, t, c, k, fv);
     cell_moments<S, St::kDeviation>(fv, rho, u, u2);
     const TileStore<S, St> store{buf, t, c, k};
-    if constexpr (Masked) {
-      const int code = m.codes[c];
-      const int kind = kind_of(table.kind, code);
-      if (kind != kCollide) {
-        const int64_t gi =
-            kind == kEquilibriumField ? tile_global(t, o, c) : 0;
-        replace_push<S, St>(kind, table.value[code < kMaxCodes ? code : 0],
-                            fv, m.feq_field, t.n[0] * t.n[1] * t.n[2], gi,
-                            store);
-        continue;
-      }
+    const int code = m.codes[c];
+    const int kind = kind_of(table.kind, code);
+    if (kind != kCollide) {
+      const int64_t gi = kind == kEquilibriumField ? tile_global(t, o, c) : 0;
+      replace_push<S, St>(kind, table.value[code < kMaxCodes ? code : 0],
+                          fv, m.feq_field, t.n[0] * t.n[1] * t.n[2], gi,
+                          store);
+      continue;
     }
     C::collide(p, fv, rho, u, u2, store);
   }
@@ -415,20 +928,11 @@ __device__ __forceinline__ void store_tile(typename St::V* __restrict__ out,
   }
 }
 
-// The tile buffer of this block: its slice of the global scratch, or the
-// dynamic shared memory.
-template <class T>
-__device__ __forceinline__ T* tile_buffer(T* scratch, size_t per_block) {
-  return scratch != nullptr ? scratch + blockIdx.x * per_block
-                            : reinterpret_cast<T*>(lt_tile_smem);
-}
-
-// ncm, nsm and feq_field (null when absent) are the grid's masks, read
-// only when Masked (ncm then given); scratch (null: shared memory) holds
-// tile_stride bytes per block. The periodic form is an instance of its
-// own, so it carries none of the masked form's code.
-template <class C, class St, bool Masked>
-__global__ void __launch_bounds__(kMultiBlock) multi_sweep_kernel(
+// The masked kernel: ncm is the grid's codes, nsm and feq_field (null when
+// absent) its no-streaming mask and per-node field; scratch (null: shared
+// memory) holds tile_stride bytes per block.
+template <class C, class St>
+__global__ void __launch_bounds__(kMultiBlock) masked_sweep_kernel(
     const typename St::V* __restrict__ f, typename St::V* __restrict__ out,
     unsigned char* scratch, const __grid_constant__ TileGeom t, int n_sub,
     const __grid_constant__ typename C::Params p,
@@ -439,23 +943,23 @@ __global__ void __launch_bounds__(kMultiBlock) multi_sweep_kernel(
   using T = typename C::T;
   static_assert(std::is_same_v<T, typename St::T>,
                 "the policy computes in the storage's compute type");
-  const TileLayout l = tile_layout<S, T>(t.cells, Masked, nsm != nullptr);
+  const TileLayout l = tile_layout<S, T>(t.cells, true, nsm != nullptr);
   unsigned char* base = tile_buffer(scratch, tile_stride(l.bytes));
   T* buf = reinterpret_cast<T*>(base);
   const TileMasks<St> m{
-      ncm, nsm, feq_field, Masked ? base + l.codes : nullptr,
+      ncm, nsm, feq_field, base + l.codes,
       nsm != nullptr ? reinterpret_cast<uint32_t*>(base + l.bits) : nullptr,
       nsm != nullptr ? reinterpret_cast<T*>(base + l.keep) : nullptr};
   for (int64_t tile = blockIdx.x; tile < t.ntiles; tile += gridDim.x) {
     int64_t o[3];
     tile_origin(t, tile, o);
     load_tile<S, St>(f, buf, t, o);
-    if constexpr (Masked) load_masks<S, St>(m, t, o);
+    load_masks<S, St>(m, t, o);
     __syncthreads();
     for (int k = 0; k < n_sub; ++k) {
-      sub_step<C, St, Masked>(p, buf, t, k, m, table, o);
+      sub_step<C, St>(p, buf, t, k, m, table, o);
       __syncthreads();
-      if (Masked && m.bits != nullptr) {
+      if (m.bits != nullptr) {
         move_frozen<S, T>(buf, m.keep, m.bits, t, k, true);
         __syncthreads();
         move_frozen<S, T>(buf, m.keep, m.bits, t, k, false);
@@ -467,6 +971,9 @@ __global__ void __launch_bounds__(kMultiBlock) multi_sweep_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// launches
+// ---------------------------------------------------------------------------
 // A type per kernel instance: instances whose pointers share a type (the
 // bfloat16 state and bfloat16 deviation instances of one policy) must not
 // share allow_tile_smem's record.
@@ -487,9 +994,9 @@ int allow_tile_smem(Kernel kernel, int device) {
   return static_cast<int>(err);
 }
 
-// The dynamic shared memory of a launch whose tile takes ``bytes``: 0 with
-// a scratch, else bytes (and the kernel of instance Tag opted in); -1 if it
-// cannot run.
+// The dynamic shared memory of a launch whose buffer takes ``bytes``: 0
+// with a scratch, else bytes (and the kernel of instance Tag opted in); -1
+// if it cannot run.
 template <class Tag, class Kernel>
 int64_t tile_smem(Kernel kernel, size_t bytes, const void* scratch,
                   int device, int& err) {
@@ -503,22 +1010,45 @@ int64_t tile_smem(Kernel kernel, size_t bytes, const void* scratch,
   return err == 0 ? int64_t(bytes) : -1;
 }
 
-// One launch of the periodic or the Masked instance over the tiles of t;
-// returns cudaGetLastError().
-template <class C, class St, bool Masked>
-int start_multi(const void* f, void* out, void* scratch, const void* ncm,
-                const void* nsm, const void* feq_field, const TileGeom& t,
-                int n_sub, int blocks, const typename C::Params& p,
-                const BoundaryTable<typename C::T>& table, int device,
-                void* stream) {
+// One launch of the periodic (marched) kernel over the units of t with
+// ``threads`` threads per block; returns cudaGetLastError().
+template <class C, class St>
+int start_march(const void* f, void* out, void* scratch, const MarchGeom& t,
+                int n_sub, int blocks, int threads,
+                const typename C::Params& p, int device, void* stream) {
+  using S = typename C::S;
+  using T = typename C::T;
   using V = typename St::V;
-  const auto kernel = multi_sweep_kernel<C, St, Masked>;
-  const TileLayout l = tile_layout<typename C::S, typename C::T>(
-      t.cells, Masked, nsm != nullptr);
+  const auto kernel = march_kernel<C, St>;
+  if (threads < 1 || threads > kMarchThreads<S, T>)
+    return static_cast<int>(cudaErrorInvalidValue);
   int err = 0;
-  const int64_t smem =
-      tile_smem<TileTag<C, St, std::bool_constant<Masked>>>(
-          kernel, l.bytes, scratch, device, err);
+  const int64_t smem = tile_smem<TileTag<C, St, std::false_type>>(
+      kernel, march_bytes(t.cells, size_t(n_sub) * kRing<S>, sizeof(T)),
+      scratch, device, err);
+  if (smem < 0) return err;
+  kernel<<<blocks, threads, static_cast<size_t>(smem),
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const V*>(f), static_cast<V*>(out),
+      static_cast<unsigned char*>(scratch), t, n_sub, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One launch of the masked kernel over the tiles of t; returns
+// cudaGetLastError().
+template <class C, class St>
+int start_masked(const void* f, void* out, void* scratch, const void* ncm,
+                 const void* nsm, const void* feq_field, const TileGeom& t,
+                 int n_sub, int blocks, const typename C::Params& p,
+                 const BoundaryTable<typename C::T>& table, int device,
+                 void* stream) {
+  using V = typename St::V;
+  const auto kernel = masked_sweep_kernel<C, St>;
+  const TileLayout l = tile_layout<typename C::S, typename C::T>(
+      t.cells, true, nsm != nullptr);
+  int err = 0;
+  const int64_t smem = tile_smem<TileTag<C, St, std::true_type>>(
+      kernel, l.bytes, scratch, device, err);
   if (smem < 0) return err;
   kernel<<<blocks, kMultiBlock, static_cast<size_t>(smem),
            static_cast<cudaStream_t>(stream)>>>(
@@ -529,16 +1059,20 @@ int start_multi(const void* f, void* out, void* scratch, const void* ncm,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Host launcher: blocks over the tiles of interior (b0, b1, b2); scratch
-// (null for shared memory) holds blocks * tile_stride(tile bytes) bytes.
-// ncm null is a periodic launch; else nsm and feq_field may be null, and
-// kinds and values are the host table (the single-step masked entries').
-// Returns cudaGetLastError().
+// Host launcher. A periodic launch (ncm null) marches: (b0, b1, b2) is the
+// cross-section's interior on the cross axes and the segment's planes on
+// the march axis, ``threads`` (at most kMarchThreads) per block, scratch
+// (null for shared memory) holds blocks * tile_stride(march_bytes) bytes.
+// A masked launch (ncm given; nsm and feq_field may be null, kinds and
+// values are the host table, the single-step masked entries') runs the
+// cube tiles of interior (b0, b1, b2) with kMultiBlock threads per block,
+// scratch holding blocks * tile_stride(tile bytes). Returns
+// cudaGetLastError().
 template <class C, class St>
 int launch_multi(const void* f, void* out, void* scratch, const void* ncm,
                  const void* nsm, const void* feq_field, const int32_t* kinds,
                  const double* values, int64_t n0, int64_t n1, int64_t n2,
-                 int n_sub, int b0, int b1, int b2, int blocks,
+                 int n_sub, int b0, int b1, int b2, int blocks, int threads,
                  const typename C::Params& p, int device, void* stream) {
   using S = typename C::S;
   using T = typename C::T;
@@ -551,47 +1085,53 @@ int launch_multi(const void* f, void* out, void* scratch, const void* ncm,
                         sizeof(BoundaryTable<T>) + 96 <=
                     kMaxParamBytes,
                 "kernel parameters exceed the launch's parameter space");
+  if (n_sub < 1 || blocks < 1 || (ncm == nullptr && nsm != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (ncm == nullptr) {
+    MarchGeom t;
+    if (!make_march<S>(n0, n1, n2, b0, b1, b2, n_sub, n_sub, t))
+      return static_cast<int>(cudaErrorInvalidValue);
+    const int err = use_device(device);
+    if (err != 0) return err;
+    return start_march<C, St>(f, out, scratch, t, n_sub, blocks, threads, p,
+                              device, stream);
+  }
   TileGeom t;
-  if (n_sub < 1 || blocks < 1 || (ncm == nullptr && nsm != nullptr) ||
-      !make_geom<S>(n0, n1, n2, b0, b1, b2, n_sub, t))
+  if (!make_geom<S>(n0, n1, n2, b0, b1, b2, n_sub, t))
     return static_cast<int>(cudaErrorInvalidValue);
   BoundaryTable<T> table{};
-  if (ncm != nullptr) {
-    if (!fill_kinds(kinds, table.kind))
-      return static_cast<int>(cudaErrorInvalidValue);
-    for (int c = 0; c < kMaxCodes; ++c)
-      for (int q = 0; q < kMaxQ; ++q)
-        table.value[c][q] = T(values[c * kMaxQ + q]);
-  }
+  if (!fill_kinds(kinds, table.kind))
+    return static_cast<int>(cudaErrorInvalidValue);
+  for (int c = 0; c < kMaxCodes; ++c)
+    for (int q = 0; q < kMaxQ; ++q)
+      table.value[c][q] = T(values[c * kMaxQ + q]);
   const int err = use_device(device);
   if (err != 0) return err;
-  return ncm != nullptr
-             ? start_multi<C, St, true>(f, out, scratch, ncm, nsm, feq_field,
-                                        t, n_sub, blocks, p, table, device,
-                                        stream)
-             : start_multi<C, St, false>(f, out, scratch, ncm, nsm,
-                                         feq_field, t, n_sub, blocks, p,
-                                         table, device, stream);
+  return start_masked<C, St>(f, out, scratch, ncm, nsm, feq_field, t, n_sub,
+                             blocks, p, table, device, stream);
 }
 
 }  // namespace lt
 
 // The blocked entry of POLICY on S with the storage STORAGE (whose compute
-// type the policy runs in): n_sub sub-steps over tiles of interior
-// (b0, b1, b2), ``blocks`` blocks, the global ``scratch`` or null; with
-// ``ncm`` null a periodic launch, else masked (``nsm`` and ``feq_field``
+// type the policy runs in): n_sub sub-steps with ``blocks`` blocks and the
+// global ``scratch`` or null; with ``ncm`` null a periodic launch marching
+// columns of interior (b0, b1, b2) (the segment's planes on the march
+// axis) with ``threads`` per block, else masked over cube tiles of
+// interior (b0, b1, b2) (``threads`` unused; ``nsm`` and ``feq_field``
 // null when absent; ``kinds`` and ``values`` the host table).
 #define LT_MULTI_ENTRY(FRAG, STENCIL, POLICY, S, SUFFIX, STORAGE)             \
   int lt_multi_##FRAG##_##STENCIL##_##SUFFIX(                                 \
       const void* f, void* out, void* scratch, const void* ncm,              \
       const void* nsm, const void* feq_field, const int32_t* kinds,          \
       const double* values, int64_t n0, int64_t n1, int64_t n2, int n_sub,   \
-      int b0, int b1, int b2, int blocks, const double* params, double cs,   \
-      int device, void* stream) {                                             \
+      int b0, int b1, int b2, int blocks, int threads, const double* params, \
+      double cs, int device, void* stream) {                                  \
     using C = POLICY<lt::S, typename STORAGE::T>;                             \
     return lt::launch_multi<C, STORAGE>(                                      \
         f, out, scratch, ncm, nsm, feq_field, kinds, values, n0, n1, n2,     \
-        n_sub, b0, b1, b2, blocks, C::load(params, cs), device, stream);     \
+        n_sub, b0, b1, b2, blocks, threads, C::load(params, cs), device,     \
+        stream);                                                              \
   }
 
 // The blocked entries of a fragment in float32 and float64.

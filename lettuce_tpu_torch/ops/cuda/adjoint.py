@@ -52,12 +52,13 @@ masked).
 The blocked adjoint (K4, ``csrc/adjoint_multi.cu``) replaces
 ``lettuce_tpu/ops/pallas/adjoint.py::_adjoint_multi_kernel``: the exact VJP
 of one blocked forward launch (``n_sub`` steps, K2) in one launch, from the
-launch input f alone. It replays the forward in its tile, keeping each
-level's pre-collision u, and pulls the cotangent back through the levels
-with the adjoints above: periodic grids, float32 and float64, the
-forward fragments of :data:`ADJOINT_MULTI_FRAGMENTS`. It reads f and g and
-writes the cotangent once per launch: 228 / n_sub B per D3Q19 float32
-lattice update.
+launch input f alone. It marches columns along the grid's slowest moving
+axis (``csrc/adjoint_multi.cuh``), replaying the forward in rings of
+planes, keeping each level's pre-collision u, and pulls the cotangent
+back through the levels with the adjoints above: periodic grids, float32
+and float64, the forward fragments of :data:`ADJOINT_MULTI_FRAGMENTS`. It
+reads f and g and writes the cotangent once per launch: 228 / n_sub B per
+D3Q19 float32 lattice update.
 
 A bfloat16 or float16 state differentiates on the same kernels at 16-bit
 storage (``csrc/adjoint_half.cu``, K3 at 16 bits, every spec;
@@ -66,7 +67,7 @@ Smagorinsky's f residual) is stored in the state's dtype, the u residual
 in float32, every sum runs in float32 and each stored value rounds once,
 as lettuce_tpu's adjoint kernel computes in float32 (:167-174). D3Q19
 moves 88 B per lattice update with the u residual, 114 B with the f
-residual. The blocked adjoint keeps its tile in float32 between levels and
+residual. The blocked adjoint keeps its rings in float32 between levels and
 rounds once per launch, where lettuce_tpu's computes in the storage dtype
 (ROADMAP F11). The plain versions widen to float32, compute and round
 once. Deviation storage has no gradient.
@@ -90,7 +91,8 @@ from .build import (DTYPES, HALF_DTYPES, KERNEL_STENCIL_NAMES,
                     kernel_stencil_name, launch_dims, open_library,
                     storage_suffix)
 from .stream_collide import (FRAGMENTS, check_nsm, checked_table,
-                             multi_plan, pack_spec, prestream_plain,
+                             march_plan, march_scratch, pack_spec,
+                             prestream_plain,
                              stream_collide_plain)
 
 __all__ = ["stream_collide_adjoint", "stream_collide_adjoint_plain",
@@ -313,7 +315,7 @@ def stream_collide_adjoint_multi_plain(f: torch.Tensor, g: torch.Tensor,
     (:func:`stream_collide_adjoint_plain`) in reverse on the cotangent
     ``g`` of the last step's output. A 16-bit ``f`` and ``g`` are widened
     once, replayed and pulled back in float32, and the result rounded
-    once, as the blocked kernels keep their tile in float32."""
+    once, as the blocked kernels keep their rings in float32."""
     spec = _multi_spec(collision_spec, tau_inv, e, w, opposite, f.dtype)
     if g.dtype in HALF_DTYPES:
         return stream_collide_adjoint_multi_plain(
@@ -435,11 +437,12 @@ def load_multi_library(half: bool = False) -> ctypes.CDLL:
     (``csrc/adjoint_multi.cu``, float32 and float64; with ``half``
     ``csrc/adjoint_multi_half.cu``, bfloat16 and float16), with
     ``argtypes`` set on every entry: f, g, out, scratch, the grid, n_sub,
-    the halo, the tile's interior, the blocks, the forward's and the
-    adjoint's float64 parameters, cs, device, stream."""
+    the halo, the march's interior (the segment's planes on the march
+    axis), the blocks and their threads, the forward's and the adjoint's
+    float64 parameters, cs, device, stream."""
     lib = open_library("adjoint_multi_half" if half else "adjoint_multi")
     pointer = ctypes.c_void_p
-    argtypes = ([pointer] * 4 + [ctypes.c_int64] * 3 + [ctypes.c_int] * 6
+    argtypes = ([pointer] * 4 + [ctypes.c_int64] * 3 + [ctypes.c_int] * 7
                 + [pointer, pointer, ctypes.c_double, ctypes.c_int, pointer])
     suffixes = ([storage_suffix(dtype) for dtype in HALF_DTYPES] if half
                 else [suffix for suffix, _ in DTYPES.values()])
@@ -603,7 +606,7 @@ def stream_collide_adjoint_multi(f: torch.Tensor, g: torch.Tensor,
     tensor (allocating ``out`` when none is given), else
     :func:`stream_collide_adjoint_multi_plain`. Periodic only: ``masks``
     (the gate's ``ncm``, ``nsm``, ``table``, ``feq_field``) must be None.
-    A bfloat16 or float16 state runs K4 at 16 bits (a float32 tile,
+    A bfloat16 or float16 state runs K4 at 16 bits (float32 rings,
     rounded once). Raises NotImplementedError for a spec or dtype it does
     not take (:func:`adjoint_multi_refusal`)."""
     if any(m is not None for m in masks.values()):
@@ -619,16 +622,28 @@ def stream_collide_adjoint_multi(f: torch.Tensor, g: torch.Tensor,
     launch_dims(g, e)
     _check_residual(f, g, g.shape, "state")
     out = check_out(out, g, g.shape, "out", g, f)
-    d = np.asarray(e).shape[1]
+    return _launch_adjoint_multi(f, g, out, spec, n_sub, e, cs)
+
+
+def _launch_adjoint_multi(f: torch.Tensor, g: torch.Tensor,
+                          out: torch.Tensor, spec, n_sub: int, e, cs: float,
+                          plan=None) -> torch.Tensor:
+    """One launch of the blocked adjoint (K4) of the packed ``spec`` on
+    the CUDA tensors ``f`` and ``g`` into ``out``, over the columns of
+    ``plan`` (:func:`.stream_collide.march_plan`'s when None; another
+    candidate of :func:`.build.march_candidates` when given)."""
+    dims = launch_dims(g, e)
     halo = adjoint_multi_halo(n_sub)
-    dims, plan, scratch = multi_plan(g, e, halo, g.shape[0] + n_sub * d)
+    if plan is None:
+        plan = march_plan(g, e, n_sub, adjoint=True, halo=halo)
+    scratch = march_scratch(plan, g.device)
     suffix = storage_suffix(g.dtype)
     lib = load_multi_library(half=g.dtype in HALF_DTYPES)
     launch = getattr(lib, f"lt_adjoint_multi_{spec.fragment}_"
                           f"{spec.stencil}_{suffix}")
     rc = launch(f.data_ptr(), g.data_ptr(), out.data_ptr(),
                 None if scratch is None else scratch.data_ptr(), *dims,
-                int(n_sub), halo, *plan.interior, plan.blocks,
+                int(n_sub), halo, *plan.interior, plan.blocks, plan.threads,
                 spec.params.ctypes.data, spec.adjoint_params.ctypes.data,
                 float(cs), g.device.index,
                 torch.cuda.current_stream(g.device).cuda_stream)

@@ -12,8 +12,10 @@ kept beside the library (:func:`ptxas_log`).
 
 Also here: what every wrapper checks before a launch (the compiled stencil
 instance, the dtype, the launch grid), the entry suffix of each state
-dtype and storage (:data:`DTYPES`, :data:`STORAGE`), and the tiles of the
-blocked kernels (:func:`plan_tile`).
+dtype and storage (:data:`DTYPES`, :data:`STORAGE`), the columns of the
+marched blocked kernels (:func:`plan_march`, the periodic K2 and K4, with
+their schedule :func:`march_steps`) and the cube tiles of the masked K2
+(:func:`plan_tile`).
 """
 
 from __future__ import annotations
@@ -40,7 +42,9 @@ __all__ = ["SOURCES", "find_nvcc", "library_path", "ptxas_log",
            "KERNEL_STENCIL_NAMES", "DTYPES", "STORAGE", "HALF_DTYPES",
            "storage_suffix", "compute_dtype", "plan_tile", "TilePlan",
            "TILE_SMEM_BYTES",
-           "moving_axes", "mask_bytes", "tile_stride"]
+           "moving_axes", "mask_bytes", "tile_stride", "MarchPlan",
+           "plan_march", "march_candidates", "march_steps", "ring_depths",
+           "march_values", "march_bytes", "march_threads"]
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 # csrc/<name>.cu, one library each: the BGK step (K1a, K1d, K1b), its
@@ -89,6 +93,13 @@ _TWO_BLOCK_TILE_BYTES = (233472 - 2 * 1024) // 2
 _SCRATCH_TILE_BYTES = 4 << 20
 _SCRATCH_BLOCKS = 264
 _MAX_INTERIOR = (32, 32, 128)  # the interior extents a plan considers
+# the marched kernels' columns: an H100 SXM's SMs (the planner fills them
+# in whole waves), the cross-section interiors and cells a plan considers,
+# and the segment counts along the march axis
+SMS = 132
+_MAX_CROSS = 1024
+_MAX_CROSS_CELLS = 1 << 14
+_MAX_SEGMENTS = 64
 
 
 # ----------------------------------------------------------------------
@@ -294,7 +305,7 @@ def mask_bytes(q: int, itemsize: int, masked: bool, frozen: bool) -> int:
 
 
 def tile_stride(nbytes: int) -> int:
-    """A block's share of a blocked launch's global scratch: its tile's
+    """A block's share of a blocked launch's global scratch: its buffer's
     bytes rounded up to 16 (csrc/multi_sweep.cuh's tile_stride)."""
     return -(-int(nbytes) // 16) * 16
 
@@ -302,15 +313,16 @@ def tile_stride(nbytes: int) -> int:
 @functools.lru_cache(maxsize=256)
 def plan_tile(dims: tuple, moving: tuple, halo: int, values_per_cell: int,
               itemsize: int, extra_bytes: int = 0) -> TilePlan:
-    """The tile of a blocked launch over the launch grid ``dims`` (n0, n1,
-    n2): ``moving`` says on which axes the stencil moves (those get the
-    ``halo``), and each tile cell holds ``values_per_cell`` values of
-    ``itemsize`` bytes and ``extra_bytes`` more (:func:`mask_bytes`). Of
-    the interiors up to 32 x 32 x 128 (and the grid) it takes the one
-    whose interior is the largest share of the tile (then the largest),
-    within the shared memory of one of two blocks per SM, else within all
-    a block may take, else in a global scratch (csrc/multi_sweep.cuh). Raises ValueError when no tile
-    holds the halo."""
+    """The cube tile of a masked blocked launch (K2) over the launch grid
+    ``dims`` (n0, n1, n2): ``moving`` says on which axes the stencil moves
+    (those get the ``halo``), and each tile cell holds ``values_per_cell``
+    values of ``itemsize`` bytes and ``extra_bytes`` more
+    (:func:`mask_bytes`). Of the interiors up to 32 x 32 x 128 (and the
+    grid) it takes the one whose interior is the largest share of the tile
+    (then the largest), within the shared memory of one of two blocks per
+    SM, else within all a block may take, else in a global scratch
+    (csrc/multi_sweep.cuh). Raises ValueError when no tile holds the
+    halo."""
     halos = [halo if m else 0 for m in moving]
     axes = [np.arange(1, min(int(n), cap) + 1)
             for n, cap in zip(dims, _MAX_INTERIOR)]
@@ -338,3 +350,268 @@ def plan_tile(dims: tuple, moving: tuple, halo: int, values_per_cell: int,
                      f"{values_per_cell} x {itemsize}-byte values (and "
                      f"{extra_bytes} B) per cell within "
                      f"{_SCRATCH_TILE_BYTES} bytes")
+
+
+# ----------------------------------------------------------------------
+# the march of the periodic K2 and of K4 (csrc/multi_sweep.cuh)
+# ----------------------------------------------------------------------
+def march_values(q: int, d: int, n_sub: int, adjoint: bool = False) -> int:
+    """The ring values per cross-section cell of a marched block: K2 keeps
+    n_sub rings of 2 q values (the compact ring: a population is kept 1, 2
+    or 3 planes as it moves -1, 0, +1 along the march axis); K4
+    (``adjoint``) 2 (n_sub - 1) such rings (the replay's post-collision
+    values, the cotangents) and the u rings of levels 0 .. n_sub - 2,
+    2 (n_sub - 1 - k) + 1 planes of d values each."""
+    if adjoint:
+        return 2 * (n_sub - 1) * 2 * q + (n_sub * n_sub - 1) * d
+    return n_sub * 2 * q
+
+
+def ring_depths(e, sign: int = 1) -> tuple:
+    """The planes a ring keeps of each population of the stencil ``e``:
+    2 + sign e_m, e_m its component along the march axis (the first axis of
+    the 3D launch grid it moves along); sign +1 for a forward level's
+    post-collision values, -1 for a backward level's cotangents."""
+    e3 = np.asarray(e)
+    if e3.shape[1] == 2:
+        e3 = np.concatenate([np.zeros((e3.shape[0], 1), int), e3], axis=1)
+    axis = moving_axes(e).index(True)
+    return tuple(int(2 + sign * x) for x in e3[:, axis])
+
+
+def march_steps(n_sub: int, planes: int, adjoint: bool = False) -> list:
+    """The order of one marched segment of ``planes`` stored planes, as the
+    kernels run it (csrc/multi_sweep.cuh's march_units, adjoint_multi.cuh's
+    adjoint_units): per march step a list of phases ``(kind, level,
+    plane)``, a barrier after each, planes local to the segment (plane 0
+    is its first stored plane less the march halo: n_sub for K2,
+    2 (n_sub - 1) for K4).
+
+    K2: ``("collide", k, s - k)`` for k = 0 .. n_sub - 1 (level 0 reads the
+    launch input, level k pulls population q from level k - 1's ring at
+    plane - e_m), then ``("store", n_sub, s - n_sub)``, which pulls from
+    level n_sub - 1's ring. K4 (``adjoint``): ``("replay", k, s - k)`` for
+    k = 0 .. n_sub - 2 (pulling as K2's levels; it also keeps u), then
+    ``("top", n_sub - 1, s - n_sub + 1)`` (the last u, and g pulled from
+    device memory at plane + e_m into the cotangent ring of level
+    n_sub - 1), ``("adjoint", kk, s - 2 (n_sub - 1) + kk)`` for
+    kk = n_sub - 2 .. 1 (pulling level kk + 1's cotangent at plane + e_m),
+    and ``("store", 0, s - 2 (n_sub - 1))``, which writes out; at n_sub 1
+    only ``("top", 0, s)``, which reads the launch input itself and writes
+    out. A phase appears only on the planes it computes: a level's planes
+    shrink by one at each end per level away from the input (K2's level
+    k: k .. planes + 2 n_sub - 1 - k)."""
+    steps = []
+    if not adjoint:
+        last = planes + 2 * n_sub - 1
+        for s in range(last + 1):
+            phases = [("collide", k, s - k) for k in range(n_sub)
+                      if k <= s - k <= last - k]
+            if n_sub <= s - n_sub < n_sub + planes:
+                phases.append(("store", n_sub, s - n_sub))
+            steps.append(phases)
+        return steps
+    lead = 2 * (n_sub - 1)
+    last = planes + 2 * lead - 1
+    for s in range(last + 1):
+        if n_sub == 1:
+            steps.append([("top", 0, s)])
+            continue
+        phases = [("replay", k, s - k) for k in range(n_sub - 1)
+                  if k <= s - k <= last - k]
+        top = s - (n_sub - 1)
+        if n_sub - 1 <= top <= last - (n_sub - 1):
+            phases.append(("top", n_sub - 1, top))
+        for kk in range(n_sub - 2, 0, -1):
+            plane = s - lead + kk
+            if lead - kk <= plane <= lead + planes - 1 + kk:
+                phases.append(("adjoint", kk, plane))
+        if lead <= s - lead < lead + planes:
+            phases.append(("store", 0, s - lead))
+        steps.append(phases)
+    return steps
+
+
+def march_bytes(cells: int, values_per_cell: int, itemsize: int) -> int:
+    """The buffer of a marched block (csrc/multi_sweep.cuh's march_bytes):
+    ``values_per_cell`` ring values of ``itemsize`` bytes per cross cell,
+    rounded up to 8 bytes, then each cross cell's 8-byte grid offset."""
+    return -(-cells * values_per_cell * itemsize // 8) * 8 + 8 * cells
+
+
+def march_threads(q: int, itemsize: int, adjoint: bool = False) -> int:
+    """The most threads a marched block of a stencil with ``q``
+    populations takes in a compute type of ``itemsize`` bytes (its
+    ``__launch_bounds__``): K2 512 for float32 compute on up to 19
+    populations, else 256 (csrc/multi_sweep.cuh's kMarchThreads); K4
+    (``adjoint``) 256 (csrc/adjoint_multi.cuh's kAdjointThreads)."""
+    return 512 if itemsize == 4 and q <= 19 and not adjoint else 256
+
+
+class MarchPlan(NamedTuple):
+    """The columns of one marched launch (the periodic K2, K4): the march
+    ``axis`` of the 3D launch grid; ``interior``, what the C entry takes
+    as (b0, b1, b2): the cross-section's interior on the two cross axes
+    and the ``segment``'s planes on the march axis; the ``halo`` on the
+    cross axes the stencil moves along and the ``march_halo`` planes
+    collided before and after a segment; the cross-section's ``cells``,
+    the buffer ``bytes`` per block (:func:`march_bytes`: rings and grid
+    offsets); whether it lives in a global ``scratch`` (else shared memory
+    within the budget of ``blocks_per_sm`` blocks per SM: 2 or 1; 0 with a
+    scratch); the
+    ``units`` (columns times segments), the ``blocks`` launched and their
+    ``threads``; ``share``, the stored cells per level-0 collision (the
+    cross-section's interior share times the segment's share of the
+    planes it loads)."""
+    axis: int
+    interior: tuple
+    segment: int
+    halo: int
+    march_halo: int
+    cells: int
+    bytes: int
+    scratch: bool
+    blocks_per_sm: int
+    units: int
+    blocks: int
+    threads: int
+    share: float
+
+
+# the budgets of a marched block: two blocks per SM (F9), one, a scratch
+_MARCH_BUDGETS = ((_TWO_BLOCK_TILE_BYTES, 2), (TILE_SMEM_BYTES, 1),
+                  (_SCRATCH_TILE_BYTES, 0))
+
+
+def _march_table(dims, moving, halo, march_halo, values_per_cell, itemsize,
+                 budget, per_sm, threads, sms):
+    """Every (cross-section, segment) of one budget with its modelled time,
+    best first: a list of (est, plan). The model: whole waves of
+    ``sms * per_sm`` blocks (a scratch launch's _SCRATCH_BLOCKS), each wave
+    a unit's level-0 collisions (cells times loaded planes) ``per_sm``
+    times over, and a row of the fastest cross axis costing one 32-byte
+    sector more than its bytes."""
+    axis = moving.index(True)
+    cross = [a for a in range(3) if a != axis]
+    halos = [halo if moving[a] else 0 for a in cross]
+    n_m = int(dims[axis])
+    b = np.meshgrid(*[np.arange(1, min(int(dims[a]), _MAX_CROSS) + 1)
+                      for a in cross], indexing="ij")
+    b0, b1 = b[0].ravel(), b[1].ravel()
+    cells = (b0 + 2 * halos[0]) * (b1 + 2 * halos[1])
+    nbytes = march_bytes(cells, values_per_cell, itemsize)
+    fits = (nbytes <= budget) & (cells <= _MAX_CROSS_CELLS)
+    if not fits.any():
+        return []
+    b0, b1, cells, nbytes = b0[fits], b1[fits], cells[fits], nbytes[fits]
+    columns = (-(-int(dims[cross[0]]) // b0)) * (-(-int(dims[cross[1]]) // b1))
+    segments = np.unique(-(-n_m // np.arange(1, min(n_m, _MAX_SEGMENTS) + 1)))
+    slots = sms * per_sm if per_sm else _SCRATCH_BLOCKS
+    row = (b1 + 2 * halos[1]) * itemsize
+    rows = []
+    for seg in segments:
+        units = columns * (-(-n_m // int(seg)))
+        loaded = cells * (int(seg) + 2 * march_halo)
+        est = (-(-units // slots)) * max(per_sm, 1) * loaded * (1 + 32 / row)
+        share = b0 * b1 * min(int(seg), n_m) / loaded
+        rows.append((est, share, units, np.full_like(units, int(seg))))
+    est, share, units, seg = (np.concatenate(x) for x in zip(*rows))
+    k = len(segments)
+    b0, b1, cells, nbytes = (np.tile(x, k) for x in (b0, b1, cells, nbytes))
+    order = np.lexsort((units, -share, est))
+    table = []
+    for i in order[:256]:
+        interior = [0, 0, 0]
+        interior[axis] = int(seg[i])
+        interior[cross[0]], interior[cross[1]] = int(b0[i]), int(b1[i])
+        plan = MarchPlan(axis, tuple(interior), int(seg[i]), int(halo),
+                         int(march_halo), int(cells[i]), int(nbytes[i]),
+                         per_sm == 0, per_sm, int(units[i]),
+                         min(int(units[i]), _SCRATCH_BLOCKS) if per_sm == 0
+                         else int(units[i]), int(threads), float(share[i]))
+        table.append((float(est[i]), plan))
+    return table
+
+
+def _cross(plan: MarchPlan) -> tuple:
+    """A plan's cross-section interior, the march axis's entry dropped."""
+    return tuple(b for a, b in enumerate(plan.interior) if a != plan.axis)
+
+
+def _row_values(plan: MarchPlan) -> int:
+    """The values of a cross-section row along the fastest cross axis (the
+    last cross axis, which the stencil moves along)."""
+    fastest = [a for a in range(3) if a != plan.axis][1]
+    return plan.interior[fastest] + 2 * plan.halo
+
+
+@functools.lru_cache(maxsize=256)
+def march_candidates(dims: tuple, moving: tuple, halo: int, march_halo: int,
+                     values_per_cell: int, itemsize: int, q: int,
+                     adjoint: bool = False, sms: int = SMS) -> tuple:
+    """The plans a marched launch over the launch grid ``dims`` may take
+    (:func:`plan_march`'s arguments), the planner's default first: per
+    budget that fits (two blocks of 256 threads per SM, or one block of
+    :func:`march_threads`; a global scratch only when no shared-memory
+    plan fits), its best plan by the model, its best with rows of fewer
+    than 32 values on the fastest cross axis and its best with rows of at
+    least 32 (whole 32-byte sectors in float32), and its best cross-section
+    cut into at least twice the units; with one block per SM of more than
+    256 threads, its best plan also at 256. Raises ValueError when no plan
+    holds the halo."""
+    max_threads = march_threads(int(q), int(itemsize), bool(adjoint))
+    found = []
+    for budget, per_sm in _MARCH_BUDGETS:
+        if per_sm == 0 and found:
+            break
+        threads = max_threads if per_sm == 1 else 256
+        table = _march_table(tuple(int(n) for n in dims), tuple(moving),
+                             int(halo), int(march_halo),
+                             int(values_per_cell), int(itemsize), budget,
+                             per_sm, threads, int(sms))
+        if not table:
+            continue
+        best = table[0][1]
+        picks = [table[0]]
+        for narrow in (True, False):
+            rows = [r for r in table
+                    if (_row_values(r[1]) < 32) == narrow]
+            if rows and rows[0] not in picks:
+                picks.append(rows[0])
+        split = [r for r in table if _cross(r[1]) == _cross(best)
+                 and r[1].units >= 2 * best.units]
+        if split:
+            picks.append(split[0])
+        found += picks
+        if threads > 256:
+            found.append((table[0][0] * 1.5, best._replace(threads=256)))
+    if not found:
+        raise ValueError(f"a halo of {halo} cells leaves no march of "
+                         f"{values_per_cell} x {itemsize}-byte values per "
+                         f"cross-section cell within "
+                         f"{_SCRATCH_TILE_BYTES} bytes")
+    found.sort(key=lambda r: r[0])
+    return tuple(plan for _, plan in found)
+
+
+def plan_march(dims: tuple, moving: tuple, halo: int, march_halo: int,
+               values_per_cell: int, itemsize: int, q: int,
+               adjoint: bool = False, sms: int = SMS) -> MarchPlan:
+    """The columns of a marched launch (the periodic K2, K4) of a stencil
+    of ``q`` populations over the launch grid ``dims`` (n0, n1, n2):
+    ``moving`` says on which axes the stencil moves (the march takes the
+    first; the other two, the cross axes, get the ``halo`` where it
+    moves), ``march_halo`` planes are collided before and after each
+    segment, and each cross-section cell holds ``values_per_cell`` ring
+    values of ``itemsize`` bytes (:func:`march_values`) and its grid
+    offset (:func:`march_bytes`); a block takes up to
+    :func:`march_threads` (K4's when ``adjoint``). Of the cross-sections
+    and segment lengths that fit two blocks' share of an SM's shared
+    memory, or all a block may take, it takes the one the model deems
+    fastest (:func:`march_candidates`: whole waves over ``sms`` SMs, the
+    level-0 collisions of a unit, a sector per row); when none fits, a
+    global scratch. Raises ValueError when no plan holds the halo."""
+    return march_candidates(tuple(int(n) for n in dims), tuple(moving),
+                            int(halo), int(march_halo), int(values_per_cell),
+                            int(itemsize), int(q), bool(adjoint),
+                            int(sms))[0]
