@@ -332,6 +332,7 @@ def phase1_build():
           f"{', '.join(path.name for path in paths.values())} "
           f"{'loaded from cache' if cached else 'built'} in {seconds:.2f} s")
     ptxas_summary()
+    sass_loops()
     return seconds
 
 
@@ -3221,6 +3222,19 @@ def phase28_blocked_gradient(card, saxpy_gbps, single_mlups):
 # the masked sweep of the TPU kernel: _multi_sweep with the code, field and
 # frozen-population slabs (stream_collide.py:1299-1367)
 MULTI_MASKED_REPLACES = "lettuce_tpu/ops/pallas/stream_collide.py:1299"
+# the cube-tiled masked K2 this march replaced, ms per launch (PERF.md §6:
+# this script's phase 30 on NVIDIA H100 80GB HBM3, 700.00 W), quoted beside
+# phase 30's times
+CUBE_MS = {("obstacle2d_2048", "f32", 2): "0.2138-0.2150",
+               ("obstacle2d_2048", "f32", 4): "0.2825-0.2828",
+               ("f32", 2): "0.3760-0.3775", ("f32", 4): "0.5253-0.5282",
+               ("bf16_dev", 2): "0.3714-0.3730"}
+
+
+def cube_ms(cell, suffix, span):
+    """The cube-tiled kernel's ms per launch for a bounded cell's launch."""
+    return CUBE_MS.get((cell, suffix, span),
+                       CUBE_MS.get((suffix, span), "not measured"))
 
 
 def multi_kernel_k1_equal(x, got, span, args, masks, spec):
@@ -3235,8 +3249,9 @@ def multi_kernel_k1_equal(x, got, span, args, masks, spec):
 
 
 def phase29_masked_multi_instances_vs_plain():
-    """Every masked K2 instance (BGK and every K1c fragment, in float32,
-    float64, bfloat16 and float16 state and bfloat16 deviations) against
+    """Every masked K2 instance (the masked march; BGK and every K1c
+    fragment, in float32, float64, bfloat16 and float16 state and bfloat16
+    deviations) against
     its plain version at the grids of phase 2, at n_sub 2, 3 and 4, with
     phase 9's codes (bounce back, a constant and a per-node equilibrium,
     identity): two launches each, the first with phase 9's frozen
@@ -3251,7 +3266,8 @@ def phase29_masked_multi_instances_vs_plain():
     in float32 and float64 the single-step masked kernel (K1b) with every
     code "collide" against the periodic one (K1a), whose rounding can
     differ where nvcc contracts a policy's products differently in the
-    two kernels."""
+    two kernels. Each stencil's masked plans (float32, n_sub 2-4, frozen
+    and not) are printed."""
     import lettuce_tpu_torch as lt
     import lettuce_tpu_torch.ops.cuda.stream_collide as sc
     worst = {}
@@ -3354,6 +3370,13 @@ def phase29_masked_multi_instances_vs_plain():
                   f"{'x'.join(map(str, shape))} (frozen launch at n_sub "
                   f"2/3/4; f32/f64 max |err| and against n_sub K1, 16-bit "
                   f"ulps): " + "; ".join(line))
+        f, _ = tgv_state(stencil, shape, torch.float32, seed)
+        for span in (2, 3, 4):
+            for frozen in (True, False):
+                print(f"phase 29: masked {name} float32 x{span} "
+                      f"{'frozen' if frozen else 'codes only'} plan: "
+                      + plan_text(sc.march_plan(f, stencil.e, span,
+                                                masked=True, frozen=frozen)))
     print(f"phase 29: {count} masked instance-spans of 2 launches each, "
           f"every one within its bound; {bitwise} of {compared} float32 and "
           f"float64 launches bitwise equal to n_sub masked K1 launches (not: "
@@ -3475,7 +3498,9 @@ def phase30_blocked_bounded_cells(card, saxpy_gbps):
     K2 per launch and per step by CUDA events in turns with the
     single-step masked kernel and the plain version, beside its bound; the
     replay per blocked launch (the obstacle). Then Couette and the cavity
-    under half storage at span 2."""
+    under half storage at span 2. Each blocked launch's march plan, GB/s
+    and share of the saxpy are printed beside its bound and the replaced
+    cube-tiled kernel's time (CUBE_MS)."""
     import lettuce_tpu_torch.ops.cuda.stream_collide as sc
     runs = {}
     for cell, fragment, make_flow, make_collision in bounded_cells():
@@ -3530,6 +3555,9 @@ def phase30_blocked_bounded_cells(card, saxpy_gbps):
             replay = ("" if timing["replay_ms"] is None else
                       f"; replay {timing['replay_ms']:.4f} ms per blocked "
                       f"launch")
+            plan = sc.march_plan(flow.f, flow.stencil.e, span, masked=True,
+                                 frozen=params["nsm"] is not None)
+            gbps = nbytes * cells / (timing["ms"] * 1e-3) / 1e9
             print(f"phase 30: {cell} {simulation.step_path}: {mlups:.1f} "
                   f"MLUPS ({mlups / x1_mlups:.2f}x the x1 run's "
                   f"{x1_mlups:.1f}), {blocked[key]} masked K2 launches for "
@@ -3537,10 +3565,13 @@ def phase30_blocked_bounded_cells(card, saxpy_gbps):
                   f"{drift:.2e}, 8 steps vs x1 {err8:.3e}; CUDA events in "
                   f"turns: masked K2 {t[2]:.4f} / {t[3]:.4f} ms per launch "
                   f"({timing['ms'] / span:.4f} ms per step, bound "
-                  f"{bound_ms:.4f} ms per launch at {nbytes} B per cell), "
+                  f"{bound_ms:.4f} ms per launch at {nbytes} B per cell, "
+                  f"{gbps:.1f} GB/s, {gbps / saxpy_gbps:.1%} of the saxpy; "
+                  f"the cube: {cube_ms(cell, 'f32', span)} ms), "
                   f"masked K1 {t[1]:.4f} / {t[4]:.4f} ms per step, plain "
                   f"x{span} {t[0]:.2f} / {t[5]:.2f} ms; max |K2 - plain| "
-                  f"{timing['err']:.3e}{replay} ({card})")
+                  f"{timing['err']:.3e}{replay}; plan: {plan_text(plan)} "
+                  f"({card})")
             runs[f"{key}[{cell}]"] = dict(
                 timing, mlups=mlups, x1_mlups=x1_mlups, launches=blocked[key],
                 span=span, suffix="f32", cells=cells, bytes=nbytes,
@@ -3577,13 +3608,22 @@ def phase30_blocked_bounded_cells(card, saxpy_gbps):
         nbytes = masked_bytes(simulation, params)
         cells = flow.f[0].numel()
         t = timing["turns"]
+        bound_ms = bound(cells, nbytes, 2 * flow.stencil.q
+                         * OPS_PER_POPULATION[fragment])[0]
+        plan = sc.march_plan(simulation._encode(flow.f), flow.stencil.e, 2,
+                             masked=True, frozen=params["nsm"] is not None)
+        gbps = nbytes * cells / (timing["ms"] * 1e-3) / 1e9
         print(f"phase 30: {cell} half storage {simulation.step_path}: "
               f"{mlups:.1f} MLUPS, {blocked[key]} masked bf16-dev K2 "
               f"launches for 120 steps, mass drift {drift:.2e}; CUDA events "
-              f"in turns: masked K2 {t[2]:.4f} / {t[3]:.4f} ms per launch, "
-              f"masked K1e {t[1]:.4f} / {t[4]:.4f} ms per step, plain x2 "
+              f"in turns: masked K2 {t[2]:.4f} / {t[3]:.4f} ms per launch "
+              f"({timing['ms'] / 2:.4f} ms per step, bound {bound_ms:.4f} ms "
+              f"per launch at {nbytes} B per cell, {gbps:.1f} GB/s, "
+              f"{gbps / saxpy_gbps:.1%} of the saxpy; the cube: "
+              f"{cube_ms(cell, 'bf16_dev', 2)} ms), masked K1e "
+              f"{t[1]:.4f} / {t[4]:.4f} ms per step, plain x2 "
               f"{t[0]:.2f} / {t[5]:.2f} ms; max |K2 - plain| "
-              f"{timing['err']:.3e} ({card})")
+              f"{timing['err']:.3e}; plan: {plan_text(plan)} ({card})")
         runs[f"{key}[{cell}]"] = dict(
             timing, mlups=mlups, launches=blocked[key], span=2,
             suffix="bf16_dev", cells=cells, bytes=nbytes, fragment=fragment,
@@ -4235,11 +4275,17 @@ def phase35_march_candidates(card, saxpy_gbps):
     blocks or one per SM, its best cross-section, its best with rows
     narrower and wider than 32 values, and its best cut into twice the
     units) for the main path's launches: K2 on D3Q19 BGK 256^3 in float32
-    and bfloat16 deviations at x2 and x4, K4 in float32 and bfloat16 at x2.
-    Each candidate's output against the default plan's (bitwise, else the
-    difference is printed); each timed by CUDA events in turns with K1a
-    (K1a, every candidate, every candidate in reverse, K1a); ms per launch
-    and per step, the share of the saxpy, the default and the fastest."""
+    and bfloat16 deviations at x2 and x4, K4 in float32 and bfloat16 at x2;
+    then the masked K2's candidates (per row budget, 3-8 blocks per SM) on
+    the 2048^2 Couette and the obstacle at x2 and x4, and the periodic 2D
+    march on tgv2d_2048_d2q9 (D2Q9 BGK 2048^2 float32) at x2, its default
+    and the row budgets' plans, as the masks-free ceiling (a record: the
+    periodic default stays). Each candidate's output against its default
+    plan's (bitwise, else the difference is printed); each timed by CUDA
+    events in turns with the single-step kernel of its launch (K1a, or
+    K1b for a masked one: K1, every candidate, every candidate in reverse,
+    K1); ms per launch and per step, the share of the saxpy, the default
+    and the fastest."""
     from lettuce_tpu_torch.ops.cuda import adjoint
     import lettuce_tpu_torch.ops.cuda.stream_collide as sc
     simulation = tgv256_simulation()
@@ -4250,6 +4296,10 @@ def phase35_march_candidates(card, saxpy_gbps):
     k1_out = torch.empty_like(f32)
     g = torch.randn(f32.shape, generator=torch.Generator(device="cuda")
                     .manual_seed(35), device="cuda")
+
+    def k1a():
+        sc.stream_collide(f32, **params, out=k1_out)
+
     groups = []
     for suffix, span in (("f32", 2), ("f32", 4), ("bf16_dev", 2),
                          ("bf16_dev", 4)):
@@ -4261,8 +4311,9 @@ def phase35_march_candidates(card, saxpy_gbps):
             return sc._launch_multi(x, out, spec, span, e, cs, dev,
                                     plan=plan)
         groups.append((f"K2 {suffix} x{span}", span, 19 * 2 * (
-            2 if dev else 4), sc.march_plan(x, e, span, candidates=True),
-            k2))
+            2 if dev else 4), cells, sc.march_plan(x, e, span,
+                                                   candidates=True),
+            k2, k1a, "K1a"))
     for dtype, suffix in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         x, gx = f32.to(dtype), g.to(dtype)
         out = torch.empty_like(gx)
@@ -4271,15 +4322,71 @@ def phase35_march_candidates(card, saxpy_gbps):
             return adjoint._launch_adjoint_multi(x, gx, out, spec, 2, e, cs,
                                                  plan)
         groups.append((f"K4 {suffix} x2", 2, 19 * 3 * (4 if suffix == "f32"
-                                                       else 2),
+                                                       else 2), cells,
                        sc.march_plan(gx, e, 2, adjoint=True,
                                      halo=adjoint.adjoint_multi_halo(2),
-                                     candidates=True), k4))
+                                     candidates=True), k4, k1a, "K1a"))
+    time_candidates(groups, card, saxpy_gbps)
+    del simulation, f32, g, k1_out, groups
+    torch.cuda.empty_cache()
 
-    def k1():
-        sc.stream_collide(f32, **params, out=k1_out)
+    # the masked K2 on the 2D bounded cells, and the periodic 2D ceiling
+    cells2d = bounded_cells()
+    for cell, _, make_flow, make_collision in (cells2d[2], cells2d[0]):
+        for span in (2, 4):
+            bounded = bounded_simulation(make_flow, make_collision, span)
+            masked = bounded._step_multi[0].params
+            single = bounded._kernel_params
+            x = bounded.flow.f
+            out, k1_out = torch.empty_like(x), torch.empty_like(x)
 
-    for name, span, nbytes, plans, launch in groups:
+            def k2(plan, x=x, out=out, span=span, masked=masked):
+                return sc._launch_multi(
+                    x, out, masked["collision_spec"], span, masked["e"],
+                    masked["cs"], False, ncm=masked["ncm"],
+                    nsm=masked["nsm"], table=masked["table"],
+                    feq_field=masked["feq_field"], plan=plan)
+
+            def k1b(x=x, k1_out=k1_out, single=single):
+                sc.stream_collide(x, **single, out=k1_out)
+            plans = sc.march_plan(x, masked["e"], span, candidates=True,
+                                  masked=True,
+                                  frozen=masked["nsm"] is not None)
+            time_candidates([(f"K2 masked {cell} f32 x{span}", span,
+                              masked_bytes(bounded, masked), x[0].numel(),
+                              plans, k2, k1b, "K1b")], card, saxpy_gbps)
+            del bounded, masked, single, x, out, k1_out
+            torch.cuda.empty_cache()
+    import lettuce_tpu_torch as lt
+    stencil = lt.D2Q9()
+    f, tau_inv = tgv_state(stencil, (2048, 2048), torch.float32, 3500)
+    spec2d = sc.pack_spec(("bgk", tau_inv), stencil.e, stencil.w,
+                          stencil.opposite)
+    out, k1_out = torch.empty_like(f), torch.empty_like(f)
+
+    def k2_periodic(plan):
+        return sc._launch_multi(f, out, spec2d, 2, stencil.e, stencil.cs,
+                                False, plan=plan)
+
+    def k1a_2d():
+        sc.stream_collide(f, stencil.e, stencil.w, stencil.opposite,
+                          stencil.cs, tau_inv, out=k1_out)
+    plans = (sc.march_plan(f, stencil.e, 2),
+             *sc.march_plan(f, stencil.e, 2, candidates=True, rows=True))
+    time_candidates([("K2 periodic tgv2d_2048_d2q9 f32 x2 (default, then "
+                      "the row budgets)", 2, 9 * 2 * 4, f[0].numel(), plans,
+                      k2_periodic, k1a_2d, "K1a")], card, saxpy_gbps)
+    del f, out, k1_out
+    torch.cuda.empty_cache()
+
+
+def time_candidates(groups, card, saxpy_gbps):
+    """Phase 35's timing of each group (name, span, bytes per cell, cells,
+    plans, launch(plan), its single-step kernel, that kernel's name): every
+    plan's output against the first's (bitwise, else the difference), then
+    CUDA events in turns (the single-step kernel, every plan, every plan in
+    reverse, the single-step kernel)."""
+    for name, span, nbytes, cells, plans, launch, k1, k1_name in groups:
         want = launch(plans[0]).clone()
         diffs = []
         for plan in plans[1:]:
@@ -4289,7 +4396,7 @@ def phase35_march_candidates(card, saxpy_gbps):
             diffs.append("bitwise" if torch.equal(got, want) else
                          f"max |diff| {diff:.2e}")
         del want
-        repeats = max(4, 40 // span)
+        repeats = max(4, 40 // span) if cells > 1 << 22 else 100 // span
         k1()
         for plan in plans:
             launch(plan)
@@ -4310,12 +4417,11 @@ def phase35_march_candidates(card, saxpy_gbps):
                   f"{gbps / saxpy_gbps:.1%} of the saxpy; "
                   f"{'default' if i == 0 else diffs[i - 1]}; "
                   f"{plan_text(plan)}")
-        print(f"phase 35: {name}: K1a {k1_a:.4f} / {k1_b:.4f} ms per step "
-              f"in the same turns; default {ms[0] / span:.4f} ms per step, "
-              f"fastest candidate {fastest} {ms[fastest] / span:.4f} ({card})")
+        print(f"phase 35: {name}: {k1_name} {k1_a:.4f} / {k1_b:.4f} ms per "
+              f"step in the same turns; default {ms[0] / span:.4f} ms per "
+              f"step, fastest candidate {fastest} {ms[fastest] / span:.4f} "
+              f"({card})")
         torch.cuda.empty_cache()
-    del simulation, f32, g, k1_out, groups
-    torch.cuda.empty_cache()
 
 
 def half_gradient_entries(worst, runs, blocked):
@@ -4486,18 +4592,79 @@ def ptxas_summary():
         if source.startswith("half_"):
             check(per_source and not any(r[2] or r[3] for r in per_source),
                   f"{source}: an instance spills (or no ptxas report)")
-        if per_source:
-            regs = [r[1] for r in per_source]
-            spills = [r for r in per_source if r[2] or r[3]]
-            print(f"phase 1: {source}: {len(per_source)} kernels, "
-                  f"{min(regs)}-{max(regs)} registers, "
+        # the blocked sources hold a periodic and a masked march per entry
+        kinds = ([("periodic", lambda k: "masked" not in k),
+                  ("masked", lambda k: "masked_march_kernel" in k)]
+                 if source.startswith("multi_") else [("", lambda k: True)])
+        for kind, selected in kinds:
+            chosen = [r for r in per_source if selected(r[0])]
+            if not chosen:
+                continue
+            regs = [r[1] for r in chosen]
+            spills = [r for r in chosen if r[2] or r[3]]
+            print(f"phase 1: {source}: {len(chosen)} {kind + ' ' if kind else ''}"
+                  f"kernels, {min(regs)}-{max(regs)} registers, "
                   f"{len(spills)} with spills"
                   + (f" (worst {max(r[2] for r in spills)} B stored)"
                      if spills else ""))
+        if source == "multi_stream_collide":
+            # the 2D bounded cells' kernel: its registers bound how many
+            # row blocks share an SM
+            for kernel, regs, stored, _ in per_source:
+                if ("masked_march_kernel" in kernel and "D2Q9" in kernel
+                        and "SameIf" in kernel):
+                    print(f"phase 1: masked march BGK D2Q9 float32: {regs} "
+                          f"registers, {stored} B spilled; "
+                          f"{65536 // (regs * 128)} blocks of 128 threads "
+                          f"fit an SM's registers")
     path = build.library_path("stream_collide").parent / "ptxas_summary.txt"
     path.write_text("\n".join(f"{s}\t{k}\t{r}\t{st}\t{ld}"
                               for s, k, r, st, ld in rows) + "\n")
     return rows
+
+
+def sass_loops():
+    """The loops over the cells of the D2Q9 float32 BGK march kernels,
+    periodic and masked, in the built library's SASS (cuobjdump beside
+    nvcc): per loop that holds no barrier, its instructions and its
+    shared-memory and device-memory accesses, in code order (level 0,
+    a level above it and the store in the shared-memory body, then the
+    scratch body)."""
+    from lettuce_tpu_torch.ops.cuda import build
+    tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        print("phase 1: no cuobjdump beside nvcc: the SASS loops are not "
+              "measured")
+        return
+    text = subprocess.run(
+        [tool, "-sass", str(build.library_path("multi_stream_collide"))],
+        capture_output=True, text=True, check=True).stdout
+    for part in re.split(r"\n\s*Function : ", text)[1:]:
+        name = part.split("\n", 1)[0]
+        if "D2Q9EfEENS_4SameIfE" not in name:
+            continue
+        code = [(int(a, 16), op.strip()) for a, op in re.findall(
+            r"/\*([0-9a-f]{4,})\*/\s+(.*?);", part)]
+        at = {a: i for i, (a, _) in enumerate(code)}
+        loops = []
+        for i, (a, op) in enumerate(code):
+            m = re.search(r"BRA\b.*?0x([0-9a-f]+)", op)
+            if not m or int(m.group(1), 16) >= a:
+                continue
+            body = [o.split()[1] if o.startswith("@") else o.split()[0]
+                    for _, o in code[at[int(m.group(1), 16)]:i + 1]]
+            if any(o.startswith("BAR") for o in body):
+                continue
+
+            def count(prefix):
+                return sum(o.startswith(prefix) for o in body)
+            loops.append(f"{len(body)} ({count('LDS') + count('STS')} "
+                         f"shared, {count('LDG') + count('STG')} device, "
+                         f"{count('LDL') + count('STL')} local)")
+        kind = "masked" if "masked_march_kernel" in name else "periodic"
+        print(f"phase 1: SASS of the {kind} march BGK D2Q9 float32: "
+              f"{len(code)} instructions; loops over cells: "
+              + ", ".join(loops))
 
 
 def bound(cells, bytes_per_update, ops_per_update):

@@ -85,44 +85,35 @@
 // it hid (its 4-byte copies took a third of a step, and it shrank the
 // cross-section; PERF.md §6, PR 10).
 //
-// The masked kernel (masked_sweep_kernel) keeps the cube tile:
-//   * one block per tile of the grid, threads along the fastest axis z;
-//     the tile is the interior plus an n_sub-deep halo on every axis the
-//     stencil moves along (a 2D grid [1, X, Y] has none on axis 0), loaded
-//     with periodic wrap, so a partial tile at the grid's end is exact;
-//   * the tile lives in ONE buffer of q values per cell (dynamic shared
-//     memory, up to 227 KB, or a per-block slice of a global scratch),
-//     followed by the cells' codes (1 B each) and, when populations are
-//     frozen, their frozen bits (4 B) and a second buffer of q values
-//     (TileLayout);
-//   * streaming moves no data: population q of the tile cell c at sub-step
-//     k lives in slot c - k off_q (off_q the flat offset of e_q), so a
-//     collision reads its q values from their slots and writes the
-//     post-collision values back to the same slots, and the next sub-step
-//     finds each streamed value where its source left it. No two threads
-//     touch one slot in a sub-step; a barrier separates sub-steps;
-//   * a cell's uint8 code selects its kind from the per-code table
-//     (collide, bounce back, a constant equilibrium, the per-node
-//     equilibrium field, identity), the replacement pushed like a collided
-//     population (replace_push); codes, frozen populations and the field
-//     are read at the same periodically wrapped grid index as f;
-//   * a frozen population q of cell c must find its own post-collision
-//     value in slot c - (k+1) off_q at sub-step k + 1; that slot is the one
-//     cell c - off_q read and wrote in sub-step k. Moving the value there in
-//     the collision phase would race with c - off_q, and along a chain of
-//     frozen cells every move overwrites a value the next move still has
-//     to read. So after the collision phase (a barrier) each frozen value
-//     is copied from its slot c - k off_q to the second buffer, and after a
-//     second barrier from there to slot c - (k+1) off_q: every read of a
-//     phase precedes every write of the next, so the copy is exact; the
-//     value it overwrites streamed to c alone, and c discards it;
-//   * sub-step k runs on the cells at least k from the tile's border (the
-//     valid region shrinks one cell per side per sub-step), so after n_sub
-//     sub-steps the interior is exact, and only it is stored.
-// Its tile geometry is chosen on the host (build.py's plan_tile, which
-// counts the masks' bytes per cell). One C entry serves both forms (a
-// periodic launch passes null mask pointers) and launches one of the two
-// kernels, so the periodic kernel carries none of the masked one's code.
+// The masked kernel (masked_march_kernel) marches the same columns in the
+// same order, with the boundary codes, the per-node field and frozen
+// populations of every sub-step:
+//   * level 0 reads each cell's uint8 code (and, when populations are
+//     frozen, its no-streaming bits) at the wrapped grid index, the index
+//     it reads f at, into a row of n_sub + 1 code rows (and bit rows, 4 B
+//     per cell) in shared memory; level k and the store read the row of
+//     their plane (the row of plane p is rewritten at step p + n_sub + 1,
+//     after the store read it at step p + n_sub);
+//   * a cell whose code is "collide" runs the policy; any other kind
+//     writes its replacement into the cell's own ring slots (bounce back
+//     from its pulled populations, a constant equilibrium, the per-node
+//     field read at the grid index, identity: replace_push), so a pulling
+//     level needs no push;
+//   * a frozen population q at (plane p, cross cell c) takes level k - 1's
+//     post-collision value at (p, c), not the pulled one at
+//     (p - e_m, c - e): the destination select of the TPU kernel's
+//     freeze. The compact ring keeps a population with e_m = -1 one plane
+//     only, and plane p's is overwritten by plane p + 1 in the step that
+//     reads it, so a frozen launch keeps that class two planes (ring_keep
+//     more values per level and cross cell);
+//   * a bounded grid wraps like a periodic one: its walls' codes make the
+//     wrap harmless, as on the single-step kernel.
+// Where the cross-section is a row (a 2D grid) it is small enough that
+// several blocks share an SM, and one block's loads hide behind the
+// others' levels (ops/cuda/build.py's row budgets). One C entry serves
+// both forms (a periodic launch passes null mask pointers) and launches one
+// of the two kernels, so the periodic kernel carries none of the masked
+// one's code.
 
 #pragma once
 
@@ -138,8 +129,6 @@ extern __shared__ __align__(16) unsigned char lt_tile_smem[];
 
 namespace lt {
 
-// the threads of a masked K2 block
-constexpr int kMultiBlock = 256;
 // the dynamic shared memory a block may opt into on sm_90 (227 KB)
 constexpr size_t kMaxTileSmem = 232448;
 constexpr int kMaxDevices = 64;
@@ -173,16 +162,7 @@ __host__ __device__ __forceinline__ size_t tile_stride(size_t bytes) {
   return (bytes + 15) / 16 * 16;
 }
 
-// The buffer of this block: its slice of the global scratch, or the
-// dynamic shared memory.
-template <class T>
-__device__ __forceinline__ T* tile_buffer(T* scratch, size_t per_block) {
-  return scratch != nullptr ? scratch + blockIdx.x * per_block
-                            : reinterpret_cast<T*>(lt_tile_smem);
-}
-
-// The tile form of a storage St (what encode() writes back to a tile or a
-// ring): its compute type, unrounded; deviations stay deviations.
+// The ring form of a storage St (what encode() writes back to a ring): its compute type, unrounded; deviations stay deviations.
 template <class St>
 struct TileStorage {
   using T = typename St::T;
@@ -413,10 +393,21 @@ __host__ __device__ constexpr int class_offset(int k) {
 template <class S>
 constexpr int kRing = 2 * S::Q;
 
+// The values a masked launch with frozen populations adds to a forward
+// ring per cross cell: a second plane of class 0 (e_m = -1), which a
+// frozen population reads on its own plane after the next plane's values
+// were written (ops/cuda/build.py's ring_keep).
+template <class S>
+__host__ __device__ constexpr int ring_keep() {
+  return class_size<S>(0);
+}
+
 // One ring as a phase sees it: per class k, its plane's block
 // ([cross cell][population of the class]) at the slot of the plane the
 // phase writes, or (pull) of the plane its populations are pulled from,
-// plane - Sign (k - 1); and the block's stride of one cross row.
+// plane - Sign (k - 1); and the block's stride of one cross row. With
+// ``keep`` 1 class 0 keeps one plane more (a forward ring of a frozen
+// launch; the periodic kernels pass 0).
 template <class S, int Sign, class T>
 struct RingPlanes {
   T* at[3];
@@ -425,17 +416,21 @@ struct RingPlanes {
 
 template <class S, int Sign, class T>
 __device__ __forceinline__ RingPlanes<S, Sign, T> ring_planes(
-    T* ring, const MarchGeom& t, int plane, bool pull) {
+    T* ring, const MarchGeom& t, int plane, bool pull, int keep = 0) {
   static_assert(class_offset<S, Sign>(3) == kRing<S>,
                 "a ring holds 2 q values per cross cell");
   RingPlanes<S, Sign, T> r;
   static_for<3>([&](auto K_) {
     constexpr int k = decltype(K_)::value;
-    constexpr int depth = class_depth<S, Sign>(k), size = class_size<S>(k);
+    constexpr int size = class_size<S>(k), depth = class_depth<S, Sign>(k);
+    const int offset =
+        class_offset<S, Sign>(k) + (k == 0 ? 0 : keep * ring_keep<S>());
     const int at = pull ? plane - Sign * (k - 1) : plane;
-    r.at[k] = ring + (size_t(class_offset<S, Sign>(k)) +
-                      size_t(at % depth) * size) *
-                         t.cells;
+    // the slot of plane ``at``, by constant divisors: a phase runs this
+    // for every class, and a block's thread often has one cell per phase
+    const int slot =
+        k == 0 && keep ? at % (depth + 1) : at % depth;
+    r.at[k] = ring + (size_t(offset) + size_t(slot) * size) * t.cells;
     r.row[k] = t.dim[1] * size;
   });
   return r;
@@ -458,7 +453,7 @@ __device__ __forceinline__ void ring_pull(const RingPlanes<S, Sign, V>& r,
 }
 
 // Where a forward level's post-collision population goes: its ring's
-// block of the written plane, in the tile form of St.
+// block of the written plane, in the ring form of St.
 template <class S, class St>
 struct RingStore {
   const RingPlanes<S, 1, typename St::T>& r;
@@ -505,25 +500,46 @@ __device__ __forceinline__ void march_level(
   }
 }
 
+// The destination select of frozen populations: population q of cross
+// cell c (bit q of ``frozen``) takes the lower level's post-collision value
+// at the cell itself, from ``here`` (the ring's blocks of the cell's own
+// plane), in place of the pulled one.
+template <class S, class T, class V>
+__device__ __forceinline__ void frozen_select(const RingPlanes<S, 1, V>& here,
+                                              int c, uint32_t frozen,
+                                              T (&v)[S::Q]) {
+  if (frozen == 0) return;
+  static_for<S::Q>([&](auto Q_) {
+    constexpr int q = decltype(Q_)::value;
+    constexpr int k = march_comp<S>(q) + 1;
+    if ((frozen >> q) & 1u)
+      v[q] = here.at[k][c * class_size<S>(k) + class_index<S>(q)];
+  });
+}
+
 // Phase: the store of local plane ``plane`` (the grid's plane x): the
-// interior pulled from the top level's ring into out, rounded to St.
+// interior pulled from the top level's ring into out, rounded to St; with
+// ``bits`` (the plane's row of frozen bits; the periodic kernel passes
+// none) the frozen populations selected at their cell.
 template <class S, class St>
-__device__ __forceinline__ void march_store(typename St::V* __restrict__ out,
-                                            const typename St::T* top,
-                                            const int64_t* table,
-                                            const MarchGeom& t,
-                                            const int64_t (&o)[3], int plane,
-                                            int64_t x) {
+__device__ __forceinline__ void march_store(
+    typename St::V* __restrict__ out, const typename St::T* top,
+    const int64_t* table, const MarchGeom& t, const int64_t (&o)[3],
+    int plane, int64_t x, const uint32_t* bits = nullptr, int keep = 0) {
   using T = typename St::T;
   const int64_t n = t.n[0] * t.n[1] * t.n[2];
   const int64_t plane_at = x * grid_stride(t, march_axis<S>());
-  const RingPlanes<S, 1, const T> in = ring_planes<S, 1>(top, t, plane, true);
+  const RingPlanes<S, 1, const T> in =
+      ring_planes<S, 1>(top, t, plane, true, keep);
+  RingPlanes<S, 1, const T> here = in;
+  if (bits != nullptr) here = ring_planes<S, 1>(top, t, plane, false, keep);
   for (BoxWalk w = interior_walk<S>(t); w.more(); w.next()) {
     int c;
     if (!march_interior<S>(t, o, w, c)) continue;
     const int64_t gi = plane_at + table[c];
     T v[S::Q];
     ring_pull<S, 1>(in, c, v);
+    if (bits != nullptr) frozen_select<S>(here, c, bits[c], v);
     static_for<S::Q>([&](auto Q_) {
       constexpr int q = decltype(Q_)::value;
       out[q * n + gi] = St::pack(v[q]);
@@ -641,300 +657,211 @@ __global__ void __launch_bounds__(
 }
 
 // ---------------------------------------------------------------------------
-// the cube tile (the masked K2)
+// the masked march (the masked K2)
 // ---------------------------------------------------------------------------
-// One launch's tiles: the grid [n0, n1, n2], the interior b and halo h per
-// axis, the tile extents dim = b + 2h and the flat strides of a tile.
-struct TileGeom {
-  int64_t n[3];
-  int b[3], h[3], dim[3];
-  int cells, stride0, stride1;
-  int tiles[3];
-  int64_t ntiles;
+// A marched block's buffer with masks: the rings, the cross cells' grid
+// offsets (march_bytes), then ``mask_rows`` rows of one code per cross
+// cell and, with frozen populations, as many rows of frozen bits (bit q:
+// population q is frozen there), 4-byte aligned (ops/cuda/build.py's
+// march_bytes).
+struct MarchLayout {
+  size_t table, codes, bits, bytes;
 };
 
-// The geometry of interior (b0, b1, b2) with a halo of ``halo`` cells on
-// every axis the stencil moves along; false if a size is out of range.
-template <class S>
-bool make_geom(int64_t n0, int64_t n1, int64_t n2, int b0, int b1, int b2,
-               int halo, TileGeom& t) {
-  const int64_t n[3] = {n0, n1, n2};
-  const int b[3] = {b0, b1, b2};
-  int64_t cells = 1;
-  t.ntiles = 1;
-  for (int a = 0; a < 3; ++a) {
-    if (n[a] < 1 || b[a] < 1 || halo < 0) return false;
-    t.n[a] = n[a];
-    t.b[a] = b[a];
-    t.h[a] = moves_along<S>(a) ? halo : 0;
-    t.dim[a] = b[a] + 2 * t.h[a];
-    t.tiles[a] = static_cast<int>((n[a] + b[a] - 1) / b[a]);
-    cells *= t.dim[a];
-    t.ntiles *= t.tiles[a];
-  }
-  if (cells > (int64_t(1) << 30)) return false;
-  t.cells = static_cast<int>(cells);
-  t.stride1 = t.dim[2];
-  t.stride0 = t.dim[1] * t.dim[2];
-  return true;
-}
-
-// The flat tile offset of e_q.
-template <class S, int q>
-__device__ __forceinline__ int tile_offset(const TileGeom& t) {
-  return comp3<S>(q, 0) * t.stride0 + comp3<S>(q, 1) * t.stride1 +
-         comp3<S>(q, 2);
-}
-
-// The tile's origin in the grid (its first interior cell).
-__device__ __forceinline__ void tile_origin(const TileGeom& t, int64_t tile,
-                                            int64_t (&o)[3]) {
-  o[2] = (tile % t.tiles[2]) * t.b[2];
-  tile /= t.tiles[2];
-  o[1] = (tile % t.tiles[1]) * t.b[1];
-  o[0] = (tile / t.tiles[1]) * t.b[0];
-}
-
-// The box of tile cells at least r from the border on every axis with a
-// halo (all cells on an axis without one).
-struct TileBox {
-  int lo[3], ext[3], count;
-};
-
-__device__ __forceinline__ TileBox tile_box(const TileGeom& t, int r) {
-  TileBox box;
-  box.count = 1;
-  for (int a = 0; a < 3; ++a) {
-    box.lo[a] = t.h[a] > 0 ? r : 0;
-    box.ext[a] = t.dim[a] - 2 * box.lo[a];
-    box.count *= box.ext[a];
-  }
-  return box;
-}
-
-// The tile cell of the i-th cell of a box, z fastest.
-__device__ __forceinline__ int box_cell(const TileGeom& t, const TileBox& box,
-                                        int i) {
-  const int z = i % box.ext[2];
-  i /= box.ext[2];
-  const int y = i % box.ext[1];
-  const int x = i / box.ext[1];
-  return (x + box.lo[0]) * t.stride0 + (y + box.lo[1]) * t.stride1 + z +
-         box.lo[2];
-}
-
-// Where a post-collision population goes at sub-step k: back to the slot
-// it was read from, encoded in the tile form of St.
-template <class S, class St>
-struct TileStore {
-  typename St::T* buf;
-  const TileGeom& t;
-  int cell, k;
-
-  template <int q>
-  __device__ __forceinline__ void put(typename St::T value) const {
-    buf[q * t.cells + cell - k * tile_offset<S, q>(t)] =
-        encode<TileStorage<St>, S, q>(value);
-  }
-};
-
-// The flat grid index of tile cell c of the tile of origin o, with
-// periodic wrap.
-__device__ __forceinline__ int64_t tile_global(const TileGeom& t,
-                                               const int64_t (&o)[3], int c) {
-  const int z = c % t.dim[2];
-  const int y = (c / t.dim[2]) % t.dim[1];
-  const int x = c / t.stride0;
-  const int64_t gx = wrap(o[0] - t.h[0] + x, t.n[0]);
-  const int64_t gy = wrap(o[1] - t.h[1] + y, t.n[1]);
-  const int64_t gz = wrap(o[2] - t.h[2] + z, t.n[2]);
-  return (gx * t.n[1] + gy) * t.n[2] + gz;
-}
-
-// Phase: the tile of origin o from the state f (stored as St) into buf, in
-// St's tile form, with periodic wrap.
-template <class S, class St>
-__device__ __forceinline__ void load_tile(
-    const typename St::V* __restrict__ f, typename St::T* buf,
-    const TileGeom& t, const int64_t (&o)[3]) {
-  const int64_t n = t.n[0] * t.n[1] * t.n[2];
-  for (int c = threadIdx.x; c < t.cells; c += blockDim.x) {
-    const int64_t gi = tile_global(t, o, c);
-#pragma unroll
-    for (int q = 0; q < S::Q; ++q) buf[q * t.cells + c] = St::raw(f + q * n + gi);
-  }
-}
-
-// The parts of a masked K2 tile after its q values per cell, as byte
-// offsets into the tile buffer: the cells' codes, and when populations are
-// frozen a second buffer of q values and the cells' frozen bits (bit q:
-// population q is frozen there).
-struct TileLayout {
-  size_t keep, bits, codes, bytes;
-};
-
-template <class S, class T>
-__host__ __device__ __forceinline__ TileLayout tile_layout(int cells,
-                                                           bool masked,
-                                                           bool frozen) {
-  TileLayout l;
-  size_t at = size_t(cells) * S::Q * sizeof(T);
-  l.keep = at;
-  if (frozen) at += size_t(cells) * S::Q * sizeof(T);
-  l.bits = at;
-  if (frozen) at += size_t(cells) * sizeof(uint32_t);
-  l.codes = at;
-  if (masked) at += size_t(cells);
-  l.bytes = at;
+__host__ __device__ __forceinline__ MarchLayout march_layout(int cells,
+                                                             size_t values,
+                                                             size_t itemsize,
+                                                             int mask_rows,
+                                                             bool frozen) {
+  MarchLayout l;
+  l.table = march_table_at(cells, values, itemsize);
+  l.codes = march_bytes(cells, values, itemsize);
+  l.bits = (l.codes + size_t(mask_rows) * cells + 3) / 4 * 4;
+  l.bytes = frozen ? l.bits + size_t(mask_rows) * cells * sizeof(uint32_t)
+                   : l.codes + size_t(mask_rows) * cells;
   return l;
 }
 
-// The masks of a masked K2 launch: the grid's (codes, no-streaming mask,
-// per-node field; null when absent) and their tile copies (codes, frozen
-// bits) with the second buffer for frozen values.
+// The ring values of one level of a masked launch per cross cell.
+template <class S>
+__host__ __device__ __forceinline__ int masked_level_values(bool frozen) {
+  return kRing<S> + (frozen ? ring_keep<S>() : 0);
+}
+
+// The buffer of a masked launch of n_sub levels (n_sub + 1 mask rows).
+template <class S>
+__host__ __device__ __forceinline__ MarchLayout masked_layout(
+    int cells, int n_sub, size_t itemsize, bool frozen) {
+  return march_layout(cells, size_t(n_sub) * masked_level_values<S>(frozen),
+                      itemsize, n_sub + 1, frozen);
+}
+
+// The grid's masks of a masked launch: codes, no-streaming mask and
+// per-node field (the last two null when absent).
 template <class St>
-struct TileMasks {
+struct MarchMasks {
   const uint8_t* __restrict__ ncm;
   const uint8_t* __restrict__ nsm;
   const typename St::V* __restrict__ feq_field;
-  uint8_t* codes;
-  uint32_t* bits;
-  typename St::T* keep;
 };
 
-// Phase: the codes and frozen bits of the tile of origin o, read at the
-// wrapped grid index of each tile cell.
-template <class S, class St>
-__device__ __forceinline__ void load_masks(const TileMasks<St>& m,
-                                           const TileGeom& t,
-                                           const int64_t (&o)[3]) {
-  const int64_t n = t.n[0] * t.n[1] * t.n[2];
-  for (int c = threadIdx.x; c < t.cells; c += blockDim.x) {
-    const int64_t gi = tile_global(t, o, c);
-    m.codes[c] = __ldg(m.ncm + gi);
-    if (m.bits != nullptr) {
-      uint32_t b = 0;
-#pragma unroll
-      for (int q = 0; q < S::Q; ++q)
-        b |= uint32_t(__ldg(m.nsm + q * n + gi) != 0) << q;
-      m.bits[c] = b;
-    }
-  }
-}
-
-// The q populations of tile cell c at sub-step k.
-template <class S, class T>
-__device__ __forceinline__ void tile_populations(const T* buf,
-                                                 const TileGeom& t, int c,
-                                                 int k, T (&fv)[S::Q]) {
-  static_for<S::Q>([&](auto Q_) {
-    constexpr int q = decltype(Q_)::value;
-    fv[q] = buf[q * t.cells + c - k * tile_offset<S, q>(t)];
-  });
-}
-
-// Phase: sub-step k of the collision C on the cells at least k from the
-// tile's border; a cell whose code is not "collide" pushes its
-// replacement instead (the single-step masked kernel's branch), the
-// per-node field read at the cell's wrapped grid index.
-template <class C, class St>
-__device__ __forceinline__ void sub_step(
-    const typename C::Params& p, typename St::T* buf, const TileGeom& t,
-    int k, const TileMasks<St>& m,
-    const BoundaryTable<typename C::T>& table, const int64_t (&o)[3]) {
+// Phase: level k of the masked march on local plane ``plane`` (the grid's
+// plane at offset plane_at), on the cross cells at least k from the
+// border. Level 0 reads the launch input, and the plane's codes (and
+// frozen bits) into their rows ``codes`` and ``bits`` (the plane's; bits
+// null when nothing is frozen); a level above pulls from level k - 1's
+// ring, a frozen population from level k - 1's value at the cell itself
+// (frozen_select), and reads the rows. Then the cell's kind: the collision
+// C, or the replacement (replace_push), into level k's ring.
+template <class C, class St, bool First>
+__device__ __forceinline__ void masked_level(
+    const typename C::Params& p, const BoundaryTable<typename C::T>& bt,
+    const typename St::V* __restrict__ f, const MarchMasks<St>& m,
+    typename St::T* ring, const int64_t* table, uint8_t* codes,
+    uint32_t* bits, const MarchGeom& t, int k, int plane, int64_t plane_at,
+    int keep) {
   using S = typename C::S;
   using T = typename C::T;
-  const TileBox box = tile_box(t, k);
-  for (int i = threadIdx.x; i < box.count; i += blockDim.x) {
-    const int c = box_cell(t, box, i);
-    T fv[S::Q], u[S::D], rho, u2;
-    tile_populations<S, T>(buf, t, c, k, fv);
-    cell_moments<S, St::kDeviation>(fv, rho, u, u2);
-    const TileStore<S, St> store{buf, t, c, k};
-    const int code = m.codes[c];
-    const int kind = kind_of(table.kind, code);
-    if (kind != kCollide) {
-      const int64_t gi = kind == kEquilibriumField ? tile_global(t, o, c) : 0;
-      replace_push<S, St>(kind, table.value[code < kMaxCodes ? code : 0],
-                          fv, m.feq_field, t.n[0] * t.n[1] * t.n[2], gi,
-                          store);
-      continue;
-    }
-    C::collide(p, fv, rho, u, u2, store);
-  }
-}
-
-// Phases after sub-step k when populations are frozen, on the cells that
-// collide at sub-step k + 1: copy each frozen population's post-collision
-// value from its slot c - k off_q to the second buffer (to_keep), then
-// from there to slot c - (k+1) off_q, where sub-step k + 1 (or the store)
-// reads population q of cell c. A barrier separates the two.
-template <class S, class T>
-__device__ __forceinline__ void move_frozen(T* buf, T* keep,
-                                            const uint32_t* bits,
-                                            const TileGeom& t, int k,
-                                            bool to_keep) {
-  const TileBox box = tile_box(t, k + 1);
-  for (int i = threadIdx.x; i < box.count; i += blockDim.x) {
-    const int c = box_cell(t, box, i);
-    const uint32_t b = bits[c];
-    if (b == 0) continue;
-    static_for<S::Q>([&](auto Q_) {
-      constexpr int q = decltype(Q_)::value;
-      if ((b >> q) & 1u) {
-        T* slot = buf + q * t.cells + c - (k + 1) * tile_offset<S, q>(t);
-        if (to_keep) {
-          keep[q * t.cells + c] = slot[tile_offset<S, q>(t)];
-        } else {
-          *slot = keep[q * t.cells + c];
-        }
-      }
-    });
-  }
-}
-
-// The i-th interior cell of a tile: false when it lies past the grid's
-// end (a partial tile); else its tile cell and its flat grid index.
-__device__ __forceinline__ bool interior_cell(const TileGeom& t,
-                                              const int64_t (&o)[3], int i,
-                                              int& c, int64_t& gi) {
-  const int z = i % t.b[2];
-  const int y = (i / t.b[2]) % t.b[1];
-  const int x = i / (t.b[1] * t.b[2]);
-  const int64_t gx = o[0] + x, gy = o[1] + y, gz = o[2] + z;
-  if (gx >= t.n[0] || gy >= t.n[1] || gz >= t.n[2]) return false;
-  c = (x + t.h[0]) * t.stride0 + (y + t.h[1]) * t.stride1 + z + t.h[2];
-  gi = (gx * t.n[1] + gy) * t.n[2] + gz;
-  return true;
-}
-
-// Phase: the interior after n_sub sub-steps into out, rounded to St.
-template <class S, class St>
-__device__ __forceinline__ void store_tile(typename St::V* __restrict__ out,
-                                           const typename St::T* buf,
-                                           const TileGeom& t,
-                                           const int64_t (&o)[3], int n_sub) {
+  const size_t level = size_t(masked_level_values<S>(keep != 0)) * t.cells;
+  T* mine = ring + k * level;
   const int64_t n = t.n[0] * t.n[1] * t.n[2];
-  const int interior = t.b[0] * t.b[1] * t.b[2];
-  for (int i = threadIdx.x; i < interior; i += blockDim.x) {
-    int c;
-    int64_t gi;
-    if (!interior_cell(t, o, i, c, gi)) continue;
+  const RingPlanes<S, 1, T> out =
+      ring_planes<S, 1>(mine, t, plane, false, keep);
+  // level k - 1's ring (unused by level 0): pulled, and (frozen launches)
+  // at the cell's own plane
+  T* lower = First ? mine : mine - level;
+  const RingPlanes<S, 1, T> below =
+      ring_planes<S, 1>(lower, t, First ? 1 : plane, true, keep);
+  RingPlanes<S, 1, T> here = below;
+  if (!First && bits != nullptr)
+    here = ring_planes<S, 1>(lower, t, plane, false, keep);
+  const CrossBox box = cross_box(t, k);
+  for (BoxWalk w(box.ext[0], box.ext[1]); w.more(); w.next()) {
+    const int c = cross_cell(t, box, w);
+    T fv[S::Q], u[S::D], rho, u2;
+    int code;
+    if constexpr (First) {
+      const int64_t gi = plane_at + table[c];
+#pragma unroll
+      for (int q = 0; q < S::Q; ++q) fv[q] = St::raw(f + q * n + gi);
+      code = __ldg(m.ncm + gi);
+      codes[c] = static_cast<uint8_t>(code);
+      if (bits != nullptr) {
+        uint32_t b = 0;
+#pragma unroll
+        for (int q = 0; q < S::Q; ++q)
+          b |= uint32_t(__ldg(m.nsm + q * n + gi) != 0) << q;
+        bits[c] = b;
+      }
+    } else {
+      ring_pull<S, 1>(below, c, fv);
+      if (bits != nullptr) frozen_select<S>(here, c, bits[c], fv);
+      code = codes[c];
+    }
+    cell_moments<S, St::kDeviation>(fv, rho, u, u2);
+    // the cell's post-collision values, gathered as the single-step
+    // masked kernel gathers them, then one store to the ring for every kind
+    T post[S::Q];
+    const int kind = kind_of(bt.kind, code);
+    if (kind == kCollide) {
+      C::collide(p, fv, rho, u, u2, LocalStore<T>{post});
+    } else {
+      const int64_t gi = kind == kEquilibriumField ? plane_at + table[c] : 0;
+      replace_push<S, St>(kind, bt.value[code < kMaxCodes ? code : 0], fv,
+                          m.feq_field, n, gi, LocalStore<T>{post});
+    }
+    const RingStore<S, St> store{out, c};
     static_for<S::Q>([&](auto Q_) {
       constexpr int q = decltype(Q_)::value;
-      out[q * n + gi] =
-          St::pack(buf[q * t.cells + c - n_sub * tile_offset<S, q>(t)]);
+      store.template put<q>(post[q]);
     });
   }
 }
+
+// The units of one masked block, in the buffer at base: march_units'
+// schedule with masked levels, the mask rows of plane p at row
+// p % (n_sub + 1), and the frozen select in the store.
+template <class C, class St>
+__device__ __forceinline__ void masked_march_units(
+    unsigned char* base, const typename St::V* __restrict__ f,
+    typename St::V* __restrict__ out, const MarchGeom& t, int n_sub,
+    const typename C::Params& p, const BoundaryTable<typename C::T>& bt,
+    const MarchMasks<St>& m) {
+  using S = typename C::S;
+  using T = typename C::T;
+  constexpr int M = march_axis<S>();
+  const int keep = m.nsm != nullptr;
+  const MarchLayout l = masked_layout<S>(t.cells, n_sub, sizeof(T), keep);
+  T* ring = reinterpret_cast<T*>(base);
+  int64_t* table = reinterpret_cast<int64_t*>(base + l.table);
+  uint8_t* codes = base + l.codes;
+  uint32_t* bits =
+      keep ? reinterpret_cast<uint32_t*>(base + l.bits) : nullptr;
+  const T* top =
+      ring + size_t(n_sub - 1) * masked_level_values<S>(keep) * t.cells;
+  const int64_t stride = grid_stride(t, M);
+  const int rows = n_sub + 1;
+  for (int64_t unit = blockIdx.x; unit < t.nunits; unit += gridDim.x) {
+    int64_t o[3];
+    march_origin<S>(t, unit, o);
+    cross_table<S>(t, o, table);
+    __syncthreads();
+    const int planes = segment_planes<S>(t, o);
+    const int last = planes + 2 * n_sub - 1;  // the last local plane
+    // the mask row of plane s (s % rows), kept without a division per step
+    for (int s = 0, row_s = 0; s <= last;
+         ++s, row_s = row_s + 1 == rows ? 0 : row_s + 1) {
+      for (int k = 0; k < n_sub; ++k) {
+        const int plane = s - k;
+        if (plane >= k && plane <= last - k) {
+          const int row =
+              (row_s >= k ? row_s - k : row_s - k + rows) * t.cells;
+          const int64_t plane_at =
+              wrap_near(o[M] - n_sub + plane, t.n[M]) * stride;
+          uint32_t* plane_bits = keep ? bits + row : nullptr;
+          if (k == 0) {
+            masked_level<C, St, true>(p, bt, f, m, ring, table, codes + row,
+                                      plane_bits, t, 0, plane, plane_at,
+                                      keep);
+          } else {
+            masked_level<C, St, false>(p, bt, f, m, ring, table,
+                                       codes + row, plane_bits, t, k, plane,
+                                       plane_at, keep);
+          }
+        }
+        __syncthreads();
+      }
+      const int plane = s - n_sub;
+      const int row = row_s >= n_sub ? row_s - n_sub : row_s - n_sub + rows;
+      if (plane >= n_sub && plane < n_sub + planes)
+        march_store<S, St>(out, top, table, t, o, plane,
+                           o[M] + plane - n_sub,
+                           keep ? bits + row * t.cells : nullptr, keep);
+      __syncthreads();
+    }
+  }
+}
+
+// The launch bounds of a masked block. On a 2D grid its cross-section is a
+// row and several blocks share an SM (ops/cuda/build.py's row budgets): at
+// most 256 threads, and in float32 compute registers for 1024 threads per
+// SM (64 a thread: eight blocks of 128; at the periodic kernel's bound the
+// D2Q9 instance took 111, and four blocks filled an SM's registers, PERF.md
+// §6). Else the periodic kernel's bounds.
+template <class S, class T>
+constexpr int kMaskedThreads = S::D == 2 ? 256 : kMarchThreads<S, T>;
+template <class S, class T>
+constexpr int kMaskedMinBlocks = S::D == 2 && sizeof(T) == 4 ? 4 : 1;
 
 // The masked kernel: ncm is the grid's codes, nsm and feq_field (null when
 // absent) its no-streaming mask and per-node field; scratch (null: shared
-// memory) holds tile_stride bytes per block.
+// memory) holds tile_stride(masked_layout) per block.
 template <class C, class St>
-__global__ void __launch_bounds__(kMultiBlock) masked_sweep_kernel(
+__global__ void __launch_bounds__(
+    kMaskedThreads<typename C::S, typename C::T>,
+    kMaskedMinBlocks<typename C::S, typename C::T>) masked_march_kernel(
     const typename St::V* __restrict__ f, typename St::V* __restrict__ out,
-    unsigned char* scratch, const __grid_constant__ TileGeom t, int n_sub,
+    unsigned char* scratch, const __grid_constant__ MarchGeom t, int n_sub,
     const __grid_constant__ typename C::Params p,
     const uint8_t* __restrict__ ncm, const uint8_t* __restrict__ nsm,
     const typename St::V* __restrict__ feq_field,
@@ -943,32 +870,14 @@ __global__ void __launch_bounds__(kMultiBlock) masked_sweep_kernel(
   using T = typename C::T;
   static_assert(std::is_same_v<T, typename St::T>,
                 "the policy computes in the storage's compute type");
-  const TileLayout l = tile_layout<S, T>(t.cells, true, nsm != nullptr);
-  unsigned char* base = tile_buffer(scratch, tile_stride(l.bytes));
-  T* buf = reinterpret_cast<T*>(base);
-  const TileMasks<St> m{
-      ncm, nsm, feq_field, base + l.codes,
-      nsm != nullptr ? reinterpret_cast<uint32_t*>(base + l.bits) : nullptr,
-      nsm != nullptr ? reinterpret_cast<T*>(base + l.keep) : nullptr};
-  for (int64_t tile = blockIdx.x; tile < t.ntiles; tile += gridDim.x) {
-    int64_t o[3];
-    tile_origin(t, tile, o);
-    load_tile<S, St>(f, buf, t, o);
-    load_masks<S, St>(m, t, o);
-    __syncthreads();
-    for (int k = 0; k < n_sub; ++k) {
-      sub_step<C, St>(p, buf, t, k, m, table, o);
-      __syncthreads();
-      if (m.bits != nullptr) {
-        move_frozen<S, T>(buf, m.keep, m.bits, t, k, true);
-        __syncthreads();
-        move_frozen<S, T>(buf, m.keep, m.bits, t, k, false);
-        __syncthreads();
-      }
-    }
-    store_tile<S, St>(out, buf, t, o, n_sub);
-    __syncthreads();
-  }
+  const MarchMasks<St> m{ncm, nsm, feq_field};
+  with_buffer(scratch,
+              masked_layout<S>(t.cells, n_sub, sizeof(T), nsm != nullptr)
+                  .bytes,
+              [&](unsigned char* base) {
+                masked_march_units<C, St>(base, f, out, t, n_sub, p, table,
+                                          m);
+              });
 }
 
 // ---------------------------------------------------------------------------
@@ -1034,23 +943,27 @@ int start_march(const void* f, void* out, void* scratch, const MarchGeom& t,
   return static_cast<int>(cudaGetLastError());
 }
 
-// One launch of the masked kernel over the tiles of t; returns
-// cudaGetLastError().
+// One launch of the masked kernel over the units of t with ``threads``
+// threads per block; returns cudaGetLastError().
 template <class C, class St>
-int start_masked(const void* f, void* out, void* scratch, const void* ncm,
-                 const void* nsm, const void* feq_field, const TileGeom& t,
-                 int n_sub, int blocks, const typename C::Params& p,
-                 const BoundaryTable<typename C::T>& table, int device,
-                 void* stream) {
+int start_masked_march(const void* f, void* out, void* scratch,
+                       const void* ncm, const void* nsm,
+                       const void* feq_field, const MarchGeom& t, int n_sub,
+                       int blocks, int threads, const typename C::Params& p,
+                       const BoundaryTable<typename C::T>& table, int device,
+                       void* stream) {
+  using S = typename C::S;
+  using T = typename C::T;
   using V = typename St::V;
-  const auto kernel = masked_sweep_kernel<C, St>;
-  const TileLayout l = tile_layout<typename C::S, typename C::T>(
-      t.cells, true, nsm != nullptr);
+  const auto kernel = masked_march_kernel<C, St>;
+  if (threads < 1 || threads > kMaskedThreads<S, T>)
+    return static_cast<int>(cudaErrorInvalidValue);
   int err = 0;
   const int64_t smem = tile_smem<TileTag<C, St, std::true_type>>(
-      kernel, l.bytes, scratch, device, err);
+      kernel, masked_layout<S>(t.cells, n_sub, sizeof(T), nsm != nullptr).bytes,
+      scratch, device, err);
   if (smem < 0) return err;
-  kernel<<<blocks, kMultiBlock, static_cast<size_t>(smem),
+  kernel<<<blocks, threads, static_cast<size_t>(smem),
            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const V*>(f), static_cast<V*>(out),
       static_cast<unsigned char*>(scratch), t, n_sub, p,
@@ -1059,15 +972,14 @@ int start_masked(const void* f, void* out, void* scratch, const void* ncm,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Host launcher. A periodic launch (ncm null) marches: (b0, b1, b2) is the
-// cross-section's interior on the cross axes and the segment's planes on
-// the march axis, ``threads`` (at most kMarchThreads) per block, scratch
-// (null for shared memory) holds blocks * tile_stride(march_bytes) bytes.
-// A masked launch (ncm given; nsm and feq_field may be null, kinds and
-// values are the host table, the single-step masked entries') runs the
-// cube tiles of interior (b0, b1, b2) with kMultiBlock threads per block,
-// scratch holding blocks * tile_stride(tile bytes). Returns
-// cudaGetLastError().
+// Host launcher. Both forms march: (b0, b1, b2) is the cross-section's
+// interior on the cross axes and the segment's planes on the march axis,
+// ``threads`` per block (at most kMarchThreads, a masked one
+// kMaskedThreads). A periodic launch (ncm null) runs march_kernel, scratch (null for shared memory) holding
+// blocks * tile_stride(march_bytes) bytes; a masked launch (ncm given;
+// nsm and feq_field may be null, kinds and values are the host table, the
+// single-step masked entries') runs masked_march_kernel, scratch holding
+// blocks * tile_stride(masked_layout's bytes). Returns cudaGetLastError().
 template <class C, class St>
 int launch_multi(const void* f, void* out, void* scratch, const void* ncm,
                  const void* nsm, const void* feq_field, const int32_t* kinds,
@@ -1081,24 +993,21 @@ int launch_multi(const void* f, void* out, void* scratch, const void* ncm,
   static_assert(is_rest<S>(0), "the rest direction is q = 0");
   static_assert(S::Q <= kMaxQ && S::Q <= 32,
                 "the table holds kMaxQ values per code, the frozen bits 32");
-  static_assert(sizeof(typename C::Params) + sizeof(TileGeom) +
+  static_assert(sizeof(typename C::Params) + sizeof(MarchGeom) +
                         sizeof(BoundaryTable<T>) + 96 <=
                     kMaxParamBytes,
                 "kernel parameters exceed the launch's parameter space");
   if (n_sub < 1 || blocks < 1 || (ncm == nullptr && nsm != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
+  MarchGeom t;
+  if (!make_march<S>(n0, n1, n2, b0, b1, b2, n_sub, n_sub, t))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (ncm == nullptr) {
-    MarchGeom t;
-    if (!make_march<S>(n0, n1, n2, b0, b1, b2, n_sub, n_sub, t))
-      return static_cast<int>(cudaErrorInvalidValue);
     const int err = use_device(device);
     if (err != 0) return err;
     return start_march<C, St>(f, out, scratch, t, n_sub, blocks, threads, p,
                               device, stream);
   }
-  TileGeom t;
-  if (!make_geom<S>(n0, n1, n2, b0, b1, b2, n_sub, t))
-    return static_cast<int>(cudaErrorInvalidValue);
   BoundaryTable<T> table{};
   if (!fill_kinds(kinds, table.kind))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1107,18 +1016,18 @@ int launch_multi(const void* f, void* out, void* scratch, const void* ncm,
       table.value[c][q] = T(values[c * kMaxQ + q]);
   const int err = use_device(device);
   if (err != 0) return err;
-  return start_masked<C, St>(f, out, scratch, ncm, nsm, feq_field, t, n_sub,
-                             blocks, p, table, device, stream);
+  return start_masked_march<C, St>(f, out, scratch, ncm, nsm, feq_field, t,
+                                   n_sub, blocks, threads, p, table, device,
+                                   stream);
 }
 
 }  // namespace lt
 
 // The blocked entry of POLICY on S with the storage STORAGE (whose compute
-// type the policy runs in): n_sub sub-steps with ``blocks`` blocks and the
-// global ``scratch`` or null; with ``ncm`` null a periodic launch marching
-// columns of interior (b0, b1, b2) (the segment's planes on the march
-// axis) with ``threads`` per block, else masked over cube tiles of
-// interior (b0, b1, b2) (``threads`` unused; ``nsm`` and ``feq_field``
+// type the policy runs in): n_sub sub-steps with ``blocks`` blocks of
+// ``threads`` and the global ``scratch`` or null, marching columns of
+// interior (b0, b1, b2) (the segment's planes on the march axis); with
+// ``ncm`` null a periodic launch, else masked (``nsm`` and ``feq_field``
 // null when absent; ``kinds`` and ``values`` the host table).
 #define LT_MULTI_ENTRY(FRAG, STENCIL, POLICY, S, SUFFIX, STORAGE)             \
   int lt_multi_##FRAG##_##STENCIL##_##SUFFIX(                                 \

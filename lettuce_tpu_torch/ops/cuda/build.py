@@ -12,10 +12,9 @@ kept beside the library (:func:`ptxas_log`).
 
 Also here: what every wrapper checks before a launch (the compiled stencil
 instance, the dtype, the launch grid), the entry suffix of each state
-dtype and storage (:data:`DTYPES`, :data:`STORAGE`), the columns of the
-marched blocked kernels (:func:`plan_march`, the periodic K2 and K4, with
-their schedule :func:`march_steps`) and the cube tiles of the masked K2
-(:func:`plan_tile`).
+dtype and storage (:data:`DTYPES`, :data:`STORAGE`), and the columns of
+the marched blocked kernels (:func:`plan_march`: K2, periodic or masked,
+and K4, with their schedule :func:`march_steps`).
 """
 
 from __future__ import annotations
@@ -40,11 +39,11 @@ __all__ = ["SOURCES", "find_nvcc", "library_path", "ptxas_log",
            "open_library", "check_launch", "kernel_stencil_name",
            "launch_dims", "check_out", "KERNEL_STENCILS",
            "KERNEL_STENCIL_NAMES", "DTYPES", "STORAGE", "HALF_DTYPES",
-           "storage_suffix", "compute_dtype", "plan_tile", "TilePlan",
-           "TILE_SMEM_BYTES",
-           "moving_axes", "mask_bytes", "tile_stride", "MarchPlan",
+           "storage_suffix", "compute_dtype", "TILE_SMEM_BYTES",
+           "sm_budget", "moving_axes", "tile_stride", "MarchPlan",
            "plan_march", "march_candidates", "march_steps", "ring_depths",
-           "march_values", "march_bytes", "march_threads"]
+           "ring_keep", "march_values", "march_bytes", "march_threads",
+           "is_row"]
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 # csrc/<name>.cu, one library each: the BGK step (K1a, K1d, K1b), its
@@ -82,17 +81,16 @@ STORAGE = {(torch.bfloat16, False): "bf16", (torch.float16, False): "f16",
            (torch.bfloat16, True): "bf16_dev"}
 HALF_DTYPES = (torch.bfloat16, torch.float16)
 _MAX_GRID_YZ = 65535  # CUDA's limit on gridDim.y and gridDim.z
-# the tiles of the blocked kernels (csrc/multi_sweep.cuh): the dynamic
-# shared memory a block may opt into on sm_90 (227 KB); a tile is first
-# sought within what lets two blocks share an SM (its 228 KB less the 1 KB
-# the runtime reserves per block, halved), then within all of it, and
-# when none fits, in a global scratch of at most _SCRATCH_TILE_BYTES per
-# block with _SCRATCH_BLOCKS blocks looping over the tiles
+# the buffers of the blocked kernels (csrc/multi_sweep.cuh): the dynamic
+# shared memory a block may opt into on sm_90 (227 KB) and an SM's 228 KB,
+# of which the runtime reserves 1 KB per block (F9: k blocks share an SM
+# when each takes at most sm_budget(k)); when no buffer fits, a global
+# scratch of at most _SCRATCH_TILE_BYTES per block with _SCRATCH_BLOCKS
+# blocks looping over the units
 TILE_SMEM_BYTES = 232448
-_TWO_BLOCK_TILE_BYTES = (233472 - 2 * 1024) // 2
+SM_SMEM_BYTES = 233472
 _SCRATCH_TILE_BYTES = 4 << 20
 _SCRATCH_BLOCKS = 264
-_MAX_INTERIOR = (32, 32, 128)  # the interior extents a plan considers
 # the marched kernels' columns: an H100 SXM's SMs (the planner fills them
 # in whole waves), the cross-section interiors and cells a plan considers,
 # and the segment counts along the march axis
@@ -281,27 +279,12 @@ def moving_axes(e) -> tuple:
     return (False,) * (3 - len(moves)) + moves
 
 
-class TilePlan(NamedTuple):
-    """The tiles of one blocked launch: the ``interior`` extents per axis
-    of the 3D launch grid, the ``halo`` on the axes the stencil moves
-    along, the tile's ``cells`` and ``bytes``, whether it runs in a global
-    ``scratch`` (else shared memory), the number of ``tiles`` and the
-    ``blocks`` launched."""
-    interior: tuple
-    halo: int
-    cells: int
-    bytes: int
-    scratch: bool
-    tiles: int
-    blocks: int
-
-
-def mask_bytes(q: int, itemsize: int, masked: bool, frozen: bool) -> int:
-    """The bytes per tile cell a masked blocked launch (K2) adds to its q
-    values (csrc/multi_sweep.cuh's TileLayout): the cell's code (1 B), and
-    when populations are frozen their bits (4 B) and a second buffer of q
-    values of ``itemsize`` bytes."""
-    return int(masked) + (4 + q * itemsize if frozen else 0)
+def sm_budget(blocks: int) -> int:
+    """The bytes each of ``blocks`` blocks may take for k of them to share
+    an SM (F9): k x (bytes + 1 KB) <= 228 KB; one block, 227 KB."""
+    if blocks == 1:
+        return TILE_SMEM_BYTES
+    return SM_SMEM_BYTES // blocks - 1024
 
 
 def tile_stride(nbytes: int) -> int:
@@ -310,73 +293,45 @@ def tile_stride(nbytes: int) -> int:
     return -(-int(nbytes) // 16) * 16
 
 
-@functools.lru_cache(maxsize=256)
-def plan_tile(dims: tuple, moving: tuple, halo: int, values_per_cell: int,
-              itemsize: int, extra_bytes: int = 0) -> TilePlan:
-    """The cube tile of a masked blocked launch (K2) over the launch grid
-    ``dims`` (n0, n1, n2): ``moving`` says on which axes the stencil moves
-    (those get the ``halo``), and each tile cell holds ``values_per_cell``
-    values of ``itemsize`` bytes and ``extra_bytes`` more
-    (:func:`mask_bytes`). Of the interiors up to 32 x 32 x 128 (and the
-    grid) it takes the one whose interior is the largest share of the tile
-    (then the largest), within the shared memory of one of two blocks per
-    SM, else within all a block may take, else in a global scratch
-    (csrc/multi_sweep.cuh). Raises ValueError when no tile holds the
-    halo."""
-    halos = [halo if m else 0 for m in moving]
-    axes = [np.arange(1, min(int(n), cap) + 1)
-            for n, cap in zip(dims, _MAX_INTERIOR)]
-    b = np.meshgrid(*axes, indexing="ij")
-    interior = b[0] * b[1] * b[2]
-    cells = ((b[0] + 2 * halos[0]) * (b[1] + 2 * halos[1])
-             * (b[2] + 2 * halos[2]))
-    nbytes = cells * (values_per_cell * itemsize + extra_bytes)
-    share = interior / cells
-    for budget, scratch in ((_TWO_BLOCK_TILE_BYTES, False),
-                            (TILE_SMEM_BYTES, False),
-                            (_SCRATCH_TILE_BYTES, True)):
-        fits = nbytes <= budget
-        if not fits.any():
-            continue
-        best = np.lexsort((np.where(fits, interior, -1).ravel(),
-                           np.where(fits, share, -1.0).ravel()))[-1]
-        at = np.unravel_index(best, interior.shape)
-        extents = tuple(int(x[at]) for x in b)
-        tiles = int(np.prod([-(-int(n) // e) for n, e in zip(dims, extents)]))
-        return TilePlan(extents, int(halo), int(cells[at]), int(nbytes[at]),
-                        scratch, tiles,
-                        min(tiles, _SCRATCH_BLOCKS) if scratch else tiles)
-    raise ValueError(f"a halo of {halo} cells leaves no tile of "
-                     f"{values_per_cell} x {itemsize}-byte values (and "
-                     f"{extra_bytes} B) per cell within "
-                     f"{_SCRATCH_TILE_BYTES} bytes")
-
-
 # ----------------------------------------------------------------------
-# the march of the periodic K2 and of K4 (csrc/multi_sweep.cuh)
+# the march of K2 (periodic and masked) and of K4 (csrc/multi_sweep.cuh,
+# csrc/adjoint_multi.cuh)
 # ----------------------------------------------------------------------
-def march_values(q: int, d: int, n_sub: int, adjoint: bool = False) -> int:
+def march_values(q: int, d: int, n_sub: int, adjoint: bool = False,
+                 keep: int = 0) -> int:
     """The ring values per cross-section cell of a marched block: K2 keeps
     n_sub rings of 2 q values (the compact ring: a population is kept 1, 2
-    or 3 planes as it moves -1, 0, +1 along the march axis); K4
-    (``adjoint``) 2 (n_sub - 1) such rings (the replay's post-collision
+    or 3 planes as it moves -1, 0, +1 along the march axis), ``keep`` more
+    per ring when a masked launch freezes populations (:func:`ring_keep`);
+    K4 (``adjoint``) 2 (n_sub - 1) such rings (the replay's post-collision
     values, the cotangents) and the u rings of levels 0 .. n_sub - 2,
     2 (n_sub - 1 - k) + 1 planes of d values each."""
     if adjoint:
         return 2 * (n_sub - 1) * 2 * q + (n_sub * n_sub - 1) * d
-    return n_sub * 2 * q
+    return n_sub * (2 * q + keep)
 
 
-def ring_depths(e, sign: int = 1) -> tuple:
+def ring_depths(e, sign: int = 1, frozen: bool = False) -> tuple:
     """The planes a ring keeps of each population of the stencil ``e``:
     2 + sign e_m, e_m its component along the march axis (the first axis of
     the 3D launch grid it moves along); sign +1 for a forward level's
-    post-collision values, -1 for a backward level's cotangents."""
+    post-collision values, -1 for a backward level's cotangents. A forward
+    ring of a masked launch with ``frozen`` populations keeps the
+    populations with e_m = -1 two planes: a frozen one reads its own plane
+    after the next plane was written."""
     e3 = np.asarray(e)
     if e3.shape[1] == 2:
         e3 = np.concatenate([np.zeros((e3.shape[0], 1), int), e3], axis=1)
     axis = moving_axes(e).index(True)
-    return tuple(int(2 + sign * x) for x in e3[:, axis])
+    return tuple(int(2 + sign * x + (frozen and x == -1))
+                 for x in e3[:, axis])
+
+
+def ring_keep(e) -> int:
+    """The values a forward ring of a frozen masked launch keeps more per
+    cross cell than the compact ring: one per population with e_m = -1
+    (csrc/multi_sweep.cuh's ring_keep)."""
+    return sum(ring_depths(e, frozen=True)) - sum(ring_depths(e))
 
 
 def march_steps(n_sub: int, planes: int, adjoint: bool = False) -> list:
@@ -432,33 +387,44 @@ def march_steps(n_sub: int, planes: int, adjoint: bool = False) -> list:
     return steps
 
 
-def march_bytes(cells: int, values_per_cell: int, itemsize: int) -> int:
-    """The buffer of a marched block (csrc/multi_sweep.cuh's march_bytes):
-    ``values_per_cell`` ring values of ``itemsize`` bytes per cross cell,
-    rounded up to 8 bytes, then each cross cell's 8-byte grid offset."""
-    return -(-cells * values_per_cell * itemsize // 8) * 8 + 8 * cells
+def march_bytes(cells: int, values_per_cell: int, itemsize: int,
+                mask_rows: int = 0, frozen: bool = False) -> int:
+    """The buffer of a marched block (csrc/multi_sweep.cuh's march_bytes
+    and march_layout): ``values_per_cell`` ring values of ``itemsize``
+    bytes per cross cell, rounded up to 8 bytes, then each cross cell's
+    8-byte grid offset; a masked launch adds ``mask_rows`` rows of a 1-byte
+    code per cross cell and, with ``frozen`` populations, as many rows of
+    4-byte frozen bits (4-byte aligned)."""
+    codes = -(-cells * values_per_cell * itemsize // 8) * 8 + 8 * cells
+    if not frozen:
+        return codes + mask_rows * cells
+    return -(-(codes + mask_rows * cells) // 4) * 4 + 4 * mask_rows * cells
 
 
-def march_threads(q: int, itemsize: int, adjoint: bool = False) -> int:
+def march_threads(q: int, itemsize: int, adjoint: bool = False,
+                  masked_row: bool = False) -> int:
     """The most threads a marched block of a stencil with ``q``
     populations takes in a compute type of ``itemsize`` bytes (its
     ``__launch_bounds__``): K2 512 for float32 compute on up to 19
     populations, else 256 (csrc/multi_sweep.cuh's kMarchThreads); K4
-    (``adjoint``) 256 (csrc/adjoint_multi.cuh's kAdjointThreads)."""
+    (``adjoint``) 256 (csrc/adjoint_multi.cuh's kAdjointThreads); a masked
+    K2 on a 2D grid (``masked_row``) 256 (kMaskedThreads)."""
+    if masked_row:
+        return 256
     return 512 if itemsize == 4 and q <= 19 and not adjoint else 256
 
 
 class MarchPlan(NamedTuple):
-    """The columns of one marched launch (the periodic K2, K4): the march
+    """The columns of one marched launch (K2, K4): the march
     ``axis`` of the 3D launch grid; ``interior``, what the C entry takes
     as (b0, b1, b2): the cross-section's interior on the two cross axes
     and the ``segment``'s planes on the march axis; the ``halo`` on the
     cross axes the stencil moves along and the ``march_halo`` planes
     collided before and after a segment; the cross-section's ``cells``,
-    the buffer ``bytes`` per block (:func:`march_bytes`: rings and grid
-    offsets); whether it lives in a global ``scratch`` (else shared memory
-    within the budget of ``blocks_per_sm`` blocks per SM: 2 or 1; 0 with a
-    scratch); the
+    the buffer ``bytes`` per block (:func:`march_bytes`: rings, grid
+    offsets and a masked launch's mask rows); whether it lives in a global
+    ``scratch`` (else shared memory within the budget of ``blocks_per_sm``
+    blocks per SM, :func:`sm_budget`; 0 with a scratch); the
     ``units`` (columns times segments), the ``blocks`` launched and their
     ``threads``; ``share``, the stored cells per level-0 collision (the
     cross-section's interior share times the segment's share of the
@@ -478,19 +444,41 @@ class MarchPlan(NamedTuple):
     share: float
 
 
-# the budgets of a marched block: two blocks per SM (F9), one, a scratch
-_MARCH_BUDGETS = ((_TWO_BLOCK_TILE_BYTES, 2), (TILE_SMEM_BYTES, 1),
-                  (_SCRATCH_TILE_BYTES, 0))
+# the budgets of a marched block, (blocks per SM, threads): two blocks of
+# 256 per SM (F9), one of march_threads, a global scratch (0)
+_MARCH_BUDGETS = ((2, 256), (1, None), (0, None))
+# the budgets of a masked launch whose cross-section is a row (a 2D grid):
+# its buffer is small enough for several blocks per SM, whose levels hide
+# one another's loads; threads sized to the row. The planner's model counts
+# loads, not the latency the other blocks hide, so it cannot rank these:
+# the first that fits is the default, six blocks of 128, within 7 % of the
+# fastest candidate on the 2048^2 and obstacle launches at x2 and x4 where
+# each other budget lost 9-25 % on one of them (chip_smoke.py phase 35
+# times them all; PERF.md §6)
+_ROW_BUDGETS = ((6, 128), (8, 128), (4, 128), (3, 256), (2, 256))
+
+
+def is_row(dims: tuple, moving: tuple) -> bool:
+    """Whether a march over the launch grid ``dims`` has a row for its
+    cross-section: the first cross axis is one the stencil does not move
+    along (a 2D grid [1, X, Y], marched along X)."""
+    axis = moving.index(True)
+    cross = [a for a in range(3) if a != axis]
+    return not moving[cross[0]]
 
 
 def _march_table(dims, moving, halo, march_halo, values_per_cell, itemsize,
-                 budget, per_sm, threads, sms):
-    """Every (cross-section, segment) of one budget with its modelled time,
+                 per_sm, threads, sms, mask_rows=0, frozen=False,
+                 by_thread=False):
+    """Every (cross-section, segment) of one budget (``per_sm`` blocks per
+    SM, :func:`sm_budget`; 0: a global scratch) with its modelled time,
     best first: a list of (est, plan). The model: whole waves of
     ``sms * per_sm`` blocks (a scratch launch's _SCRATCH_BLOCKS), each wave
-    a unit's level-0 collisions (cells times loaded planes) ``per_sm``
-    times over, and a row of the fastest cross axis costing one 32-byte
-    sector more than its bytes."""
+    a unit's level-0 collisions (cells times loaded planes; with
+    ``by_thread``, the cells rounded up to whole passes of the block's
+    threads) ``per_sm`` times over, and a row of the fastest cross axis
+    costing one 32-byte sector more than its bytes."""
+    budget = _SCRATCH_TILE_BYTES if per_sm == 0 else sm_budget(per_sm)
     axis = moving.index(True)
     cross = [a for a in range(3) if a != axis]
     halos = [halo if moving[a] else 0 for a in cross]
@@ -499,11 +487,12 @@ def _march_table(dims, moving, halo, march_halo, values_per_cell, itemsize,
                       for a in cross], indexing="ij")
     b0, b1 = b[0].ravel(), b[1].ravel()
     cells = (b0 + 2 * halos[0]) * (b1 + 2 * halos[1])
-    nbytes = march_bytes(cells, values_per_cell, itemsize)
+    nbytes = march_bytes(cells, values_per_cell, itemsize, mask_rows, frozen)
     fits = (nbytes <= budget) & (cells <= _MAX_CROSS_CELLS)
     if not fits.any():
         return []
     b0, b1, cells, nbytes = b0[fits], b1[fits], cells[fits], nbytes[fits]
+    work = -(-cells // threads) * threads if by_thread else cells
     columns = (-(-int(dims[cross[0]]) // b0)) * (-(-int(dims[cross[1]]) // b1))
     segments = np.unique(-(-n_m // np.arange(1, min(n_m, _MAX_SEGMENTS) + 1)))
     slots = sms * per_sm if per_sm else _SCRATCH_BLOCKS
@@ -512,7 +501,8 @@ def _march_table(dims, moving, halo, march_halo, values_per_cell, itemsize,
     for seg in segments:
         units = columns * (-(-n_m // int(seg)))
         loaded = cells * (int(seg) + 2 * march_halo)
-        est = (-(-units // slots)) * max(per_sm, 1) * loaded * (1 + 32 / row)
+        est = ((-(-units // slots)) * max(per_sm, 1) * work
+               * (int(seg) + 2 * march_halo) * (1 + 32 / row))
         share = b0 * b1 * min(int(seg), n_m) / loaded
         rows.append((est, share, units, np.full_like(units, int(seg))))
     est, share, units, seg = (np.concatenate(x) for x in zip(*rows))
@@ -548,43 +538,71 @@ def _row_values(plan: MarchPlan) -> int:
 @functools.lru_cache(maxsize=256)
 def march_candidates(dims: tuple, moving: tuple, halo: int, march_halo: int,
                      values_per_cell: int, itemsize: int, q: int,
-                     adjoint: bool = False, sms: int = SMS) -> tuple:
+                     adjoint: bool = False, sms: int = SMS,
+                     masked: bool = False, frozen: bool = False,
+                     rows: bool = None) -> tuple:
     """The plans a marched launch over the launch grid ``dims`` may take
-    (:func:`plan_march`'s arguments), the planner's default first: per
-    budget that fits (two blocks of 256 threads per SM, or one block of
-    :func:`march_threads`; a global scratch only when no shared-memory
-    plan fits), its best plan by the model, its best with rows of fewer
+    (:func:`plan_march`'s arguments), the planner's default first.
+
+    Per budget that fits (two blocks of 256 threads per SM, or one block
+    of :func:`march_threads`; a global scratch only when no shared-memory
+    plan fits): its best plan by the model, its best with rows of fewer
     than 32 values on the fastest cross axis and its best with rows of at
-    least 32 (whole 32-byte sectors in float32), and its best cross-section
-    cut into at least twice the units; with one block per SM of more than
-    256 threads, its best plan also at 256. Raises ValueError when no plan
-    holds the halo."""
-    max_threads = march_threads(int(q), int(itemsize), bool(adjoint))
+    least 32 (whole 32-byte sectors in float32), and its best
+    cross-section cut into at least twice the units; with one block per SM
+    of more than 256 threads, its best plan also at 256; sorted by the
+    model.
+
+    With ``rows`` (by default a ``masked`` launch whose cross-section is a
+    row, :func:`is_row`): per row budget (3-8 blocks of 128 or 256 threads
+    per SM) its best plan by the model, counting the cells in whole passes
+    of the block's threads, in the order of the budgets (the first is the
+    default); the budgets above only when none fits. A masked launch's
+    buffer holds n_sub + 1 (``halo`` + 1) mask rows, with ``frozen``
+    populations their bits too (:func:`march_bytes`). Raises ValueError
+    when no plan holds the halo."""
+    dims = tuple(int(n) for n in dims)
+    moving = tuple(moving)
+    max_threads = march_threads(int(q), int(itemsize), bool(adjoint),
+                                bool(masked) and is_row(dims, moving))
+    mask_rows = int(halo) + 1 if masked else 0
+    if rows is None:
+        rows = masked and is_row(dims, moving)
+
+    def table(per_sm, threads, by_thread=False):
+        return _march_table(dims, moving, int(halo), int(march_halo),
+                            int(values_per_cell), int(itemsize), per_sm,
+                            threads, int(sms), mask_rows, bool(frozen),
+                            by_thread)
+
+    if rows:
+        found = [plans[0][1] for per_sm, threads in _ROW_BUDGETS
+                 if threads <= max_threads
+                 for plans in [table(per_sm, threads, True)] if plans]
+        if found:
+            return tuple(found)
     found = []
-    for budget, per_sm in _MARCH_BUDGETS:
+    for per_sm, threads in _MARCH_BUDGETS:
         if per_sm == 0 and found:
             break
-        threads = max_threads if per_sm == 1 else 256
-        table = _march_table(tuple(int(n) for n in dims), tuple(moving),
-                             int(halo), int(march_halo),
-                             int(values_per_cell), int(itemsize), budget,
-                             per_sm, threads, int(sms))
-        if not table:
+        threads = threads or max_threads
+        plans = table(per_sm, threads)
+        if not plans:
             continue
-        best = table[0][1]
-        picks = [table[0]]
+        best = plans[0][1]
+        picks = [plans[0]]
         for narrow in (True, False):
-            rows = [r for r in table
-                    if (_row_values(r[1]) < 32) == narrow]
-            if rows and rows[0] not in picks:
-                picks.append(rows[0])
-        split = [r for r in table if _cross(r[1]) == _cross(best)
+            picked = [r for r in plans
+                      if (_row_values(r[1]) < 32) == narrow]
+            if picked and picked[0] not in picks:
+                picks.append(picked[0])
+        split = [r for r in plans if _cross(r[1]) == _cross(best)
                  and r[1].units >= 2 * best.units]
         if split:
             picks.append(split[0])
         found += picks
         if threads > 256:
-            found.append((table[0][0] * 1.5, best._replace(threads=256)))
+            found.append((plans[0][0] * 1.5, best._replace(threads=256)))
     if not found:
         raise ValueError(f"a halo of {halo} cells leaves no march of "
                          f"{values_per_cell} x {itemsize}-byte values per "
@@ -596,22 +614,26 @@ def march_candidates(dims: tuple, moving: tuple, halo: int, march_halo: int,
 
 def plan_march(dims: tuple, moving: tuple, halo: int, march_halo: int,
                values_per_cell: int, itemsize: int, q: int,
-               adjoint: bool = False, sms: int = SMS) -> MarchPlan:
-    """The columns of a marched launch (the periodic K2, K4) of a stencil
+               adjoint: bool = False, sms: int = SMS, masked: bool = False,
+               frozen: bool = False) -> MarchPlan:
+    """The columns of a marched launch (K2, periodic or ``masked`` with
+    ``frozen`` populations or without; K4 when ``adjoint``) of a stencil
     of ``q`` populations over the launch grid ``dims`` (n0, n1, n2):
     ``moving`` says on which axes the stencil moves (the march takes the
     first; the other two, the cross axes, get the ``halo`` where it
     moves), ``march_halo`` planes are collided before and after each
     segment, and each cross-section cell holds ``values_per_cell`` ring
-    values of ``itemsize`` bytes (:func:`march_values`) and its grid
-    offset (:func:`march_bytes`); a block takes up to
-    :func:`march_threads` (K4's when ``adjoint``). Of the cross-sections
-    and segment lengths that fit two blocks' share of an SM's shared
-    memory, or all a block may take, it takes the one the model deems
-    fastest (:func:`march_candidates`: whole waves over ``sms`` SMs, the
-    level-0 collisions of a unit, a sector per row); when none fits, a
-    global scratch. Raises ValueError when no plan holds the halo."""
+    values of ``itemsize`` bytes (:func:`march_values`), its grid
+    offset and a masked launch's mask rows (:func:`march_bytes`); a block
+    takes up to :func:`march_threads` (K4's when ``adjoint``). Of the
+    cross-sections and segment lengths that fit two blocks' share of an
+    SM's shared memory, or all a block may take, it takes the one the
+    model deems fastest (:func:`march_candidates`: whole waves over
+    ``sms`` SMs, the level-0 collisions of a unit, a sector per row); when
+    none fits, a global scratch. A masked launch on a 2D grid takes the
+    first row budget that fits (several blocks per SM). Raises ValueError
+    when no plan holds the halo."""
     return march_candidates(tuple(int(n) for n in dims), tuple(moving),
                             int(halo), int(march_halo), int(values_per_cell),
-                            int(itemsize), int(q), bool(adjoint),
-                            int(sms))[0]
+                            int(itemsize), int(q), bool(adjoint), int(sms),
+                            bool(masked), bool(frozen))[0]

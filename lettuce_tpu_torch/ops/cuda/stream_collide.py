@@ -43,9 +43,9 @@ The temporally blocked kernel (K2, ``csrc/multi_*.cu``) runs ``n_sub``
 steps of any fragment in one launch, periodic or masked (the boundary
 codes and frozen populations on every sub-step), in every storage
 (``stream_collide(..., n_sub=n)``): it reads and writes the state once per
-launch. A periodic launch marches columns along the grid's slowest moving
-axis (:func:`march_plan`, :func:`.build.plan_march`); a masked one runs
-cube tiles (:func:`multi_plan`, :func:`.build.plan_tile`).
+launch. Both forms march columns along the grid's slowest moving axis
+(:func:`march_plan`, :func:`.build.plan_march`); a masked launch on a 2D
+grid runs several small blocks per SM, one row each.
 :func:`build_fused_multi_step` builds the blocked step of a Simulation
 when a span is asked for (``LETTUCE_NSUB``), with the outlets'
 window replay at that span; on a periodic grid its gradient runs the
@@ -83,9 +83,9 @@ from ..utils_moments_shim import resolve_mrt_spec
 from .build import (DTYPES, HALF_DTYPES, KERNEL_STENCIL_NAMES,
                     KERNEL_STENCILS, STORAGE, check_launch, check_out,
                     compute_dtype, kernel_stencil_name, launch_dims,
-                    mask_bytes, march_candidates, march_values,
-                    moving_axes, open_library, plan_march, plan_tile,
-                    storage_suffix, tile_stride)
+                    march_candidates, march_values, moving_axes,
+                    open_library, plan_march, ring_keep, storage_suffix,
+                    tile_stride)
 from .hybrid_outlets import (build_hybrid_fixup, nsm_outside_regions,
                              outlet_window)
 
@@ -99,8 +99,8 @@ __all__ = ["stream_collide", "stream_collide_plain", "collide_plain",
            "FRAGMENTS", "EMIT_U_FRAGMENTS", "HALF_SOURCES", "DEV_REFUSED",
            "encode_deviations", "decode_deviations",
            "load_half_library", "MULTI_SOURCES", "load_multi_library",
-           "blocking_refusals", "build_fused_multi_step", "multi_plan",
-           "march_plan", "march_scratch", "without_nsm"]
+           "blocking_refusals", "build_fused_multi_step", "march_plan",
+           "march_scratch", "without_nsm"]
 
 # boundary kinds of the per-code table, in the order of csrc/stencils.cuh's
 # Kind enum
@@ -633,11 +633,10 @@ def load_multi_library(source: str) -> ctypes.CDLL:
     :data:`FRAGMENTS`; the library of :data:`MULTI_SOURCES`), with
     ``argtypes`` set on every entry: f, out, scratch, the masks (ncm, nsm,
     feq field, host kinds, host values; null for a periodic launch), the
-    grid, n_sub, the tile's interior (a periodic launch's march: the
-    cross-section's, and the segment's planes on the march axis), the
-    blocks and their threads (read by a periodic launch), the float64
-    parameters, cs, device, stream; every storage (no deviations for
-    :data:`DEV_REFUSED`)."""
+    grid, n_sub, the march's interior (the cross-section's, and the
+    segment's planes on the march axis), the blocks and their threads,
+    the float64 parameters, cs, device, stream; every storage (no
+    deviations for :data:`DEV_REFUSED`)."""
     lib = open_library(MULTI_SOURCES[source])
     pointer = ctypes.c_void_p
     argtypes = ([pointer] * 8 + [ctypes.c_int64] * 3 + [ctypes.c_int] * 6
@@ -893,46 +892,30 @@ stream_collide.half_launches = Counter()
 stream_collide.multi_launches = Counter()
 
 
-def multi_plan(f: torch.Tensor, e, halo: int, values_per_cell: int,
-               masked: bool = False, frozen: bool = False):
-    """The cube tiles of a masked blocked launch over the state ``f``
-    (:func:`.build.plan_tile`): a halo of ``halo`` cells and
-    ``values_per_cell`` values of the compute type (float64 for a float64
-    state, else float32) per tile cell, plus the masks' bytes of a
-    ``masked`` launch with ``frozen`` populations or without
-    (:func:`.build.mask_bytes`); and the global scratch it needs (None in
-    shared memory)."""
-    itemsize = torch.finfo(compute_dtype(f.dtype)).bits // 8
-    dims = tuple(int(n) for n in launch_dims(f, e))
-    plan = plan_tile(dims, moving_axes(e), int(halo), int(values_per_cell),
-                     itemsize, mask_bytes(f.shape[0], itemsize, masked,
-                                          frozen))
-    scratch = None
-    if plan.scratch:
-        scratch = torch.empty(plan.blocks * tile_stride(plan.bytes),
-                              dtype=torch.uint8, device=f.device)
-    return dims, plan, scratch
-
-
 def march_plan(f: torch.Tensor, e, n_sub: int, adjoint: bool = False,
-               halo: int = None, candidates: bool = False):
+               halo: int = None, candidates: bool = False,
+               masked: bool = False, frozen: bool = False,
+               rows: bool = None):
     """The columns of a marched launch over the state ``f``
-    (:func:`.build.plan_march`): the periodic K2 (n_sub levels, a halo and
-    a march halo of n_sub) or K4 (``adjoint``: a cross halo of ``halo``,
-    2 (n_sub - 1) planes before and after a segment), ring values of the
-    compute type (:func:`.build.march_values`), the waves filled on the
-    SMs of ``f``'s card (132 off the card). With ``candidates``, every
-    plan :func:`.build.march_candidates` offers, the default first."""
+    (:func:`.build.plan_march`): K2 (n_sub levels, a halo and a march halo
+    of n_sub; ``masked`` with the codes' rows, ``frozen`` populations
+    adding their bits and a kept plane) or K4 (``adjoint``: a cross halo
+    of ``halo``, 2 (n_sub - 1) planes before and after a segment), ring
+    values of the compute type (:func:`.build.march_values`), the waves
+    filled on the SMs of ``f``'s card (132 off the card). With
+    ``candidates``, every plan :func:`.build.march_candidates` offers, the
+    default first (``rows`` forces the row budgets on or off)."""
     itemsize = torch.finfo(compute_dtype(f.dtype)).bits // 8
     dims = tuple(int(n) for n in launch_dims(f, e))
     q, d = np.asarray(e).shape
     sms = (torch.cuda.get_device_properties(f.device).multi_processor_count
            if f.device.type == "cuda" else 132)
+    keep = ring_keep(e) if masked and frozen else 0
     plans = march_candidates(
         dims, moving_axes(e), int(n_sub if halo is None else halo),
         2 * (int(n_sub) - 1) if adjoint else int(n_sub),
-        march_values(q, d, int(n_sub), adjoint), itemsize, q, adjoint,
-        sms)
+        march_values(q, d, int(n_sub), adjoint, keep), itemsize, q, adjoint,
+        sms, bool(masked), bool(masked and frozen), rows)
     return plans if candidates else plans[0]
 
 
@@ -950,10 +933,10 @@ def _launch_multi(f: torch.Tensor, out, spec: PackedSpec, n_sub: int, e,
                   table=None, feq_field=None, plan=None) -> torch.Tensor:
     """One launch of the blocked kernel (K2): ``n_sub`` steps of the
     packed ``spec`` on the CUDA state ``f`` into ``out``, masked when
-    ``ncm`` is given (with the optional ``nsm`` and ``feq_field``) over
-    cube tiles, else marched (with the columns of ``plan`` when given, a
-    :class:`.build.MarchPlan` of :func:`.build.march_candidates`; else
-    :func:`march_plan`'s)."""
+    ``ncm`` is given (with the optional ``nsm`` and ``feq_field``), over
+    the columns of ``plan`` when given (a :class:`.build.MarchPlan` of
+    :func:`.build.march_candidates` for the same masks), else of
+    :func:`march_plan`'s."""
     suffix = storage_suffix(f.dtype, dev_storage)
     if dev_storage and spec.fragment in DEV_REFUSED:
         raise NotImplementedError(
@@ -972,21 +955,17 @@ def _launch_multi(f: torch.Tensor, out, spec: PackedSpec, n_sub: int, e,
                     None if nsm is None else nsm.data_ptr(),
                     None if feq_field is None else feq_field.data_ptr(),
                     table.kinds.ctypes.data, table.values.ctypes.data]
-        dims, plan, scratch = multi_plan(f, e, n_sub, np.asarray(e).shape[0],
-                                         True, nsm is not None)
-        threads = 0  # a masked launch runs kMultiBlock threads per block
-    else:
-        dims = tuple(int(n) for n in launch_dims(f, e))
-        plan = march_plan(f, e, n_sub) if plan is None else plan
-        scratch = march_scratch(plan, f.device)
-        threads = plan.threads
+    dims = tuple(int(n) for n in launch_dims(f, e))
+    if plan is None:
+        plan = march_plan(f, e, n_sub, masked=masked, frozen=nsm is not None)
+    scratch = march_scratch(plan, f.device)
     out = check_out(out, f, f.shape, "out", f)
     launch = getattr(lib, f"lt_multi_{spec.fragment}_{spec.stencil}_"
                           f"{suffix}")
     rc = launch(f.data_ptr(), out.data_ptr(),
                 None if scratch is None else scratch.data_ptr(), *pointers,
-                *dims, int(n_sub), *plan.interior, plan.blocks, threads,
-                spec.params.ctypes.data, float(cs), f.device.index,
+                *dims, int(n_sub), *plan.interior, plan.blocks,
+                plan.threads, spec.params.ctypes.data, float(cs), f.device.index,
                 torch.cuda.current_stream(f.device).cuda_stream)
     variant = "masked_" if masked else ""
     check_launch(lib, rc, f"stream_collide ({spec.fragment}, blocked "
@@ -1242,9 +1221,8 @@ def build_fused_multi_step(simulation: "Simulation",
     has not been shown to pay on this card yet. When a span is asked for
     and the configuration cannot block (:func:`blocking_refusals`) it
     prints the reasons, as the capability probe does, and returns None;
-    the single-step kernel then runs. A span that no tile (masked) or
-    march (periodic) holds raises (:func:`.build.plan_tile`,
-    :func:`.build.plan_march`); a build or launch error is never caught.
+    the single-step kernel then runs. A span that no march holds raises
+    (:func:`.build.plan_march`); a build or launch error is never caught.
 
     ``step`` is :func:`.fused_step.fused_multi_step` bound to the launch's
     parameters (``step.params``: the gate's, with ``dev_storage`` those of
@@ -1285,15 +1263,12 @@ def build_fused_multi_step(simulation: "Simulation",
     dims = (1,) * (3 - len(dims)) + dims
     itemsize = 8 if dtype == torch.float64 and not dev_storage else 4
     masked = params.get("ncm") is not None
-    # raises past what a tile or a march holds
-    if masked:
-        plan_tile(dims, moving_axes(stencil.e), span, stencil.q, itemsize,
-                  mask_bytes(stencil.q, itemsize, True,
-                             params.get("nsm") is not None))
-    else:
-        plan_march(dims, moving_axes(stencil.e), span, span,
-                   march_values(stencil.q, stencil.d, span), itemsize,
-                   stencil.q)
+    # raises past what a march holds
+    frozen = masked and params.get("nsm") is not None
+    plan_march(dims, moving_axes(stencil.e), span, span,
+               march_values(stencil.q, stencil.d, span,
+                            keep=ring_keep(stencil.e) if frozen else 0),
+               itemsize, stencil.q, masked=masked, frozen=frozen)
     step = functools.partial(fused_multi_step, n_sub=span, fixup=fixup,
                              **params)
     step.params, step.fixup = params, fixup

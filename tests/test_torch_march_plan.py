@@ -7,7 +7,7 @@ code:
 * the planner's budgets (``build.plan_march``): every plan fits two
   blocks' share of an SM, or one block's 227 KB, or else says it runs in a
   global scratch; at full width it stores at least as much per loaded
-  cell as the cube tile (``build.plan_tile``) it replaced;
+  cell as the cube tile it replaced (:func:`cube_share`);
 * the schedule (``build.march_steps``, the kernels' documented order):
   walked with tagged ring slots for n_sub 1-4 and segments shorter and
   longer than the warm-up, every read must find the (level, plane) the
@@ -16,7 +16,8 @@ code:
   by cell, against lettuce_tpu's blocked Pallas kernel in interpret mode
   (float64, 1e-12);
 * the wrappers hand the C entries the plan's geometry (a recording stub
-  stands in for the library), and a masked K2 launch keeps the cube tile.
+  stands in for the library). The masked march has its own file,
+  tests/test_torch_masked_march.py.
 
 The CUDA kernels themselves run only on a card: ``chip_smoke.py`` phases
 26-28, 34 and 35 hold them to their plain versions there. The file takes
@@ -66,6 +67,23 @@ def k4_plan(stencil, shape, span, itemsize):
                             stencil.q, adjoint=True)
 
 
+def cube_share(dims, moving, halo, q, itemsize):
+    """The interior share of the cube tile the blocked kernel ran before
+    the march: of the interiors up to 32 x 32 x 128,
+    the largest share of its tile whose q values per cell fit two blocks
+    per SM, else one block, else a 4 MB scratch."""
+    halos = [halo if m else 0 for m in moving]
+    b = np.meshgrid(*[np.arange(1, min(int(n), cap) + 1)
+                      for n, cap in zip(dims, (32, 32, 128))], indexing="ij")
+    cells = np.prod([x + 2 * h for x, h in zip(b, halos)], axis=0)
+    share = np.prod(b, axis=0) / cells
+    for budget in (build.sm_budget(2), build.TILE_SMEM_BYTES, 4 << 20):
+        fits = cells * q * itemsize <= budget
+        if fits.any():
+            return float(share[fits].max())
+    return 0.0
+
+
 def fits_budget(plan):
     """The plan's bytes (rings and grid offsets) and threads fit the
     budget it names: two blocks of 256 threads per SM beside the 1 KB the
@@ -108,10 +126,9 @@ def test_march_plan_fits_its_budget(name, span, dtype):
                                  for n, b in zip(dims, plan.interior)]))
             assert plan.units == units and 1 <= plan.blocks <= units, what
             if kind == "K2" and shape in FULL_WIDTH:
-                cube = build.plan_tile(dims, build.moving_axes(stencil.e),
-                                       span, stencil.q, itemsize)
-                cube_share = np.prod(cube.interior) / cube.cells
-                assert plan.share >= cube_share, (what, cube)
+                cube = cube_share(dims, build.moving_axes(stencil.e), span,
+                                  stencil.q, itemsize)
+                assert plan.share >= cube, (what, cube)
 
 
 def test_march_plan_without_shared_memory_takes_the_scratch():
@@ -476,24 +493,6 @@ def test_periodic_k2_launch_takes_the_march_plan(recorder, n_sub, dtype,
         assert args[2] is None and args[3:8] == (None,) * 5
         assert args[8:12] == (12, 10, 14, n_sub)
         assert args[12:17] == (*want.interior, want.blocks, want.threads)
-
-
-def test_masked_k2_launch_keeps_the_cube_tile(recorder):
-    """A masked K2 launch hands the entry plan_tile's interior and tiles,
-    the codes' bytes counted."""
-    stencil = D2Q9()
-    f = torch.zeros((9, 40, 24), dtype=torch.float32)
-    ncm = torch.zeros((40, 24), dtype=torch.uint8)
-    spec = sc.pack_spec(("bgk", 1.2), stencil.e, stencil.w,
-                        stencil.opposite)
-    sc._launch_multi(f, None, spec, 2, stencil.e, stencil.cs, False,
-                     ncm=ncm, table=[("collide", None)])
-    ((name, args),) = recorder.calls
-    tile = build.plan_tile((1, 40, 24), (False, True, True), 2, 9, 4,
-                           build.mask_bytes(9, 4, True, False))
-    assert name == "lt_multi_bgk_d2q9_f32" and args[3] == ncm.data_ptr()
-    assert args[8:12] == (1, 40, 24, 2)
-    assert args[12:16] == (*tile.interior, tile.blocks)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

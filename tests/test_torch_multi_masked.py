@@ -113,20 +113,6 @@ def test_wrapper_takes_masks_at_any_span():
     assert dict(sc.stream_collide.multi_launches) == before
 
 
-@pytest.mark.parametrize("span", [2, 3, 4])
-@pytest.mark.parametrize("masked,frozen", [(False, False), (True, False),
-                                           (True, True)])
-def test_tile_plan_leaves_room_for_two_blocks_per_sm(span, masked, frozen):
-    """F9: a tile chosen for two blocks per SM fits twice in the SM's
-    228 KB beside the 1 KB the runtime reserves per block. Half of 227 KB
-    did not: the masked D2Q9 float32 tile at span 2 (115,884 B) ran one
-    block per SM."""
-    from lettuce_tpu_torch.ops.cuda.build import mask_bytes, plan_tile
-    plan = plan_tile((1, 2048, 2048), (False, True, True), span, 9, 4,
-                     mask_bytes(9, 4, masked, frozen))
-    assert not plan.scratch and 2 * (plan.bytes + 1024) <= 228 * 1024
-
-
 # ----------------------------------------------------------------------
 # (b) the blocked Simulation of a bounded flow against lettuce_tpu's
 # ----------------------------------------------------------------------
