@@ -219,7 +219,21 @@ Phases:
      and bfloat16 at x2): every candidate of build.march_candidates (two
      budgets, narrow and wide rows, more segments) against the default
      plan's output, timed in turns with K1a; ms per launch and per step,
-     the share of the saxpy, the default and the fastest.
+     the share of the saxpy, the default and the fastest;
+ 36. the single-step kernels' cell-flat launch (build.plan_cells): every
+     masked 16-bit instance through its shipped cells a thread (vectors,
+     nothing frozen) against its plain version on the grids of phase 2;
+     then row by row, each candidate bitwise equal to the default plan's
+     output, event ms (200 launches, in turns with the plain version),
+     torch.profiler's device ms per launch, the bound at 3.35 TB/s and at
+     the saxpy: K1c hermite27 masked on the 3D obstacle at 96x48x48 and
+     320x160x160 and periodic at 256^3 (the __launch_bounds__ minimum
+     blocks per SM 1-4, 32-bit division), K1a (32-bit division), K1e
+     bgk_force masked on the Poiseuille 2048^2 cell (1, 2, 4 cells a
+     thread), K3c, K1d@16, K1f and K3@16 masked on obstacle2d_2048, K1c
+     none/lallemand/dellar masked on it, and BGK masked per stencil and
+     16-bit storage at 1, 2 and 4 cells a thread (the obstacles at
+     2048x1024 and 320x160x160), the fastest printed beside the shipped.
 Phases 26-28 and 34 also print each launch's march plan, phase 26 how
 many float32 and float64 instance-spans are bitwise equal to n_sub K1
 launches.
@@ -234,6 +248,7 @@ float32, the larger), and last ``{"ok": true, "device": {"platform":
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -1215,8 +1230,9 @@ def cavity_gate(simulation):
 
 def profiled_device_ms(fn):
     """(device ms, device launches) of ``fn()`` under ``torch.profiler``,
-    and the device ms of the masked kernels by name; None when the
-    profiler saw no device activity."""
+    and the device ms and the launches the profiler recorded of every
+    kernel by name (a template's name without its arguments); None when
+    the profiler saw no device activity."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1226,15 +1242,17 @@ def profiled_device_ms(fn):
               if e.device_type == torch.autograd.DeviceType.CUDA]
     if not device:
         return None
-    by_name = {}
+    by_name, counts = {}, {}
     for e in device:
-        # "void (anonymous namespace)::masked_..._kernel<...>(...)"
+        # "void lt::masked_stream_collide_kernel<...>(...)"
         name = re.search(r"(\w+)<", e.name)
-        if name and name.group(1).startswith("masked_"):
-            by_name[name.group(1)] = (by_name.get(name.group(1), 0.0)
-                                      + e.time_range.elapsed_us() / 1e3)
+        name = name.group(1) if name else e.name
+        by_name[name] = (by_name.get(name, 0.0)
+                         + e.time_range.elapsed_us() / 1e3)
+        counts[name] = counts.get(name, 0) + 1
     return (sum(e.time_range.elapsed_us() for e in device) / 1e3,
-            len(device), {k: round(v, 4) for k, v in by_name.items()})
+            len(device), {k: round(v, 4) for k, v in by_name.items()},
+            counts)
 
 
 def phase12_profile(card):
@@ -1293,11 +1311,11 @@ def phase12_profile(card):
         print("phase 12: obstacle step device time not measured (the "
               "profiler saw no device activity)")
     else:
-        device_ms, launches, by_name = profiled
+        device_ms, launches, by_name, _ = profiled
         print(f"phase 12: obstacle step under torch.profiler (10 steps): "
               f"{launches / 10:.1f} device launches and "
               f"{device_ms / 10:.4f} ms of device time per step, "
-              f"masked kernels {by_name}; unprofiled wall "
+              f"kernels {by_name}; unprofiled wall "
               f"{wall_step_ms:.4f} ms per step: device idle "
               f"{1 - device_ms / 10 / wall_step_ms:.1%} ({card})")
     f0 = simulation.flow.f.detach().clone().requires_grad_(True)
@@ -1317,10 +1335,10 @@ def phase12_profile(card):
     if profiled is None:
         print("phase 12: gradient device time not measured")
     else:
-        device_ms, launches, by_name = profiled
+        device_ms, launches, by_name, _ = profiled
         print(f"phase 12: {SEGMENT_STEPS}-step obstacle gradient under "
               f"torch.profiler: {launches} device launches, "
-              f"{device_ms:.4f} ms of device time, masked kernels "
+              f"{device_ms:.4f} ms of device time, kernels "
               f"{by_name}; unprofiled wall {wall_grad_ms:.4f} ms: device "
               f"idle {1 - device_ms / wall_grad_ms:.1%} ({card})")
     del simulation, f, out, f0, segment
@@ -4424,6 +4442,553 @@ def time_candidates(groups, card, saxpy_gbps):
         torch.cuda.empty_cache()
 
 
+# ----------------------------------------------------------------------
+# the single-step kernels' launch: cell-flat, several cells a thread in
+# the masked 16-bit instances
+# ----------------------------------------------------------------------
+HERMITE_REPLACES = ("lettuce_tpu/ops/pallas/stream_collide.py:"
+                    f"{FRAGMENT_REPLACES['mrt_hermite27']}")
+# the kernels of one single-step or adjoint launch, by template name
+K1_KERNELS = ("stream_collide_kernel", "masked_stream_collide_kernel",
+              "masked_cells_kernel")
+K3_KERNELS = ("adjoint_kernel", "masked_adjoint_kernel")
+
+
+def k1_launcher(params, f, out, plan=None, u_out=None):
+    """A single-step launch of the gate's ``params`` on ``f`` into
+    ``out`` over ``plan`` (the default plan when None)."""
+    import lettuce_tpu_torch.ops.cuda.stream_collide as sc
+    spec = params.get("collision_spec") or ("bgk", params["tau_inv"])
+
+    def launch():
+        sc._launch(f, out, u_out, spec, params["e"], params["w"],
+                   params["opposite"], params["cs"],
+                   params.get("dev_storage", False), ncm=params.get("ncm"),
+                   nsm=params.get("nsm"), table=params.get("table"),
+                   feq_field=params.get("feq_field"), plan=plan)
+    return launch
+
+
+def k1_plans(params, f, out, fragment, u_out=None, cells=(None,),
+             divisions=(None,), min_blocks=(None,)):
+    """{label: plan} of the launch's candidates, the default first."""
+    import lettuce_tpu_torch.ops.cuda.stream_collide as sc
+    plans = {}
+    for c in cells:
+        for division in divisions:
+            for m in min_blocks:
+                plan = sc.cell_plan(
+                    f, params["e"], fragment, params.get("ncm") is not None,
+                    params.get("dev_storage", False),
+                    frozen=params.get("nsm") is not None,
+                    tensors=(out, params.get("ncm"), u_out), cells=c,
+                    division=division, min_blocks=m)
+                label = (f"c{plan.cells}{' vec' if plan.vectors else ''} "
+                         f"{plan.division} m{plan.min_blocks}")
+                plans.setdefault(label, plan)
+    return plans
+
+
+def device_ms_per_launch(fn, names, launches=50):
+    """The device ms per launch of ``fn`` under torch.profiler: the mean
+    over the launches it recorded of the kernels named in ``names`` (it
+    can drop records when several profiles run in one process), or None
+    when it recorded none."""
+    profiled = profiled_device_ms(lambda: [fn() for _ in range(launches)])
+    if profiled is None:
+        return None
+    _, _, by_name, counts = profiled
+    seen = sum(counts.get(k, 0) for k in names)
+    return sum(by_name.get(k, 0.0) for k in names) / seen if seen else None
+
+
+def time_in_turns_many(kernels, plain, kernel_repeats=200, plain_repeats=3):
+    """{label: (first, second)} CUDA-event ms of each kernel and the plain
+    version's, in turns: plain, each kernel, each kernel again in reverse,
+    plain."""
+    for fn in kernels.values():
+        fn()
+    if plain is not None:
+        plain()
+    first = {} if plain is None else {"plain": cuda_ms(plain, plain_repeats)}
+    for label, fn in kernels.items():
+        first[label] = cuda_ms(fn, kernel_repeats)
+    second = {}
+    for label, fn in reversed(kernels.items()):
+        second[label] = cuda_ms(fn, kernel_repeats)
+    if plain is not None:
+        second["plain"] = cuda_ms(plain, plain_repeats)
+    return {k: (first[k], second[k]) for k in first}
+
+
+def k1_row(what, card, saxpy_gbps, cells, bytes_per_update, kernels, plain,
+           names=K1_KERNELS, plain_repeats=3):
+    """Time a row's candidates in turns with the plain version, read each
+    one's device ms, print them beside the bound; returns {label: (event
+    ms, device ms)} and the plain ms."""
+    times = time_in_turns_many(kernels, plain, plain_repeats=plain_repeats)
+    bound_ms = cells * bytes_per_update / HBM_BYTES_PER_S * 1e3
+    saxpy_ms = cells * bytes_per_update / (saxpy_gbps * 1e9) * 1e3
+    result = {}
+    parts = []
+    for label, fn in kernels.items():
+        event = sum(times[label]) / 2
+        device = device_ms_per_launch(fn, names)
+        result[label] = (event, device)
+        dev = "not measured" if device is None else f"{device:.4f}"
+        share = "" if device is None else f", {saxpy_ms / device:.1%} " \
+                                          f"of the saxpy"
+        parts.append(f"{label}: event {times[label][0]:.4f} / "
+                     f"{times[label][1]:.4f} ms, device {dev} ms{share}")
+    plain_ms = None
+    if plain is not None:
+        plain_ms = sum(times["plain"]) / 2
+    print(f"phase 36: {what}: " + "; ".join(parts)
+          + (f"; plain {times['plain'][0]:.4f} / {times['plain'][1]:.4f} ms"
+             if plain is not None else "")
+          + f"; bound {bound_ms:.4f} ms at 3.35 TB/s, {saxpy_ms:.4f} at the "
+            f"saxpy, {bytes_per_update} B/update ({card})")
+    return result, plain_ms
+
+
+def check_candidates_equal(kernels, outs, what):
+    """Run each candidate once; every output bitwise equal to the
+    first's; the outputs' clones."""
+    got = []
+    for fn in kernels.values():
+        for out in outs:
+            out.fill_(float("nan"))
+        fn()
+        torch.cuda.synchronize()
+        got.append([out.clone() for out in outs])
+    for label, outs_k in zip(kernels, got):
+        for a, b in zip(got[0], outs_k):
+            check(torch.equal(a.view(torch.int8), b.view(torch.int8)),
+                  f"{what}: candidate {label} differs from the default")
+    return got[0]
+
+
+def obstacle3d_simulation(stencil, shape, make_collision, dtype=None):
+    """The 3D obstacle of phase 17 (a sphere of radius 0.05 ny at 0.25 nx
+    in a channel, Re 100, Ma 0.1) at ``shape`` on the card, float32."""
+    import lettuce_tpu_torch as lt
+    context = lt.Context(device="cuda", dtype=torch.float32,
+                         use_native=True)
+    flow = lt.Obstacle(context, list(shape), reynolds_number=100,
+                       mach_number=0.1, domain_length_x=float(shape[0]),
+                       stencil=stencil)
+    centre = [0.25 * shape[0]] + [0.5 * n for n in shape[1:]]
+    r = 0.05 * shape[1]
+    flow.mask = (sum((x - c) ** 2 for x, c in zip(flow.grid, centre))
+                 < r ** 2).cpu().numpy()
+    flow.initialize()
+    return lt.Simulation(flow, make_collision(flow), [])
+
+
+def phase36_cell_launch(card, saxpy_gbps):
+    """K1's cell-flat launch and its masked 16-bit instances' several
+    cells a thread, row by row: event ms (200 launches, in turns with the
+    plain version), torch.profiler's device ms per launch, the bound and
+    the share of the saxpy. Returns the rows for the kernels line."""
+    import lettuce_tpu_torch as lt
+    from lettuce_tpu_torch.ops.cuda import build
+    import lettuce_tpu_torch.ops.cuda.stream_collide as sc
+    rows = {}
+
+    def hermite(flow):
+        return lt.MRTCollision(
+            lt.D3Q27Hermite(flow.stencil, flow.context),
+            [1.0] * 4 + [flow.units.relaxation_parameter_lu] * 6
+            + [1.2] * 17, flow.context)
+
+    # (a) hermite27 masked on the 3D obstacle, and periodic at 256^3:
+    # __launch_bounds__ minimum blocks per SM, and the division
+    blocks = build.MIN_BLOCKS["mrt_hermite27", "d3q27", "f32"][-1]
+    for shape in ((96, 48, 48), (320, 160, 160), (256, 256, 256)):
+        label = "x".join(map(str, shape))
+        if shape[0] == 256:
+            flow = lt.TaylorGreenVortex(
+                lt.Context(device="cuda", dtype=torch.float32,
+                           use_native=True), 256, 1600, 0.05,
+                stencil=lt.D3Q27(), initialize_fneq=False)
+            simulation = lt.Simulation(flow, hermite(flow), [])
+            kind, bytes_per_update = "periodic", 27 * 4 * 2
+        else:
+            simulation = obstacle3d_simulation(lt.D3Q27(), shape, hermite)
+            kind, bytes_per_update = "masked obstacle", 27 * 4 * 2 + 1
+        reset_launch_counts()
+        simulation(4)
+        torch.cuda.synchronize()
+        launched = fragment_launches()
+        key = ("masked_" if kind != "periodic" else "") + "mrt_hermite27"
+        check(launched == {key: 4}, f"hermite27 {label}: launches "
+                                    f"{launched}")
+        params = simulation._kernel_params
+        f = simulation.flow.f.clone()
+        out = torch.empty_like(f)
+        plans = k1_plans(params, f, out, "mrt_hermite27",
+                         divisions=(None, "div32"),
+                         min_blocks=(None, *blocks))
+        kernels = {k: k1_launcher(params, f, out, p)
+                   for k, p in plans.items()}
+        got = check_candidates_equal(kernels, [out], f"hermite27 {label}")
+        ref = sc.stream_collide_plain(f, **params)
+        err = (got[0] - ref).abs().max().item()
+        check(err <= ATOL[torch.float32], f"hermite27 {label}: {err}")
+        del ref, got
+        timed, plain_ms = k1_row(
+            f"K1c hermite27 {kind} D3Q27 {label} f32, |kernel - plain| "
+            f"{err:.3e}", card, saxpy_gbps, f[0].numel(), bytes_per_update,
+            kernels, lambda: sc.stream_collide_plain(f, **params),
+            plain_repeats=1 if shape[0] > 96 else 3)
+        rows[f"hermite27 {kind} {label}"] = dict(
+            key=key, launches=launched.get(key, 0), err=err, timed=timed,
+            plain_ms=plain_ms, cells=f[0].numel(), bytes=bytes_per_update,
+            q=27, default=next(iter(plans)))
+        del simulation, f, out, kernels
+        torch.cuda.empty_cache()
+
+    # (b) K1a, the main path: the division
+    f, tau_inv = tgv_state(lt.D3Q19(), (256,) * 3, torch.float32, 36)
+    out = torch.empty_like(f)
+    params = dict(e=lt.D3Q19().e, w=lt.D3Q19().w,
+                  opposite=lt.D3Q19().opposite, cs=float(lt.D3Q19().cs),
+                  tau_inv=tau_inv)
+    plans = k1_plans(params, f, out, "bgk", divisions=(None, "div32"))
+    kernels = {k: k1_launcher(params, f, out, p) for k, p in plans.items()}
+    check_candidates_equal(kernels, [out], "K1a 256^3")
+    timed, _ = k1_row("K1a BGK D3Q19 256^3 f32", card, saxpy_gbps,
+                      f[0].numel(), BYTES_PER_UPDATE, kernels,
+                      lambda: sc.stream_collide_plain(f, **params),
+                      plain_repeats=1)
+    rows["k1a 256^3"] = dict(timed=timed)
+    del f, out, kernels
+    torch.cuda.empty_cache()
+
+    # (c) K1e bgk_force masked on the Poiseuille 2048^2 cell, bf16-dev
+    cell, key, make_flow, make_collision = fragment_cells()[-1]
+    context = lt.Context(device="cuda", dtype=torch.float32,
+                         use_native=True)
+    flow = make_flow(context)
+    simulation = lt.Simulation(flow, make_collision(flow), [],
+                               half_storage=True)
+    reset_launch_counts()
+    simulation(4)
+    torch.cuda.synchronize()
+    check(half_launches() == {"masked_bgk_force_bf16_dev": 4},
+          f"{cell}: half launches {half_launches()}")
+    params = simulation._half_params
+    g = simulation._encode(flow.f)
+    out = torch.empty_like(g)
+    plans = k1_plans(params, g, out, "bgk_force", cells=(None, 1, 2, 4))
+    kernels = {k: k1_launcher(params, g, out, p) for k, p in plans.items()}
+    got = check_candidates_equal(kernels, [out], cell)
+    _, _, err = check_storage(got[0], sc.stream_collide_plain(g, **params),
+                              "bf16_dev", f"{cell} bf16-dev")
+    timed, plain_ms = k1_row(
+        f"K1e bgk_force masked {cell} bf16-dev, max |kernel - plain| "
+        f"{err:.3e}", card,
+        saxpy_gbps, g[0].numel(), 2 * 9 * 2 + 1, kernels,
+        lambda: sc.stream_collide_plain(g, **params))
+    rows["bgk_force bf16_dev poiseuille"] = dict(timed=timed)
+    del simulation, flow, g, out, kernels
+    torch.cuda.empty_cache()
+
+    # (d) the obstacle: K1d@16 and K1f masked (c candidates), K3@16 and
+    # K3c masked, K1c none/lallemand/dellar masked
+    from lettuce_tpu_torch.ops.cuda import adjoint
+    f32 = obstacle_simulation(True)
+    params = f32._kernel_params
+    f = f32.flow.f.clone()
+    cells = f[0].numel()
+    gct = torch.as_tensor(np.random.default_rng(36).standard_normal(
+        tuple(f.shape)), dtype=torch.float32, device="cuda")
+    forward, _, backward, backward_plain, _, _, _, _ = kernel_pair(
+        params, f, gct)
+    timed, _ = k1_row("K3c BGK masked adjoint obstacle2d_2048 f32", card,
+                      saxpy_gbps, cells, MASKED_BYTES_PER_UPDATE + 2 * 4,
+                      {"default": backward}, backward_plain,
+                      names=K3_KERNELS)
+    rows["k3c obstacle"] = dict(timed=timed)
+    xb = f.to(torch.bfloat16)
+    gb = gct.to(torch.bfloat16)
+    outb = torch.empty_like(xb)
+    ub = torch.empty((2, *f.shape[1:]), dtype=torch.float32, device="cuda")
+    bparams = dict(params)
+    if bparams.get("feq_field") is not None:
+        bparams["feq_field"] = bparams["feq_field"].to(torch.bfloat16)
+    for emit, what in ((True, "K1d@16 BGK masked emit-u"),
+                       (False, "K1f BGK masked")):
+        u_out = ub if emit else None
+        plans = k1_plans(bparams, xb, outb, "bgk", u_out=u_out,
+                         cells=(None, 1, 2, 4))
+        kernels = {k: k1_launcher(bparams, xb, outb, p, u_out)
+                   for k, p in plans.items()}
+        got = check_candidates_equal(
+            kernels, [outb] + ([ub] if emit else []), what)
+        ref = sc.stream_collide_plain(xb, **bparams, emit_u=emit)
+        ulps, _, _ = check_storage(got[0], ref[0] if emit else ref, "bf16",
+                                   f"{what} obstacle")
+        if emit:
+            u_err = (got[1] - ref[1]).abs().max().item()
+            check(u_err <= ATOL[torch.float32], f"{what}: u {u_err}")
+        timed, _ = k1_row(
+            f"{what} obstacle2d_2048 bf16, {ulps:.2f} ulps", card,
+            saxpy_gbps, cells, 2 * 9 * 2 + 1 + (2 * 4 if emit else 0),
+            kernels, lambda: sc.stream_collide_plain(xb, **bparams,
+                                                     emit_u=emit))
+        rows[f"{what} obstacle"] = dict(timed=timed)
+    # K3@16: the adjoint of a bfloat16 state, u in float32
+    sc.stream_collide(xb, **bparams, out=outb, u_out=ub)
+    ctb = torch.empty_like(xb)
+    timed, _ = k1_row(
+        "K3@16 BGK masked adjoint obstacle2d_2048 bf16", card, saxpy_gbps,
+        cells, 2 * 9 * 2 + 1 + 2 * 4,
+        {"default": lambda: adjoint.stream_collide_adjoint(
+            gb, ub, **bparams, out=ctb)},
+        lambda: adjoint.stream_collide_adjoint_plain(gb, ub, **bparams),
+        names=K3_KERNELS)
+    rows["k3@16 obstacle"] = dict(timed=timed)
+    del f32, f, gct, xb, gb, outb, ub, ctb
+    torch.cuda.empty_cache()
+    for fragment in ("none", "mrt_lallemand", "mrt_dellar"):
+        simulation = obstacle_simulation(
+            True, make_collision=lambda flow: fragment_collisions(
+                flow, flow.units.relaxation_parameter_lu)[fragment])
+        params = simulation._kernel_params
+        f = simulation.flow.f.clone()
+        out = torch.empty_like(f)
+        timed, _ = k1_row(
+            f"K1c {fragment} masked obstacle2d_2048 f32", card, saxpy_gbps,
+            cells, MASKED_BYTES_PER_UPDATE,
+            {"default": k1_launcher(params, f, out)},
+            lambda: sc.stream_collide_plain(f, **params))
+        rows[f"{fragment} obstacle"] = dict(timed=timed)
+        del simulation, f, out
+    torch.cuda.empty_cache()
+
+    # (e) cells a thread per stencil and storage: BGK masked on the
+    # obstacles (2048x1024 D2Q9, 320x160x160 D3Q15/D3Q19/D3Q27), each
+    # candidate bitwise equal to the one-cell kernel, that one within one
+    # storage ulp of the plain version
+    best = {}
+    for stencil in (lt.D2Q9(), lt.D3Q15(), lt.D3Q19(), lt.D3Q27()):
+        name = type(stencil).__name__
+        if stencil.d == 2:
+            simulation = obstacle_simulation(True)
+        else:
+            simulation = obstacle3d_simulation(
+                stencil, (320, 160, 160),
+                lambda flow: lt.BGKCollision(
+                    flow.units.relaxation_parameter_lu))
+        params = dict(simulation._kernel_params)
+        f32 = simulation.flow.f
+        for storage, (dtype, dev) in HALF_STORAGES.items():
+            x = storage_state(f32, stencil.w, storage)
+            p = dict(params, dev_storage=dev)
+            if p.get("feq_field") is not None:
+                p["feq_field"] = storage_state(p["feq_field"], stencil.w,
+                                               storage)
+            out = torch.empty_like(x)
+            plans = k1_plans(p, x, out, "bgk", cells=(1, 2, 4))
+            kernels = {k: k1_launcher(p, x, out, pl)
+                       for k, pl in plans.items()}
+            got = check_candidates_equal(kernels, [out],
+                                         f"{name} {storage}")
+            ulps, _, _ = check_storage(
+                got[0], sc.stream_collide_plain(x, **p), storage,
+                f"{name} {storage} masked")
+            times = time_in_turns_many(kernels, None)
+            device = {k: device_ms_per_launch(fn, K1_KERNELS)
+                      for k, fn in kernels.items()}
+            line = []
+            for label, (a, b) in times.items():
+                dev_ms = device[label]
+                line.append(f"{label} event {a:.4f} / {b:.4f}, device "
+                            + ("not measured" if dev_ms is None
+                               else f"{dev_ms:.4f}"))
+            # the device time decides where the profiler read one: the
+            # 2D launches are short enough for host time to show in events
+            fastest = min(times, key=lambda k: (
+                device[k] if None not in device.values()
+                else sum(times[k])))
+            best[name.lower(), storage] = plans[fastest].cells
+            print(f"phase 36: BGK masked obstacle {name} "
+                  f"{'x'.join(map(str, x.shape[1:]))} {storage}, "
+                  f"{ulps:.2f} ulps: ms " + "; ".join(line)
+                  + f"; fastest {fastest}, shipped "
+                    f"{build.SHIPPED_CELLS[name.lower(), storage]} "
+                    f"({card})")
+            del x, out, kernels
+        del simulation, f32
+        torch.cuda.empty_cache()
+    print(f"phase 36: fastest cells a thread per (stencil, storage): "
+          f"{best}; shipped {build.SHIPPED_CELLS}")
+    return rows
+
+
+def phase36_vectors_vs_plain():
+    """Every masked 16-bit instance (each fragment, stencil and storage)
+    through the vector path, no population frozen, on the grids of phase 2,
+    against its plain version: one storage ulp (deviations plus the
+    floor), one launch each, at the cells it ships."""
+    import lettuce_tpu_torch as lt
+    import lettuce_tpu_torch.ops.cuda.stream_collide as sc
+    count = 0
+    worst = 0.0
+    seed = 3600
+    for stencil, shape in phase2_cases():
+        context = lt.Context(device="cuda", dtype=torch.float32,
+                             use_native=False)
+        flow = lt.TaylorGreenVortex(context, list(shape), 1600, 0.05,
+                                    stencil=stencil, initialize_fneq=False)
+        collisions = {"bgk": lt.BGKCollision(FRAGMENT_TAU),
+                      **fragment_collisions(flow, FRAGMENT_TAU)}
+        for fragment, collision in collisions.items():
+            spec = fragment_spec(flow, collision)
+            args = (stencil.e, stencil.w, stencil.opposite, stencil.cs,
+                    spec[1] if fragment == "bgk" else None)
+            for storage, (dtype, dev) in HALF_STORAGES.items():
+                if dev and fragment in sc.DEV_REFUSED:
+                    continue
+                seed += 1
+                f32, _ = tgv_state(stencil, shape, torch.float32, seed)
+                masks = bounded_case(stencil, shape, torch.float32, seed)[1]
+                masks["nsm"] = None
+                masks["feq_field"] = storage_state(masks["feq_field"],
+                                                   stencil.w, storage)
+                x = storage_state(f32, stencil.w, storage)
+                out = torch.empty_like(x)
+                plan = sc.cell_plan(x, stencil.e, fragment, True, dev,
+                                    tensors=(out, masks["ncm"]))
+                check(plan.vectors or plan.cells == 1,
+                      f"{fragment} {storage}: no vectors in {plan}")
+                got = sc.stream_collide(x, *args, **masks, out=out,
+                                        collision_spec=spec,
+                                        dev_storage=dev)
+                ref = sc.stream_collide_plain(x, *args, **masks,
+                                              collision_spec=spec,
+                                              dev_storage=dev)
+                floor = KBC_DEV_FLOOR if fragment == "kbc" else DEV_FLOOR
+                check_storage(got, ref, storage,
+                              f"{fragment} {type(stencil).__name__} "
+                              f"{storage} vectors", floor)
+                ulps, floored, _ = storage_ulps(got, ref, floor)
+                worst = max(worst, floored if dev else ulps)
+                count += 1
+    print(f"phase 36: {count} masked 16-bit instances through their "
+          f"shipped cells a thread, nothing frozen, against plain: worst "
+          f"{worst:.2f} storage ulps (deviations with the floor)")
+
+
+# one tree's single-step kernels, timed in a process of their own: K1a,
+# K1e BGK and K1c reg D3Q27 at 256^3, K1c hermite27 masked on the 3D
+# obstacle at 96x48x48; only their libraries are built
+_SINGLE_STEP_TIMER = r"""
+import json, sys
+import numpy as np, torch
+sys.path.insert(0, ".")
+from lettuce_tpu_torch.ops.cuda import build
+sources = ("stream_collide", "half_stream_collide", "collide_moments",
+           "collide_mrt")
+build.SOURCES = sources
+build.build_libraries.__defaults__ = (sources,)
+import lettuce_tpu_torch as lt
+import lettuce_tpu_torch.simulation as simulation_module
+import lettuce_tpu_torch.ops.cuda.adjoint as adjoint
+import lettuce_tpu_torch.ops.cuda.stream_collide as sc
+simulation_module.load_libraries = lambda: None
+adjoint.load_libraries = lambda: None
+import chip_smoke as c
+ms = {}
+ctx = lt.Context(device="cuda", dtype=torch.float32, use_native=True)
+cells = {cell: (make_flow, make_collision)
+         for cell, _, make_flow, make_collision in c.fragment_cells()}
+
+
+def hermite(flow):
+    return lt.MRTCollision(lt.D3Q27Hermite(flow.stencil, flow.context),
+                           [1.0] * 4 + [flow.units.relaxation_parameter_lu]
+                           * 6 + [1.2] * 17, flow.context)
+
+
+def reg(context):
+    make_flow, make_collision = cells["reg3d_256_d3q27"]
+    flow = make_flow(context)
+    return lt.Simulation(flow, make_collision(flow), [])
+
+
+for name, make, half in (
+        ("K1a D3Q19 256^3", lambda: c.tgv256(ctx), False),
+        ("K1e BGK D3Q19 256^3 bf16-dev", lambda: c.tgv256(ctx), True),
+        ("K1c reg D3Q27 256^3", lambda: reg(ctx), False),
+        ("K1c hermite27 masked 96x48x48", lambda: c.obstacle3d_simulation(
+            lt.D3Q27(), (96, 48, 48), hermite), False)):
+    sim = make()
+    params = dict(sim._kernel_params)
+    f = sim.flow.f.clone()
+    if half:
+        params["dev_storage"] = True
+        f = sc.encode_deviations(f, params["w"])
+    out = torch.empty_like(f)
+    c.cuda_ms(lambda: sc.stream_collide(f, **params, out=out), 20)
+    ms[name] = c.cuda_ms(lambda: sc.stream_collide(f, **params, out=out),
+                         200)
+    del sim, f, out
+    torch.cuda.empty_cache()
+print(json.dumps(ms))
+"""
+
+
+def compare_single_step(parent: str):
+    """The single-step kernels of the parent commit's tree at ``parent``
+    (a directory holding its checkout) and of this one, each timed in a
+    process of its own in turns: parent, this, this, parent; ms per
+    launch by CUDA events (200 launches). Not run by main(): a checkout
+    holds no parent. Run it as
+    ``python3 -c "import chip_smoke as c; c.compare_single_step('DIR')"``
+    after unpacking the parent commit into DIR."""
+    card = phase0_card()
+    here = os.path.dirname(os.path.abspath(__file__))
+    readings = []
+    # the parent's process takes this file's helpers, beside its package
+    shutil.copy(os.path.join(here, "chip_smoke.py"),
+                os.path.join(parent, "chip_smoke_timer.py"))
+    for label, root in (("parent", parent), ("this", here), ("this", here),
+                        ("parent", parent)):
+        timer = _SINGLE_STEP_TIMER
+        if root != here:
+            timer = timer.replace("import chip_smoke as c",
+                                  "import chip_smoke_timer as c")
+        run = subprocess.run([sys.executable, "-c", timer], cwd=root,
+                             capture_output=True, text=True)
+        check(run.returncode == 0, f"{label} timer: {run.stderr[-2000:]}")
+        readings.append((label, json.loads(run.stdout.strip()
+                                           .splitlines()[-1])))
+    for name in readings[0][1]:
+        print(f"compare: {name}: ms per launch, parent / this / this / "
+              f"parent: " + " / ".join(f"{r[name]:.4f}"
+                                       for _, r in readings)
+              + f" ({card})")
+
+
+def cell_launch_entries(rows):
+    """The hermite27 rows of phase 36 (the obstacle at 96x48x48 and
+    320x160x160, periodic 256^3): their default plan's event ms."""
+    entries = []
+    for label, row in rows.items():
+        if not label.startswith("hermite27"):
+            continue
+        ms, device_ms = row["timed"][row["default"]]
+        entries.append(kernel_entry(
+            f"stream_collide_{row['key']}[{label.split(' ', 1)[1]}]",
+            "lettuce_tpu_torch/csrc/collide_mrt.cu", HERMITE_REPLACES,
+            row["launches"], row["err"], ms, row["plain_ms"], row["cells"],
+            row["bytes"], row["q"] * OPS_PER_POPULATION["mrt_hermite27"],
+            device_ms=device_ms))
+    return entries
+
+
 def half_gradient_entries(worst, runs, blocked):
     """The kernels-line entries of a 16-bit state's gradient: per cell of
     phase 33 its K1d at 16 bits (the emit-u forward; the forward of the
@@ -4566,6 +5131,7 @@ def ptxas_summary():
     build/lettuce_tpu_torch/ptxas_summary.txt."""
     from lettuce_tpu_torch.ops.cuda import build
     rows = []
+    half_spills = []
     for source in build.SOURCES:
         log = build.ptxas_log(source)
         if not log.exists():
@@ -4589,9 +5155,9 @@ def ptxas_summary():
                 per_source.append((kernel, int(m.group(1)), *spill))
                 kernel = None
         rows += [(source, *r) for r in per_source]
-        if source.startswith("half_"):
-            check(per_source and not any(r[2] or r[3] for r in per_source),
-                  f"{source}: an instance spills (or no ptxas report)")
+        if source.startswith("half_") and (
+                not per_source or any(r[2] or r[3] for r in per_source)):
+            half_spills.append(source)
         # the blocked sources hold a periodic and a masked march per entry
         kinds = ([("periodic", lambda k: "masked" not in k),
                   ("masked", lambda k: "masked_march_kernel" in k)]
@@ -4617,9 +5183,31 @@ def ptxas_summary():
                           f"registers, {stored} B spilled; "
                           f"{65536 // (regs * 128)} blocks of 128 threads "
                           f"fit an SM's registers")
+    # K1's launch candidates: hermite27's minimum blocks per SM, and the
+    # masked 16-bit kernels by cells a thread
+    for kernel, regs, stored, _ in (r[1:] for r in rows
+                                    if r[0] == "collide_mrt"):
+        m = re.search(r"(stream_collide_kernel)INS_3MrtINS_5D3Q27EfLi3EEENS_"
+                      r"4SameIfEELb[01]ELi(\d)E", kernel)
+        if m:
+            print(f"phase 1: hermite27 D3Q27 float32 "
+                  f"{'masked' if 'masked' in kernel else 'periodic'}, "
+                  f"__launch_bounds__(128, {m.group(2)}): {regs} registers, "
+                  f"{stored} B spilled")
+    for cells in (2, 4):
+        chosen = [r for r in rows if "masked_cells_kernel" in r[1]
+                  and re.search(rf"Lb[01]ELi{cells}EEEv", r[1])]
+        if chosen:
+            print(f"phase 1: {len(chosen)} masked 16-bit kernels of "
+                  f"{cells} cells a thread: "
+                  f"{min(r[2] for r in chosen)}-{max(r[2] for r in chosen)}"
+                  f" registers, {sum(1 for r in chosen if r[3] or r[4])} "
+                  f"with spills")
     path = build.library_path("stream_collide").parent / "ptxas_summary.txt"
     path.write_text("\n".join(f"{s}\t{k}\t{r}\t{st}\t{ld}"
                               for s, k, r, st, ld in rows) + "\n")
+    for source in half_spills:
+        check(False, f"{source}: an instance spills (or no ptxas report)")
     return rows
 
 
@@ -4729,6 +5317,8 @@ def main():
     half_blocked = phase34_half_blocked_gradient(card, saxpy_gbps,
                                                  half_gradient)
     phase35_march_candidates(card, saxpy_gbps)
+    phase36_vectors_vs_plain()
+    cell_launch = phase36_cell_launch(card, saxpy_gbps)
     print(f"build {build_s:.2f} s; whole run {time.perf_counter() - beg:.1f} "
           f"s")
     print(card)
@@ -4805,6 +5395,7 @@ def main():
     kernels += masked_multi_entries(worst_masked_multi, bounded)
     kernels += half_gradient_entries(worst_half_gradient, half_gradient,
                                      half_blocked)
+    kernels += cell_launch_entries(cell_launch)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

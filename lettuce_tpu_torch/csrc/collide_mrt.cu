@@ -242,6 +242,15 @@ using MrtDellar = Mrt<S, T, kDellar>;
 template <class S, class T>
 using MrtHermite = Mrt<S, T, kHermite>;
 
+// The float32 D3Q27 instances take more than 128 registers a thread:
+// compiled for each minimum of blocks per SM that chip_smoke.py phase 36
+// times (1, none, to 4, at most 128 registers a thread); the host plans
+// the fastest (ops/cuda/build.py's MIN_BLOCKS).
+template <>
+struct BlockChoices<MrtHermite<D3Q27, float>, Same<float>> {
+  using type = Ints<1, 2, 3, 4>;
+};
+
 }  // namespace lt
 
 // half_*.cu include this source for its policies alone

@@ -29,7 +29,11 @@
 // population is rebuilt as g + w_q in float32 before the policy runs, so
 // its roundoff is that of f (~3e-8 near w_q ~ 0.3), far below a bf16 ulp
 // of a typical deviation (~4e-6 at 1e-3) but not of one that crosses zero.
-// One thread per cell with 2-byte loads and stores, as the float32 kernels.
+// The periodic instances run one thread per cell with 2-byte loads and
+// stores, as the float32 kernels; the masked ones give a thread several
+// consecutive cells of a row and move each population's values as one
+// vector (stream_collide.cuh's masked_cells_kernel): cells<S>() per stencil
+// and storage, as ops/cuda/build.py's SHIPPED_CELLS.
 
 #pragma once
 
@@ -39,6 +43,19 @@
 #include "stream_collide.cuh"
 
 namespace lt {
+
+// Cells a thread of a masked 16-bit instance (masked_cells_kernel), per
+// stencil (D2Q9, D3Q15, D3Q19, D3Q27) and storage (bfloat16, float16,
+// bfloat16 deviations), as ops/cuda/build.py's SHIPPED_CELLS: the fastest
+// of 1, 2 and 4 on the obstacles (chip_smoke.py phase 36).
+constexpr int kShippedCells[4][3] = {
+    {4, 4, 4}, {2, 2, 2}, {4, 4, 4}, {2, 2, 2}};
+
+template <class S>
+constexpr int shipped_cells(int storage) {
+  return kShippedCells[S::Q == 9 ? 0 : S::Q == 15 ? 1 : S::Q == 19 ? 2 : 3]
+                      [storage];
+}
 
 // bfloat16 state (Dev = false) or bfloat16 deviations (Dev = true).
 template <bool Dev>
@@ -52,6 +69,16 @@ struct Bf16Storage {
   __device__ __forceinline__ static V pack(float x) {
     return __float2bfloat16_rn(x);
   }
+  __device__ __forceinline__ static float from_bits(unsigned short b) {
+    return __bfloat162float(__ushort_as_bfloat16(b));
+  }
+  __device__ __forceinline__ static unsigned short bits(V v) {
+    return __bfloat16_as_ushort(v);
+  }
+  template <class S>
+  static constexpr int cells() {
+    return shipped_cells<S>(Dev ? 2 : 0);
+  }
 };
 
 // float16 state.
@@ -64,6 +91,16 @@ struct F16Storage {
   }
   __device__ __forceinline__ static V pack(float x) {
     return __float2half_rn(x);
+  }
+  __device__ __forceinline__ static float from_bits(unsigned short b) {
+    return __half2float(__ushort_as_half(b));
+  }
+  __device__ __forceinline__ static unsigned short bits(V v) {
+    return __half_as_ushort(v);
+  }
+  template <class S>
+  static constexpr int cells() {
+    return shipped_cells<S>(1);
   }
 };
 

@@ -19,29 +19,31 @@
 #define LT_HALF_BGK_ENTRY(STENCIL, S, SUFFIX, STORAGE)                        \
   int lt_stream_collide_##STENCIL##_##SUFFIX(                                 \
       const void* f, void* out, int64_t n0, int64_t n1, int64_t n2,          \
-      float tau_inv, double cs, int device, void* stream) {                   \
+      const int64_t* geometry, float tau_inv, double cs, int device,         \
+      void* stream) {                                                         \
     using C = lt::Bgk<lt::S, float>;                                          \
     return lt::launch<C, false, STORAGE>(f, out, nullptr, n0, n1, n2,         \
-                                         C::make(tau_inv, cs), device,       \
-                                         stream);                             \
+                                         geometry, C::make(tau_inv, cs),     \
+                                         device, stream);                     \
   }                                                                           \
   int lt_stream_collide_masked_##STENCIL##_##SUFFIX(                          \
       const void* f, void* out, const void* ncm, const void* nsm,            \
       const void* feq_field, const int32_t* kinds, const double* values,     \
-      int64_t n0, int64_t n1, int64_t n2, float tau_inv, double cs,          \
-      int device, void* stream) {                                             \
+      int64_t n0, int64_t n1, int64_t n2, const int64_t* geometry,           \
+      float tau_inv, double cs, int device, void* stream) {                   \
     using C = lt::Bgk<lt::S, float>;                                          \
     return lt::launch_masked<C, false, STORAGE>(                              \
         f, out, nullptr, ncm, nsm, feq_field, kinds, values, n0, n1, n2,     \
-        C::make(tau_inv, cs), device, stream);                                \
+        geometry, C::make(tau_inv, cs), device, stream);                      \
   }
 
 #define LT_HALF_BGK_EMIT_U_ENTRY(STENCIL, S, SUFFIX, STORAGE)                 \
   int lt_stream_collide_emit_u_##STENCIL##_##SUFFIX(                          \
       const void* f, void* out, void* u_out, int64_t n0, int64_t n1,         \
-      int64_t n2, float tau_inv, double cs, int device, void* stream) {       \
+      int64_t n2, const int64_t* geometry, float tau_inv, double cs,         \
+      int device, void* stream) {                                             \
     using C = lt::Bgk<lt::S, float>;                                          \
-    return lt::launch<C, true, STORAGE>(f, out, u_out, n0, n1, n2,            \
+    return lt::launch<C, true, STORAGE>(f, out, u_out, n0, n1, n2, geometry,  \
                                         C::make(tau_inv, cs), device,        \
                                         stream);                              \
   }                                                                           \
@@ -49,11 +51,12 @@
       const void* f, void* out, void* u_out, const void* ncm,                \
       const void* nsm, const void* feq_field, const int32_t* kinds,          \
       const double* values, int64_t n0, int64_t n1, int64_t n2,              \
-      float tau_inv, double cs, int device, void* stream) {                   \
+      const int64_t* geometry, float tau_inv, double cs, int device,         \
+      void* stream) {                                                         \
     using C = lt::Bgk<lt::S, float>;                                          \
     return lt::launch_masked<C, true, STORAGE>(                               \
         f, out, u_out, ncm, nsm, feq_field, kinds, values, n0, n1, n2,       \
-        C::make(tau_inv, cs), device, stream);                                \
+        geometry, C::make(tau_inv, cs), device, stream);                      \
   }
 
 #define LT_HALF_BGK_ENTRIES(STENCIL, S)                                       \

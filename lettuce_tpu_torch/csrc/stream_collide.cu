@@ -51,38 +51,42 @@
 
 #define LT_ENTRY(NAME, S, T)                                                  \
   int NAME(const void* f, void* out, int64_t n0, int64_t n1, int64_t n2,     \
-           T tau_inv, double cs, int device, void* stream) {                  \
+           const int64_t* geometry, T tau_inv, double cs, int device,         \
+           void* stream) {                                                    \
     return lt::launch<lt::Bgk<lt::S, T>, false>(                              \
-        f, out, nullptr, n0, n1, n2, lt::Bgk<lt::S, T>::make(tau_inv, cs),   \
-        device, stream);                                                      \
+        f, out, nullptr, n0, n1, n2, geometry,                                \
+        lt::Bgk<lt::S, T>::make(tau_inv, cs), device, stream);                \
   }
 
 #define LT_ENTRY_EMIT_U(NAME, S, T)                                           \
   int NAME(const void* f, void* out, void* u_out, int64_t n0, int64_t n1,    \
-           int64_t n2, T tau_inv, double cs, int device, void* stream) {      \
+           int64_t n2, const int64_t* geometry, T tau_inv, double cs,         \
+           int device, void* stream) {                                        \
     return lt::launch<lt::Bgk<lt::S, T>, true>(                               \
-        f, out, u_out, n0, n1, n2, lt::Bgk<lt::S, T>::make(tau_inv, cs),     \
-        device, stream);                                                      \
+        f, out, u_out, n0, n1, n2, geometry,                                  \
+        lt::Bgk<lt::S, T>::make(tau_inv, cs), device, stream);                \
   }
 
 #define LT_ENTRY_MASKED(NAME, S, T)                                           \
   int NAME(const void* f, void* out, const void* ncm, const void* nsm,       \
            const void* feq_field, const int32_t* kinds,                       \
            const double* values, int64_t n0, int64_t n1, int64_t n2,          \
-           T tau_inv, double cs, int device, void* stream) {                  \
+           const int64_t* geometry, T tau_inv, double cs, int device,         \
+           void* stream) {                                                    \
     return lt::launch_masked<lt::Bgk<lt::S, T>, false>(                       \
         f, out, nullptr, ncm, nsm, feq_field, kinds, values, n0, n1, n2,     \
-        lt::Bgk<lt::S, T>::make(tau_inv, cs), device, stream);               \
+        geometry, lt::Bgk<lt::S, T>::make(tau_inv, cs), device, stream);     \
   }
 
 #define LT_ENTRY_MASKED_EMIT_U(NAME, S, T)                                    \
   int NAME(const void* f, void* out, void* u_out, const void* ncm,           \
            const void* nsm, const void* feq_field, const int32_t* kinds,      \
            const double* values, int64_t n0, int64_t n1, int64_t n2,          \
-           T tau_inv, double cs, int device, void* stream) {                  \
+           const int64_t* geometry, T tau_inv, double cs, int device,         \
+           void* stream) {                                                    \
     return lt::launch_masked<lt::Bgk<lt::S, T>, true>(                        \
         f, out, u_out, ncm, nsm, feq_field, kinds, values, n0, n1, n2,       \
-        lt::Bgk<lt::S, T>::make(tau_inv, cs), device, stream);               \
+        geometry, lt::Bgk<lt::S, T>::make(tau_inv, cs), device, stream);     \
   }
 
 #define LT_ENTRIES(STENCIL, S)                                                \

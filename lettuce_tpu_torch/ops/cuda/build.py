@@ -12,9 +12,12 @@ kept beside the library (:func:`ptxas_log`).
 
 Also here: what every wrapper checks before a launch (the compiled stencil
 instance, the dtype, the launch grid), the entry suffix of each state
-dtype and storage (:data:`DTYPES`, :data:`STORAGE`), and the columns of
-the marched blocked kernels (:func:`plan_march`: K2, periodic or masked,
-and K4, with their schedule :func:`march_steps`).
+dtype and storage (:data:`DTYPES`, :data:`STORAGE`), the cell-flat
+geometry of the single-step kernels (:func:`plan_cells`: K1, with the
+divisors of its thread index and the cells a thread of a masked 16-bit
+launch owns), and the columns of the marched blocked kernels
+(:func:`plan_march`: K2, periodic or masked, and K4, with their schedule
+:func:`march_steps`).
 """
 
 from __future__ import annotations
@@ -43,7 +46,9 @@ __all__ = ["SOURCES", "find_nvcc", "library_path", "ptxas_log",
            "sm_budget", "moving_axes", "tile_stride", "MarchPlan",
            "plan_march", "march_candidates", "march_steps", "ring_depths",
            "ring_keep", "march_values", "march_bytes", "march_threads",
-           "is_row"]
+           "is_row", "BLOCK", "DIVISIONS", "CELL_COUNTS", "SHIPPED_CELLS",
+           "TIMED_CELLS", "MIN_BLOCKS", "CellPlan", "magic_of",
+           "plan_cells", "cells_of", "min_blocks_of"]
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 # csrc/<name>.cu, one library each: the BGK step (K1a, K1d, K1b), its
@@ -637,3 +642,152 @@ def plan_march(dims: tuple, moving: tuple, halo: int, march_halo: int,
                             int(halo), int(march_halo), int(values_per_cell),
                             int(itemsize), int(q), bool(adjoint), int(sms),
                             bool(masked), bool(frozen))[0]
+
+
+# ----------------------------------------------------------------------
+# the cell-flat launch of the single-step kernels (K1,
+# csrc/stream_collide.cuh)
+# ----------------------------------------------------------------------
+BLOCK = 128  # threads a block (csrc/stencils.cuh's kBlock)
+_MAX_BLOCKS = 2 ** 31 - 1  # CUDA's limit on gridDim.x
+# how a thread finds its row: a multiply by a magic number, 32-bit division
+# (both while the grid has fewer than 2^31 cells), 64-bit division
+# (csrc/stream_collide.cuh's Division)
+DIVISIONS = ("magic", "div32", "div64")
+# the cells a thread of a masked 16-bit launch may own
+# (csrc/stream_collide.cuh's masked_cells_kernel; 1 is the one-cell kernel)
+CELL_COUNTS = (1, 2, 4)
+# the cells a thread of a masked 16-bit launch owns, per (stencil, storage)
+# (csrc/half_storage.cuh's kShippedCells): the fastest of 1, 2 and 4 on
+# the obstacles (chip_smoke.py phase 36, PERF.md)
+SHIPPED_CELLS = {(name, suffix): {"d2q9": 4, "d3q15": 2, "d3q19": 4,
+                                  "d3q27": 2}[name]
+                 for name in KERNEL_STENCIL_NAMES
+                 for suffix in STORAGE.values()}
+# the fragments whose masked 16-bit instances compile every cell count, for
+# chip_smoke.py phase 36 to time (csrc's TimedCells)
+TIMED_CELLS = ("bgk", "bgk_force")
+# (fragment, stencil, entry suffix) -> (periodic, masked, compiled): the
+# minimum blocks per SM of an instance's __launch_bounds__ where phase 36
+# times them (csrc's BlockChoices): the fastest on hermite27's rows; 1
+# (none) elsewhere
+MIN_BLOCKS = {("mrt_hermite27", "d3q27", "f32"): (4, 3, (1, 2, 3, 4))}
+
+
+class CellPlan(NamedTuple):
+    """The geometry of one single-step launch (K1) over the launch grid
+    ``dims`` (n0, n1, n2): a flat line of ``blocks`` blocks of ``block``
+    threads over the grid's n0 n1 rows, ``row_threads`` = ceil(n2 /
+    ``cells``) threads a row; thread t owns ``cells`` consecutive cells of
+    row t // row_threads from k0 = cells (t mod row_threads), and the
+    ``threads`` first threads own cells. ``vectors``: a masked 16-bit
+    launch moves each population's cells as one aligned vector (every row
+    starts on the alignment, nothing frozen, the tensors aligned), else
+    element by element. ``division`` says how a thread finds its row and
+    column (:data:`DIVISIONS`), by (``row_magic``, ``row_shift``) and
+    (``n1_magic``, ``n1_shift``) for "magic" (:func:`magic_of`, 0
+    otherwise); ``min_blocks`` picks the instance's ``__launch_bounds__``
+    minimum of blocks per SM."""
+    dims: tuple
+    cells: int
+    vectors: bool
+    row_threads: int
+    threads: int
+    blocks: int
+    block: int
+    division: str
+    row_magic: int
+    row_shift: int
+    n1_magic: int
+    n1_shift: int
+    min_blocks: int
+
+    def geometry(self) -> np.ndarray:
+        """The int64 array a C entry takes (csrc/stream_collide.cuh's
+        GeometryField order), read-only and made once per plan."""
+        return _geometry(self)
+
+
+@functools.lru_cache(maxsize=1024)
+def _geometry(plan: CellPlan) -> np.ndarray:
+    array = np.array([plan.cells, int(plan.vectors), plan.blocks,
+                      plan.block, plan.row_threads,
+                      DIVISIONS.index(plan.division), plan.row_magic,
+                      plan.row_shift, plan.n1_magic, plan.n1_shift,
+                      plan.min_blocks], dtype=np.int64)
+    array.flags.writeable = False
+    return array
+
+
+def magic_of(d: int) -> tuple:
+    """(m, s) with floor(x / d) == (x m) >> s for every 0 <= x < 2^31:
+    s = 31 + ceil(log2 d), m = ceil(2^s / d) < 2^32 (Granlund and
+    Montgomery 1994, theorem 4.2: m d - 2^s < d <= 2^(s - 31))."""
+    d = int(d)
+    if d < 1:
+        raise ValueError(f"a divisor must be positive, got {d}")
+    s = 31 + (d - 1).bit_length()
+    return -(-(1 << s) // d), s
+
+
+@functools.lru_cache(maxsize=1024)
+def plan_cells(dims: tuple, cells: int = 1, aligned: bool = True,
+               frozen: bool = False, division: str = None,
+               min_blocks: int = 1) -> CellPlan:
+    """The cell-flat geometry of a single-step launch over the launch grid
+    ``dims`` with ``cells`` cells a thread (:class:`CellPlan`): vectors
+    when ``cells`` > 1 divides n2, the tensors are ``aligned`` to them and
+    nothing is ``frozen``; ``division`` "magic" by default below 2^31
+    cells, "div64" from there (the only one it allows there). Raises
+    ValueError on a grid past CUDA's grid limit. Cached: a launch plans
+    once per grid."""
+    n0, n1, n2 = (int(n) for n in dims)
+    if min(n0, n1, n2) < 1 or cells not in CELL_COUNTS:
+        raise ValueError(f"no single-step launch of {cells} cells a thread "
+                         f"over the grid {dims}")
+    n = n0 * n1 * n2
+    small = n < 2 ** 31
+    if division is None:
+        division = "magic" if small else "div64"
+    if division not in DIVISIONS or (division != "div64" and not small):
+        raise ValueError(f"division {division!r} needs fewer than 2^31 "
+                         f"cells, the grid {dims} has {n}")
+    row_threads = -(-n2 // cells)
+    threads = n0 * n1 * row_threads
+    blocks = -(-threads // BLOCK)
+    if blocks > _MAX_BLOCKS:
+        raise ValueError(f"the grid {dims} needs {blocks} blocks, past "
+                         f"CUDA's {_MAX_BLOCKS}")
+    row_magic = row_shift = n1_magic = n1_shift = 0
+    if division == "magic":
+        row_magic, row_shift = magic_of(row_threads)
+        n1_magic, n1_shift = magic_of(n1)
+    vectors = cells > 1 and n2 % cells == 0 and aligned and not frozen
+    return CellPlan((n0, n1, n2), int(cells), bool(vectors), row_threads,
+                    threads, blocks, BLOCK, division, row_magic, row_shift,
+                    n1_magic, n1_shift, int(min_blocks))
+
+
+def cells_of(fragment: str, stencil: str, suffix: str,
+             masked: bool) -> tuple:
+    """(shipped, compiled): the cells a thread of a single-step launch of
+    ``fragment`` on ``stencil`` with the entry ``suffix`` owns, and every
+    count its instance is compiled for: a masked 16-bit launch
+    :data:`SHIPPED_CELLS` (every count of :data:`CELL_COUNTS` for
+    :data:`TIMED_CELLS`), any other one cell."""
+    if not masked or suffix not in STORAGE.values():
+        return 1, (1,)
+    shipped = SHIPPED_CELLS[stencil, suffix]
+    if fragment in TIMED_CELLS:
+        return shipped, CELL_COUNTS
+    return shipped, (shipped,)
+
+
+def min_blocks_of(fragment: str, stencil: str, suffix: str,
+                  masked: bool) -> tuple:
+    """(shipped, compiled): the minimum blocks per SM of the periodic or
+    ``masked`` instance's ``__launch_bounds__`` (:data:`MIN_BLOCKS`; 1,
+    none, elsewhere)."""
+    periodic, masked_m, compiled = MIN_BLOCKS.get(
+        (fragment, stencil, suffix), (1, 1, (1,)))
+    return (masked_m if masked else periodic), compiled

@@ -81,11 +81,11 @@ from ...utils.moments import (HERMITE_MULTIINDICES, dellar_meq, hermite_meq,
                              lallemand_meq)
 from ..utils_moments_shim import resolve_mrt_spec
 from .build import (DTYPES, HALF_DTYPES, KERNEL_STENCIL_NAMES,
-                    KERNEL_STENCILS, STORAGE, check_launch, check_out,
-                    compute_dtype, kernel_stencil_name, launch_dims,
-                    march_candidates, march_values, moving_axes,
-                    open_library, plan_march, ring_keep, storage_suffix,
-                    tile_stride)
+                    KERNEL_STENCILS, STORAGE, cells_of, check_launch,
+                    check_out, compute_dtype, kernel_stencil_name,
+                    launch_dims, march_candidates, march_values,
+                    min_blocks_of, moving_axes, open_library, plan_cells,
+                    plan_march, ring_keep, storage_suffix, tile_stride)
 from .hybrid_outlets import (build_hybrid_fixup, nsm_outside_regions,
                              outlet_window)
 
@@ -100,7 +100,7 @@ __all__ = ["stream_collide", "stream_collide_plain", "collide_plain",
            "encode_deviations", "decode_deviations",
            "load_half_library", "MULTI_SOURCES", "load_multi_library",
            "blocking_refusals", "build_fused_multi_step", "march_plan",
-           "march_scratch", "without_nsm"]
+           "march_scratch", "without_nsm", "cell_plan"]
 
 # boundary kinds of the per-code table, in the order of csrc/stencils.cuh's
 # Kind enum
@@ -545,7 +545,7 @@ def load_library() -> ctypes.CDLL:
     pointer = ctypes.c_void_p
     for name in KERNEL_STENCIL_NAMES:
         for suffix, scalar in DTYPES.values():
-            grid = [ctypes.c_int64] * 3
+            grid = [ctypes.c_int64] * 3 + [pointer]  # + the geometry
             tail = [scalar, ctypes.c_double, ctypes.c_int, pointer]
             # masks: ncm, nsm, feq field, host kinds, host values
             masks = [pointer] * 5
@@ -568,7 +568,7 @@ def load_fragment_library(source: str) -> ctypes.CDLL:
     ``argtypes`` set on every entry."""
     lib = open_library(source)
     pointer = ctypes.c_void_p
-    grid = [ctypes.c_int64] * 3
+    grid = [ctypes.c_int64] * 3 + [pointer]  # + the geometry
     tail = [pointer, ctypes.c_double, ctypes.c_int, pointer]
     for fragment, (src, names) in FRAGMENTS.items():
         if src != source:
@@ -599,7 +599,7 @@ def load_half_library(source: str) -> ctypes.CDLL:
     float16 state."""
     lib = open_library(HALF_SOURCES[source])
     pointer = ctypes.c_void_p
-    grid = [ctypes.c_int64] * 3
+    grid = [ctypes.c_int64] * 3 + [pointer]  # + the geometry
     if source == "stream_collide":  # BGK: tau_inv as a float
         entries = [("stream_collide", "bgk", KERNEL_STENCIL_NAMES)]
         tail = [ctypes.c_float, ctypes.c_double, ctypes.c_int, pointer]
@@ -814,6 +814,59 @@ def stream_collide(f: torch.Tensor, e: np.ndarray, w: np.ndarray,
     if n_sub > 1:
         return _launch_multi(f, out, pack_spec(spec, e, w, opposite), n_sub,
                              e, cs, dev_storage, **masks)
+    return _launch(f, out, u_out, spec, e, w, opposite, cs, dev_storage,
+                   **masks)
+
+
+def _aligned(cells: int, *tensors) -> bool:
+    """Whether each tensor's data starts on the alignment of ``cells`` of
+    its elements (None passes)."""
+    return all(x is None or x.data_ptr() % (cells * x.element_size()) == 0
+               for x in tensors)
+
+
+def cell_plan(f: torch.Tensor, e, fragment: str = "bgk", masked=False,
+              dev_storage: bool = False, frozen: bool = False,
+              tensors=(), cells: int = None, division: str = None,
+              min_blocks: int = None, name: str = None):
+    """The geometry of a single-step launch of ``fragment`` over the state
+    ``f`` (:func:`.build.plan_cells`): a ``masked`` 16-bit launch gives a
+    thread the cells its stencil and storage ship
+    (:func:`.build.cells_of`), as vectors unless ``frozen`` populations or
+    one of ``tensors`` (the launch's state, output, codes and u) is off
+    their alignment; the instance's minimum blocks per SM
+    (:func:`.build.min_blocks_of`). ``cells``, ``division`` and
+    ``min_blocks`` replace the defaults (phase 36's candidates); ``name``
+    is the compiled stencil's, when the caller knows it."""
+    name = name or _stencil_name(e)
+    suffix = storage_suffix(f.dtype, dev_storage)
+    if cells is None:
+        cells = cells_of(fragment, name, suffix, masked)[0]
+    if min_blocks is None:
+        min_blocks = min_blocks_of(fragment, name, suffix, masked)[0]
+    return plan_cells(launch_dims(f, e), cells,
+                      _aligned(cells, f, *tensors), frozen, division,
+                      min_blocks)
+
+
+def _stencil_name(e) -> str:
+    """The compiled stencil whose velocities are ``e``."""
+    e = np.asarray(e)
+    for name, stencil in zip(KERNEL_STENCIL_NAMES, KERNEL_STENCILS):
+        if e.shape == stencil.e.shape and np.array_equal(e, stencil.e):
+            return name
+    raise ValueError(f"no compiled CUDA kernel for the stencil with e of "
+                     f"shape {e.shape}")
+
+
+def _launch(f: torch.Tensor, out, u_out, spec, e, w, opposite, cs: float,
+            dev_storage: bool, ncm=None, nsm=None, table=None,
+            feq_field=None, plan=None):
+    """One single-step launch (K1) of ``spec`` on the CUDA state ``f``
+    into ``out`` (and ``u_out``), masked when ``ncm`` is given, over the
+    geometry of ``plan`` when given (a :class:`.build.CellPlan`), else of
+    :func:`cell_plan`'s."""
+    emit_u = u_out is not None
     if emit_u:
         _check_emit_u(spec, f.dtype, dev_storage)
     suffix = storage_suffix(f.dtype, dev_storage)
@@ -836,13 +889,26 @@ def stream_collide(f: torch.Tensor, e: np.ndarray, w: np.ndarray,
                      None if nsm is None else nsm.data_ptr(),
                      None if feq_field is None else feq_field.data_ptr(),
                      table.kinds.ctypes.data, table.values.ctypes.data]
+    if not bgk:
+        spec = pack_spec(spec, e, w, opposite)  # alive until the call returns
+        if dev_storage and spec.fragment in DEV_REFUSED:
+            raise NotImplementedError(
+                f"the {spec.fragment!r} fragment has no deviation-storage "
+                f"instance: its closed-form equilibrium moments are not "
+                f"shift-invariant in f")
+    fragment = "bgk" if bgk else spec.fragment
+    if plan is None:
+        plan = cell_plan(f, e, fragment, masked, dev_storage,
+                         frozen=nsm is not None, tensors=(out, ncm, u_out),
+                         name=name)
+    geometry = plan.geometry()  # alive until the call returns
     stream_ptr = torch.cuda.current_stream(f.device).cuda_stream
     variant = ("masked_" if masked else "") + ("emit_u_" if emit_u else "")
     if bgk:
         lib = load_half_library("stream_collide") if half else load_library()
         launch = getattr(lib, f"lt_stream_collide_{variant}{name}_{suffix}")
-        rc = launch(*pointers, n0, n1, n2, float(spec[1]), float(cs),
-                    f.device.index, stream_ptr)
+        rc = launch(*pointers, n0, n1, n2, geometry.ctypes.data,
+                    float(spec[1]), float(cs), f.device.index, stream_ptr)
         check_launch(lib, rc, f"stream_collide ({variant or 'periodic_'}"
                               f"{name}_{suffix})")
         if half:
@@ -852,19 +918,14 @@ def stream_collide(f: torch.Tensor, e: np.ndarray, w: np.ndarray,
             setattr(stream_collide, counter,
                     getattr(stream_collide, counter) + 1)
         return (out, u_out) if emit_u else out
-    spec = pack_spec(spec, e, w, opposite)  # alive until the call returns
-    if dev_storage and spec.fragment in DEV_REFUSED:
-        raise NotImplementedError(
-            f"the {spec.fragment!r} fragment has no deviation-storage "
-            f"instance: its closed-form equilibrium moments are not "
-            f"shift-invariant in f")
     source = FRAGMENTS[spec.fragment][0]
     lib = (load_half_library(source) if half
            else load_fragment_library(source))
     launch = getattr(lib, f"lt_collide_{spec.fragment}_{variant}{name}_"
                           f"{suffix}")
-    rc = launch(*pointers, n0, n1, n2, spec.params.ctypes.data, float(cs),
-                f.device.index, stream_ptr)
+    rc = launch(*pointers, n0, n1, n2, geometry.ctypes.data,
+                spec.params.ctypes.data, float(cs), f.device.index,
+                stream_ptr)
     check_launch(lib, rc, f"stream_collide ({spec.fragment}, "
                           f"{variant or 'periodic_'}{name}_{suffix})")
     if half:
