@@ -381,13 +381,13 @@ def phase2_kernel_vs_plain():
                 f, tau_inv = tgv_state(stencil, shape, dtype, seed)
                 args = (stencil.e, stencil.w, stencil.opposite, stencil.cs,
                         tau_inv)
-                before = sc.stream_collide.launches
+                before = launch_counts()[0]
                 got, ref = f, f
                 for _ in range(steps):
                     got = sc.stream_collide(got, *args)
                     ref = sc.stream_collide_plain(ref, *args)
                 torch.cuda.synchronize()
-                launched = sc.stream_collide.launches - before
+                launched = launch_counts()[0] - before
                 err = (got - ref).abs().max().item()
                 name = type(stencil).__name__
                 print(f"phase 2: {name} {'x'.join(map(str, shape))} "
@@ -497,11 +497,10 @@ def phase3_main_path(card):
 
 def phase4_convergence():
     from lettuce_tpu_torch import cli
-    import lettuce_tpu_torch.ops.cuda.stream_collide as sc
-    before = sc.stream_collide.launches
+    before = launch_counts()[0]
     rc = cli.main(["--device", "cuda", "-p", "double", "convergence",
                    "--max-resolution-exponent", "7"])
-    launched = sc.stream_collide.launches - before
+    launched = launch_counts()[0] - before
     expected = sum(10 * 2 ** e for e in range(4, 8))
     print(f"phase 4: convergence gate float64 16..128 exit {rc}, "
           f"{launched} kernel launches")
@@ -530,38 +529,53 @@ def phase5_saxpy(mlups, card):
     return gbps
 
 
+FULL_STORAGE = ("f32", "f64")
+HALF_STORAGE = ("bf16", "f16", "bf16_dev")
+
+
+def launched(kernel, storages=FULL_STORAGE + HALF_STORAGE, bgk=True):
+    """``{key: launches}`` of ``kernel`` (``"K1"`` .. ``"K4"``) in the
+    port's launch counter (``tracing.counts``), each key without its
+    ``"<kernel>:"``, over ``storages`` (the key's storage suffix, before a
+    blocked kernel's ``_x<n_sub>``); ``bgk=False`` leaves out the BGK
+    fragment."""
+    from lettuce_tpu_torch import tracing
+    out = {}
+    for key, n in tracing.counts.items():
+        family, _, rest = key.partition(":")
+        head = re.sub(r"_x\d+$", "", rest)
+        storage = next((s for s in sorted(storages, key=len, reverse=True)
+                        if head.endswith("_" + s)), None)
+        if family != kernel or storage is None or not n:
+            continue
+        fragment = re.sub(r"^(masked_|frozen_)?(emit_u_)?", "",
+                          head[:-len(storage) - 1])
+        if bgk or fragment != "bgk":
+            out[rest] = n
+    return out
+
+
+def _full(key):
+    """Launches under ``key`` at float32 and float64."""
+    from lettuce_tpu_torch import tracing
+    return sum(tracing.counts[f"{key}_{s}"] for s in FULL_STORAGE)
+
+
 def launch_counts():
-    """(primal, emit-u, adjoint) periodic kernel launch counts."""
-    from lettuce_tpu_torch.ops.cuda import adjoint
-    import lettuce_tpu_torch.ops.cuda.stream_collide as sc
-    return (sc.stream_collide.launches, sc.stream_collide.emit_u_launches,
-            adjoint.stream_collide_adjoint.launches)
+    """(primal, emit-u, adjoint) periodic BGK kernel launch counts."""
+    return _full("K1:bgk"), _full("K1:emit_u_bgk"), _full("K3:bgk")
 
 
 def masked_launch_counts():
-    """(primal, emit-u, adjoint) masked kernel launch counts."""
-    from lettuce_tpu_torch.ops.cuda import adjoint
-    import lettuce_tpu_torch.ops.cuda.stream_collide as sc
-    return (sc.stream_collide.masked_launches,
-            sc.stream_collide.masked_emit_u_launches,
-            adjoint.stream_collide_adjoint.masked_launches)
+    """(primal, emit-u, adjoint) masked BGK kernel launch counts; the
+    adjoint's include its frozen-populations-only launches."""
+    return (_full("K1:masked_bgk"), _full("K1:masked_emit_u_bgk"),
+            _full("K3:masked_bgk") + _full("K3:frozen_bgk"))
 
 
 def reset_launch_counts():
-    from lettuce_tpu_torch.ops.cuda import adjoint
-    import lettuce_tpu_torch.ops.cuda.stream_collide as sc
-    sc.stream_collide.launches = 0
-    sc.stream_collide.emit_u_launches = 0
-    sc.stream_collide.masked_launches = 0
-    sc.stream_collide.masked_emit_u_launches = 0
-    adjoint.stream_collide_adjoint.launches = 0
-    adjoint.stream_collide_adjoint.masked_launches = 0
-    sc.stream_collide.fragment_launches.clear()
-    sc.stream_collide.half_launches.clear()
-    sc.stream_collide.multi_launches.clear()
-    adjoint.stream_collide_adjoint.fragment_launches.clear()
-    adjoint.stream_collide_adjoint.half_launches.clear()
-    adjoint.stream_collide_adjoint_multi.launches.clear()
+    from lettuce_tpu_torch import tracing
+    tracing.counts.clear()
 
 
 def scaled_err(got, want):
@@ -1396,14 +1410,26 @@ def fragment_spec(flow, collision):
     return sc.pack_spec(spec, stencil.e, stencil.w, stencil.opposite)
 
 
+def _without_storage(counts):
+    """``counts`` with float32 and float64 launches summed under one key
+    without the storage suffix."""
+    out = {}
+    for key, n in counts.items():
+        key = re.sub(r"_f(32|64)$", "", key)
+        out[key] = out.get(key, 0) + n
+    return out
+
+
 def fragment_launches():
-    import lettuce_tpu_torch.ops.cuda.stream_collide as sc
-    return dict(sc.stream_collide.fragment_launches)
+    """Single-step launches of the other fragments at float32 and float64,
+    by variant and fragment ("trt", "masked_trt", "emit_u_trt", ...)."""
+    return _without_storage(launched("K1", FULL_STORAGE, bgk=False))
 
 
 def adjoint_fragment_launches():
-    from lettuce_tpu_torch.ops.cuda import adjoint
-    return dict(adjoint.stream_collide_adjoint.fragment_launches)
+    """Adjoint launches of the other specs at float32 and float64, by
+    variant and spec ("trt", "masked_matvec", "frozen_none", ...)."""
+    return _without_storage(launched("K3", FULL_STORAGE, bgk=False))
 
 
 def phase13_fragments_vs_plain():
@@ -2338,8 +2364,9 @@ HALF_BYTES_PER_UPDATE = 19 * 2 * 2
 
 
 def half_launches():
-    import lettuce_tpu_torch.ops.cuda.stream_collide as sc
-    return dict(sc.stream_collide.half_launches)
+    """Single-step launches at 16 bits, BGK included ("bgk_bf16_dev",
+    "masked_trt_f16", "emit_u_bgk_bf16", ...)."""
+    return launched("K1", HALF_STORAGE)
 
 
 def storage_state(f32, w, storage):
@@ -2776,13 +2803,13 @@ ADJOINT_MULTI_BYTES_PER_UPDATE = 19 * 4 * 3
 
 
 def multi_launches():
-    import lettuce_tpu_torch.ops.cuda.stream_collide as sc
-    return dict(sc.stream_collide.multi_launches)
+    """Blocked forward launches ("bgk_f32_x2", "masked_bgk_f32_x2", ...)."""
+    return launched("K2")
 
 
 def adjoint_multi_launches():
-    from lettuce_tpu_torch.ops.cuda import adjoint
-    return dict(adjoint.stream_collide_adjoint_multi.launches)
+    """Blocked adjoint launches ("bgk_f32_x2", "bgk_bf16_x2", ...)."""
+    return launched("K4")
 
 
 def with_span(span):
@@ -3711,8 +3738,9 @@ HALF_GRAD_RTOL = 0.02
 
 
 def half_adjoint_launches():
-    from lettuce_tpu_torch.ops.cuda import adjoint
-    return dict(adjoint.stream_collide_adjoint.half_launches)
+    """Adjoint launches at 16 bits, BGK included ("bgk_bf16",
+    "masked_matvec_f16", "frozen_none_bf16", ...)."""
+    return launched("K3", HALF_STORAGE)
 
 
 def ulps_at_max(got, ref):

@@ -81,11 +81,11 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from collections import Counter
 
 import numpy as np
 import torch
 
+from ... import tracing
 from .build import (DTYPES, HALF_DTYPES, KERNEL_STENCIL_NAMES,
                     check_launch, check_out, compute_dtype,
                     kernel_stencil_name, launch_dims, open_library,
@@ -505,7 +505,8 @@ def stream_collide_adjoint(g: torch.Tensor, res: torch.Tensor,
     CUDA tensor it launches a kernel (allocating ``out`` when none is
     given) or raises. ``out`` must not be ``g``: the kernel pulls from
     neighbours. A bfloat16 or float16 ``g`` runs the 16-bit instances
-    (K3 at 16 bits, counted in ``half_launches``).
+    (K3 at 16 bits). Each launch counts under
+    ``tracing.launch_key("K3", ...)``.
     """
     spec = _packed(collision_spec, tau_inv, e, w, opposite)
     masks = dict(ncm=ncm, nsm=nsm, table=table, feq_field=feq_field)
@@ -517,81 +518,57 @@ def stream_collide_adjoint(g: torch.Tensor, res: torch.Tensor,
     if g.device.type != "cuda":
         raise ValueError(f"stream_collide_adjoint runs on cpu or cuda "
                          f"tensors, got {g.device}")
-    fragment = _adjoint_of(spec, None, e, w, opposite)[0]
-    name = kernel_stencil_name(e, w, opposite)
-    n0, n1, n2 = launch_dims(g, e)
-    half = g.dtype in HALF_DTYPES
-    if spec.residual == "u":
-        d = np.asarray(e).shape[1]
-        _check_residual(res, g, (d, *g.shape[1:]), "u",
-                        compute_dtype(g.dtype))
-    elif spec.residual == "f":
-        _check_residual(res, g, g.shape, "state")
-    else:
-        res = None
-    out = check_out(out, g, g.shape, "out", g,
-                    *([] if res is None else [res]))
-    pointers = [g.data_ptr(), None if res is None else res.data_ptr(),
-                out.data_ptr()]
-    if ncm is not None:
-        # alive until the call returns; the field is checked, never read
-        table = checked_table(g, ncm, nsm, table, feq_field)
-        pointers += [ncm.data_ptr(),
-                     None if nsm is None else nsm.data_ptr(),
-                     table.kinds.ctypes.data]
-        variant = "masked_"
-    elif nsm is not None:
-        # frozen populations only: the masked kernel with no code table
-        check_nsm(g, nsm)
-        pointers += [None, nsm.data_ptr(), None]
-        variant = "frozen_"
-    else:
-        variant = ""
-    suffix = storage_suffix(g.dtype)
-    entry = "masked_" if variant else ""
-    stream = torch.cuda.current_stream(g.device).cuda_stream
-    if half:
-        lib = load_half_library()
-        launch = getattr(lib, f"lt_adjoint_{fragment}_{entry}{name}_"
-                              f"{suffix}")
-        rc = launch(*pointers, n0, n1, n2, spec.adjoint_params.ctypes.data,
-                    float(cs), g.device.index, stream)
+    with tracing.span("launch"):
+        fragment = _adjoint_of(spec, None, e, w, opposite)[0]
+        name = kernel_stencil_name(e, w, opposite)
+        n0, n1, n2 = launch_dims(g, e)
+        half = g.dtype in HALF_DTYPES
+        if spec.residual == "u":
+            d = np.asarray(e).shape[1]
+            _check_residual(res, g, (d, *g.shape[1:]), "u",
+                            compute_dtype(g.dtype))
+        elif spec.residual == "f":
+            _check_residual(res, g, g.shape, "state")
+        else:
+            res = None
+        out = check_out(out, g, g.shape, "out", g,
+                        *([] if res is None else [res]))
+        pointers = [g.data_ptr(), None if res is None else res.data_ptr(),
+                    out.data_ptr()]
+        if ncm is not None:
+            # alive until the call returns; the field is checked, never read
+            table = checked_table(g, ncm, nsm, table, feq_field)
+            pointers += [ncm.data_ptr(),
+                         None if nsm is None else nsm.data_ptr(),
+                         table.kinds.ctypes.data]
+            variant = "masked_"
+        elif nsm is not None:
+            # frozen populations only: the masked kernel with no code table
+            check_nsm(g, nsm)
+            pointers += [None, nsm.data_ptr(), None]
+            variant = "frozen_"
+        else:
+            variant = ""
+        suffix = storage_suffix(g.dtype)
+        entry = "masked_" if variant else ""
+        stream = torch.cuda.current_stream(g.device).cuda_stream
+        if fragment == "bgk" and not half:
+            lib = load_library()
+            launch = getattr(lib, f"lt_stream_collide_adjoint_{entry}{name}_"
+                                  f"{suffix}")
+            params = float(spec[1])
+        else:
+            lib = load_half_library() if half else load_fragment_library()
+            launch = getattr(lib, f"lt_adjoint_{fragment}_{entry}{name}_"
+                                  f"{suffix}")
+            params = spec.adjoint_params.ctypes.data
+        with tracing.span("enqueue"):
+            rc = launch(*pointers, n0, n1, n2, params, float(cs),
+                        g.device.index, stream)
         check_launch(lib, rc, f"stream_collide_adjoint ({fragment}, "
                               f"{variant or 'periodic_'}{name}_{suffix})")
-        stream_collide_adjoint.half_launches[
-            f"{variant}{fragment}_{suffix}"] += 1
+        tracing.count(tracing.launch_key("K3", variant, fragment, suffix))
         return out
-    if fragment == "bgk":
-        lib = load_library()
-        launch = getattr(lib, f"lt_stream_collide_adjoint_{entry}{name}_"
-                              f"{suffix}")
-        rc = launch(*pointers, n0, n1, n2, float(spec[1]), float(cs),
-                    g.device.index, stream)
-        check_launch(lib, rc, f"stream_collide_adjoint ({variant}{name})")
-        if variant:
-            stream_collide_adjoint.masked_launches += 1
-        else:
-            stream_collide_adjoint.launches += 1
-        return out
-    lib = load_fragment_library()
-    launch = getattr(lib, f"lt_adjoint_{fragment}_{entry}{name}_{suffix}")
-    rc = launch(*pointers, n0, n1, n2, spec.adjoint_params.ctypes.data,
-                float(cs), g.device.index, stream)
-    check_launch(lib, rc, f"stream_collide_adjoint ({fragment}, "
-                          f"{variant or 'periodic_'}{name})")
-    stream_collide_adjoint.fragment_launches[variant + fragment] += 1
-    return out
-
-
-stream_collide_adjoint.launches = 0         # periodic BGK launches
-stream_collide_adjoint.masked_launches = 0  # masked BGK launches
-# launches of the other adjoint specs, by variant and spec ("trt",
-# "masked_matvec", "frozen_none", ...)
-stream_collide_adjoint.fragment_launches = Counter()
-# launches of the 16-bit instances (K3 at 16 bits), BGK included, by
-# variant, spec and storage ("bgk_bf16", "masked_matvec_f16",
-# "frozen_none_bf16", ...)
-stream_collide_adjoint.half_launches = Counter()
 
 
 def stream_collide_adjoint_multi(f: torch.Tensor, g: torch.Tensor,
@@ -632,28 +609,27 @@ def _launch_adjoint_multi(f: torch.Tensor, g: torch.Tensor,
     the CUDA tensors ``f`` and ``g`` into ``out``, over the columns of
     ``plan`` (:func:`.stream_collide.march_plan`'s when None; another
     candidate of :func:`.build.march_candidates` when given)."""
-    dims = launch_dims(g, e)
-    halo = adjoint_multi_halo(n_sub)
-    if plan is None:
-        plan = march_plan(g, e, n_sub, adjoint=True, halo=halo)
-    scratch = march_scratch(plan, g.device)
-    suffix = storage_suffix(g.dtype)
-    lib = load_multi_library(half=g.dtype in HALF_DTYPES)
-    launch = getattr(lib, f"lt_adjoint_multi_{spec.fragment}_"
-                          f"{spec.stencil}_{suffix}")
-    rc = launch(f.data_ptr(), g.data_ptr(), out.data_ptr(),
-                None if scratch is None else scratch.data_ptr(), *dims,
-                int(n_sub), halo, *plan.interior, plan.blocks, plan.threads,
-                spec.params.ctypes.data, spec.adjoint_params.ctypes.data,
-                float(cs), g.device.index,
-                torch.cuda.current_stream(g.device).cuda_stream)
-    check_launch(lib, rc, f"stream_collide_adjoint_multi ({spec.fragment}, "
-                          f"x{n_sub} {spec.stencil}_{suffix})")
-    stream_collide_adjoint_multi.launches[
-        f"{spec.fragment}_{suffix}_x{n_sub}"] += 1
-    return out
-
-
-# launches of the blocked adjoint (K4) by forward fragment, dtype and span
-# ("bgk_f32_x2", "reg_f64_x4", "bgk_bf16_x2", ...)
-stream_collide_adjoint_multi.launches = Counter()
+    with tracing.span("launch"):
+        dims = launch_dims(g, e)
+        halo = adjoint_multi_halo(n_sub)
+        if plan is None:
+            plan = march_plan(g, e, n_sub, adjoint=True, halo=halo)
+        scratch = march_scratch(plan, g.device)
+        suffix = storage_suffix(g.dtype)
+        lib = load_multi_library(half=g.dtype in HALF_DTYPES)
+        launch = getattr(lib, f"lt_adjoint_multi_{spec.fragment}_"
+                              f"{spec.stencil}_{suffix}")
+        with tracing.span("enqueue"):
+            rc = launch(f.data_ptr(), g.data_ptr(), out.data_ptr(),
+                        None if scratch is None else scratch.data_ptr(),
+                        *dims, int(n_sub), halo, *plan.interior, plan.blocks,
+                        plan.threads, spec.params.ctypes.data,
+                        spec.adjoint_params.ctypes.data, float(cs),
+                        g.device.index,
+                        torch.cuda.current_stream(g.device).cuda_stream)
+        check_launch(lib, rc, f"stream_collide_adjoint_multi "
+                              f"({spec.fragment}, x{n_sub} {spec.stencil}_"
+                              f"{suffix})")
+        tracing.count(tracing.launch_key("K4", "", spec.fragment, suffix,
+                                         n_sub))
+        return out

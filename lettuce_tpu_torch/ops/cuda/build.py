@@ -35,6 +35,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ... import tracing
 from ...stencil import D2Q9, D3Q15, D3Q19, D3Q27
 
 __all__ = ["SOURCES", "find_nvcc", "library_path", "ptxas_log",
@@ -161,6 +162,7 @@ def build_libraries(names=SOURCES) -> dict:
             tmp_so = Path(tmp) / paths[name].name
             cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp_so),
                    str(CSRC / f"{name}.cu")]
+            tracing.count("library_built")
             jobs.append((name, cmd, tmp_so, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
@@ -184,10 +186,12 @@ def open_library(name: str) -> ctypes.CDLL:
     """Load the library of ``csrc/<name>.cu``, building every missing
     library first; the error-string entry gets its ``argtypes`` here, the
     kernel entries in their wrapper modules."""
-    lib = ctypes.CDLL(str(build_libraries()[name]))
-    lib.lt_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.lt_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+    with tracing.span("load"):
+        lib = ctypes.CDLL(str(build_libraries()[name]))
+        lib.lt_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.lt_cuda_error_string.restype = ctypes.c_char_p
+        tracing.count("library_opened")
+        return lib
 
 
 def check_launch(lib: ctypes.CDLL, rc: int, what: str) -> None:

@@ -62,6 +62,7 @@ import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
+from ... import tracing
 from .adjoint import (NONE_SPEC, adjoint_multi_refusal, prestream_vjp,
                       stream_collide_adjoint, stream_collide_adjoint_multi)
 from .build import compute_dtype
@@ -93,22 +94,24 @@ class _FusedStep(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, grad_out):
-        params = ctx.params
-        spec = params["collision_spec"]
-        g = grad_out.contiguous()
-        saved = ctx.saved_tensors  # unpacked once: checkpoint allows no more
-        res = saved[0] if saved else None
-        if spec.mode == "full":
-            return stream_collide_adjoint(g, res, **params), None
-        h = stream_collide_adjoint(
-            g, None, e=params["e"], w=params["w"],
-            opposite=params["opposite"], cs=params["cs"], tau_inv=None,
-            nsm=params["nsm"], collision_spec=NONE_SPEC)
-        return prestream_vjp(res, h, e=params["e"], w=params["w"],
-                             opposite=params["opposite"], cs=params["cs"],
-                             collision_spec=spec, ncm=params["ncm"],
-                             table=params["table"],
-                             feq_field=params["feq_field"]), None
+        with tracing.span("adjoint"):
+            params = ctx.params
+            spec = params["collision_spec"]
+            g = grad_out.contiguous()
+            # unpacked once: checkpoint allows no more
+            saved = ctx.saved_tensors
+            res = saved[0] if saved else None
+            if spec.mode == "full":
+                return stream_collide_adjoint(g, res, **params), None
+            h = stream_collide_adjoint(
+                g, None, e=params["e"], w=params["w"],
+                opposite=params["opposite"], cs=params["cs"], tau_inv=None,
+                nsm=params["nsm"], collision_spec=NONE_SPEC)
+            return prestream_vjp(res, h, e=params["e"], w=params["w"],
+                                 opposite=params["opposite"], cs=params["cs"],
+                                 collision_spec=spec, ncm=params["ncm"],
+                                 table=params["table"],
+                                 feq_field=params["feq_field"]), None
 
 
 def fused_step(f: torch.Tensor, *, e, w, opposite, cs: float,
@@ -123,15 +126,16 @@ def fused_step(f: torch.Tensor, *, e, w, opposite, cs: float,
     when the flow has outlets. The spec's ``mode`` (``'full'`` or
     ``'split'``) says how its backward runs. A bfloat16 or float16 state
     runs the 16-bit instances both ways, with a float32 u residual."""
-    if not torch.is_grad_enabled():
-        f = f.detach()  # no graph: the forward saves nothing
-    spec = pack_spec(("bgk", tau_inv) if collision_spec is None
-                     else collision_spec, e, w, opposite)
-    out = _FusedStep.apply(f, dict(
-        e=e, w=w, opposite=opposite, cs=cs, tau_inv=tau_inv,
-        collision_spec=spec, ncm=ncm, nsm=nsm, table=table,
-        feq_field=feq_field))
-    return out if fixup is None else fixup(f, out)
+    with tracing.span("step"):
+        if not torch.is_grad_enabled():
+            f = f.detach()  # no graph: the forward saves nothing
+        spec = pack_spec(("bgk", tau_inv) if collision_spec is None
+                         else collision_spec, e, w, opposite)
+        out = _FusedStep.apply(f, dict(
+            e=e, w=w, opposite=opposite, cs=cs, tau_inv=tau_inv,
+            collision_spec=spec, ncm=ncm, nsm=nsm, table=table,
+            feq_field=feq_field))
+        return out if fixup is None else fixup(f, out)
 
 
 class _FusedMultiStep(torch.autograd.Function):
@@ -148,10 +152,11 @@ class _FusedMultiStep(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, grad_out):
-        (f,) = ctx.saved_tensors
-        ct = stream_collide_adjoint_multi(f, grad_out.contiguous(), ctx.n_sub,
-                                          **ctx.params)
-        return ct, None, None
+        with tracing.span("adjoint"):
+            (f,) = ctx.saved_tensors
+            ct = stream_collide_adjoint_multi(f, grad_out.contiguous(),
+                                              ctx.n_sub, **ctx.params)
+            return ct, None, None
 
 
 def fused_multi_step(f: torch.Tensor, *, n_sub: int, e, w, opposite,
@@ -168,22 +173,23 @@ def fused_multi_step(f: torch.Tensor, *, n_sub: int, e, w, opposite,
     adjoint (K4, at 16 bits for a bfloat16 or float16 state) on a periodic
     grid; deviation storage, masks, a replay, or a spec that K4 does not
     take raise NotImplementedError then. Returns a fresh tensor."""
-    spec = pack_spec(("bgk", tau_inv) if collision_spec is None
-                     else collision_spec, e, w, opposite)
-    params = dict(e=e, w=w, opposite=opposite, cs=cs, tau_inv=tau_inv,
-                  collision_spec=spec)
-    if not (f.requires_grad and torch.is_grad_enabled()):
-        f = f.detach()
-        out = stream_collide(f, n_sub=n_sub, dev_storage=dev_storage, ncm=ncm,
-                             nsm=nsm, table=table, feq_field=feq_field,
-                             **params)
-        return out if fixup is None else fixup(f, out)
-    if dev_storage:
-        reason = "deviation storage is a throughput mode"
-    elif ncm is not None or fixup is not None:
-        reason = "the blocked adjoint runs periodic grids"
-    else:
-        reason = adjoint_multi_refusal(spec, f.dtype)
-    if reason is not None:
-        raise NotImplementedError(f"no blocked gradient: {reason}")
-    return _FusedMultiStep.apply(f, params, n_sub)
+    with tracing.span("step"):
+        spec = pack_spec(("bgk", tau_inv) if collision_spec is None
+                         else collision_spec, e, w, opposite)
+        params = dict(e=e, w=w, opposite=opposite, cs=cs, tau_inv=tau_inv,
+                      collision_spec=spec)
+        if not (f.requires_grad and torch.is_grad_enabled()):
+            f = f.detach()
+            out = stream_collide(f, n_sub=n_sub, dev_storage=dev_storage,
+                                 ncm=ncm, nsm=nsm, table=table,
+                                 feq_field=feq_field, **params)
+            return out if fixup is None else fixup(f, out)
+        if dev_storage:
+            reason = "deviation storage is a throughput mode"
+        elif ncm is not None or fixup is not None:
+            reason = "the blocked adjoint runs periodic grids"
+        else:
+            reason = adjoint_multi_refusal(spec, f.dtype)
+        if reason is not None:
+            raise NotImplementedError(f"no blocked gradient: {reason}")
+        return _FusedMultiStep.apply(f, params, n_sub)

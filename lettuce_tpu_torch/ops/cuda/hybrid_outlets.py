@@ -40,6 +40,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from ... import tracing
 from ..streaming import compose_step
 
 __all__ = ["outlet_window", "build_hybrid_fixup", "nsm_outside_regions"]
@@ -150,9 +151,11 @@ def build_hybrid_fixup(simulation: "Simulation",
              for code, outlet in hybrid]
 
     def fixup(f_pre: torch.Tensor, f_kernel: torch.Tensor) -> torch.Tensor:
-        for one, _, _ in parts:
-            f_kernel = one(f_pre, f_kernel)
-        return f_kernel
+        tracing.count("replay")
+        with tracing.span("replay"):
+            for one, _, _ in parts:
+                f_kernel = one(f_pre, f_kernel)
+            return f_kernel
 
     return fixup, [(axis, rewritten) for _, axis, rewritten in parts]
 

@@ -62,11 +62,11 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
-from collections import Counter
 
 import numpy as np
 import torch
 
+from ... import tracing
 from ..boundary import (HYBRID_OUTLET_TYPES, BounceBackBoundary,
                         EquilibriumBoundaryPU, combined_equilibrium_field)
 from ..collision import (BGKCollision, KBCCollision, MRTCollision,
@@ -866,91 +866,66 @@ def _launch(f: torch.Tensor, out, u_out, spec, e, w, opposite, cs: float,
     into ``out`` (and ``u_out``), masked when ``ncm`` is given, over the
     geometry of ``plan`` when given (a :class:`.build.CellPlan`), else of
     :func:`cell_plan`'s."""
-    emit_u = u_out is not None
-    if emit_u:
-        _check_emit_u(spec, f.dtype, dev_storage)
-    suffix = storage_suffix(f.dtype, dev_storage)
-    half = dev_storage or f.dtype in HALF_DTYPES
-    bgk = spec[0] == "bgk"
-    name = kernel_stencil_name(e, w, opposite)
-    n0, n1, n2 = launch_dims(f, e)
-    out = check_out(out, f, f.shape, "out", f)
-    pointers = [f.data_ptr(), out.data_ptr()]
-    if emit_u:
-        d = np.asarray(e).shape[1]
-        u_out = check_out(u_out, f, (d, *f.shape[1:]), "u_out", f, out,
-                          dtype=compute_dtype(f.dtype))
-        pointers.append(u_out.data_ptr())
-    masked = ncm is not None
-    if masked:
-        # alive until the call returns
-        table = checked_table(f, ncm, nsm, table, feq_field)
-        pointers += [ncm.data_ptr(),
-                     None if nsm is None else nsm.data_ptr(),
-                     None if feq_field is None else feq_field.data_ptr(),
-                     table.kinds.ctypes.data, table.values.ctypes.data]
-    if not bgk:
-        spec = pack_spec(spec, e, w, opposite)  # alive until the call returns
-        if dev_storage and spec.fragment in DEV_REFUSED:
-            raise NotImplementedError(
-                f"the {spec.fragment!r} fragment has no deviation-storage "
-                f"instance: its closed-form equilibrium moments are not "
-                f"shift-invariant in f")
-    fragment = "bgk" if bgk else spec.fragment
-    if plan is None:
-        plan = cell_plan(f, e, fragment, masked, dev_storage,
-                         frozen=nsm is not None, tensors=(out, ncm, u_out),
-                         name=name)
-    geometry = plan.geometry()  # alive until the call returns
-    stream_ptr = torch.cuda.current_stream(f.device).cuda_stream
-    variant = ("masked_" if masked else "") + ("emit_u_" if emit_u else "")
-    if bgk:
-        lib = load_half_library("stream_collide") if half else load_library()
-        launch = getattr(lib, f"lt_stream_collide_{variant}{name}_{suffix}")
-        rc = launch(*pointers, n0, n1, n2, geometry.ctypes.data,
-                    float(spec[1]), float(cs), f.device.index, stream_ptr)
-        check_launch(lib, rc, f"stream_collide ({variant or 'periodic_'}"
-                              f"{name}_{suffix})")
-        if half:
-            stream_collide.half_launches[f"{variant}bgk_{suffix}"] += 1
+    with tracing.span("launch"):
+        emit_u = u_out is not None
+        if emit_u:
+            _check_emit_u(spec, f.dtype, dev_storage)
+        suffix = storage_suffix(f.dtype, dev_storage)
+        half = dev_storage or f.dtype in HALF_DTYPES
+        bgk = spec[0] == "bgk"
+        name = kernel_stencil_name(e, w, opposite)
+        n0, n1, n2 = launch_dims(f, e)
+        out = check_out(out, f, f.shape, "out", f)
+        pointers = [f.data_ptr(), out.data_ptr()]
+        if emit_u:
+            d = np.asarray(e).shape[1]
+            u_out = check_out(u_out, f, (d, *f.shape[1:]), "u_out", f, out,
+                              dtype=compute_dtype(f.dtype))
+            pointers.append(u_out.data_ptr())
+        masked = ncm is not None
+        if masked:
+            # alive until the call returns
+            table = checked_table(f, ncm, nsm, table, feq_field)
+            pointers += [ncm.data_ptr(),
+                         None if nsm is None else nsm.data_ptr(),
+                         None if feq_field is None else feq_field.data_ptr(),
+                         table.kinds.ctypes.data, table.values.ctypes.data]
+        if not bgk:
+            spec = pack_spec(spec, e, w, opposite)  # alive until it returns
+            if dev_storage and spec.fragment in DEV_REFUSED:
+                raise NotImplementedError(
+                    f"the {spec.fragment!r} fragment has no deviation-"
+                    f"storage instance: its closed-form equilibrium moments "
+                    f"are not shift-invariant in f")
+        fragment = "bgk" if bgk else spec.fragment
+        if plan is None:
+            plan = cell_plan(f, e, fragment, masked, dev_storage,
+                             frozen=nsm is not None,
+                             tensors=(out, ncm, u_out), name=name)
+        geometry = plan.geometry()  # alive until the call returns
+        stream_ptr = torch.cuda.current_stream(f.device).cuda_stream
+        variant = ("masked_" if masked else "") + ("emit_u_" if emit_u
+                                                   else "")
+        if bgk:
+            lib = (load_half_library("stream_collide") if half
+                   else load_library())
+            launch = getattr(lib, f"lt_stream_collide_{variant}{name}_"
+                                  f"{suffix}")
+            params = float(spec[1])
         else:
-            counter = f"{variant}launches"
-            setattr(stream_collide, counter,
-                    getattr(stream_collide, counter) + 1)
+            source = FRAGMENTS[spec.fragment][0]
+            lib = (load_half_library(source) if half
+                   else load_fragment_library(source))
+            launch = getattr(lib, f"lt_collide_{spec.fragment}_{variant}"
+                                  f"{name}_{suffix}")
+            params = spec.params.ctypes.data
+        with tracing.span("enqueue"):
+            rc = launch(*pointers, n0, n1, n2, geometry.ctypes.data, params,
+                        float(cs), f.device.index, stream_ptr)
+        check_launch(lib, rc, f"stream_collide ({fragment}, "
+                              f"{variant or 'periodic_'}{name}_{suffix})")
+        tracing.count(tracing.launch_key("K1", variant, fragment, suffix))
         return (out, u_out) if emit_u else out
-    source = FRAGMENTS[spec.fragment][0]
-    lib = (load_half_library(source) if half
-           else load_fragment_library(source))
-    launch = getattr(lib, f"lt_collide_{spec.fragment}_{variant}{name}_"
-                          f"{suffix}")
-    rc = launch(*pointers, n0, n1, n2, geometry.ctypes.data,
-                spec.params.ctypes.data, float(cs), f.device.index,
-                stream_ptr)
-    check_launch(lib, rc, f"stream_collide ({spec.fragment}, "
-                          f"{variant or 'periodic_'}{name}_{suffix})")
-    if half:
-        key = f"{variant}{spec.fragment}_{suffix}"
-        stream_collide.half_launches[key] += 1
-    else:
-        stream_collide.fragment_launches[variant + spec.fragment] += 1
-    return (out, u_out) if emit_u else out
-
-
-stream_collide.launches = 0                # periodic BGK primal launches
-stream_collide.emit_u_launches = 0         # periodic BGK emit-u launches
-stream_collide.masked_launches = 0         # masked BGK primal launches
-stream_collide.masked_emit_u_launches = 0  # masked BGK emit-u launches
-# launches of the other fragments, by variant and fragment ("trt",
-# "masked_trt", "emit_u_trt", "masked_emit_u_trt", ...)
-stream_collide.fragment_launches = Counter()
-# launches of the 16-bit instances (K1e, K1f, and K1d on a 16-bit state),
-# BGK included, by variant, fragment and storage ("bgk_bf16_dev",
-# "masked_trt_f16", "emit_u_bgk_bf16", ...)
-stream_collide.half_launches = Counter()
-# launches of the blocked kernel (K2), BGK included, by variant, fragment,
-# storage and span ("bgk_f32_x2", "trt_bf16_dev_x4", "masked_bgk_f32_x2",
-# ...)
-stream_collide.multi_launches = Counter()
 
 
 def march_plan(f: torch.Tensor, e, n_sub: int, adjoint: bool = False,
@@ -998,42 +973,46 @@ def _launch_multi(f: torch.Tensor, out, spec: PackedSpec, n_sub: int, e,
     the columns of ``plan`` when given (a :class:`.build.MarchPlan` of
     :func:`.build.march_candidates` for the same masks), else of
     :func:`march_plan`'s."""
-    suffix = storage_suffix(f.dtype, dev_storage)
-    if dev_storage and spec.fragment in DEV_REFUSED:
-        raise NotImplementedError(
-            f"the {spec.fragment!r} fragment has no deviation-storage "
-            f"instance: its closed-form equilibrium moments are not "
-            f"shift-invariant in f")
-    source = ("stream_collide" if spec.fragment == "bgk"
-              else FRAGMENTS[spec.fragment][0])
-    lib = load_multi_library(source)
-    masked = ncm is not None
-    pointers = [None] * 5
-    if masked:
-        # alive until the call returns
-        table = checked_table(f, ncm, nsm, table, feq_field)
-        pointers = [ncm.data_ptr(),
-                    None if nsm is None else nsm.data_ptr(),
-                    None if feq_field is None else feq_field.data_ptr(),
-                    table.kinds.ctypes.data, table.values.ctypes.data]
-    dims = tuple(int(n) for n in launch_dims(f, e))
-    if plan is None:
-        plan = march_plan(f, e, n_sub, masked=masked, frozen=nsm is not None)
-    scratch = march_scratch(plan, f.device)
-    out = check_out(out, f, f.shape, "out", f)
-    launch = getattr(lib, f"lt_multi_{spec.fragment}_{spec.stencil}_"
-                          f"{suffix}")
-    rc = launch(f.data_ptr(), out.data_ptr(),
-                None if scratch is None else scratch.data_ptr(), *pointers,
-                *dims, int(n_sub), *plan.interior, plan.blocks,
-                plan.threads, spec.params.ctypes.data, float(cs), f.device.index,
-                torch.cuda.current_stream(f.device).cuda_stream)
-    variant = "masked_" if masked else ""
-    check_launch(lib, rc, f"stream_collide ({spec.fragment}, blocked "
-                          f"{variant}x{n_sub} {spec.stencil}_{suffix})")
-    stream_collide.multi_launches[
-        f"{variant}{spec.fragment}_{suffix}_x{n_sub}"] += 1
-    return out
+    with tracing.span("launch"):
+        suffix = storage_suffix(f.dtype, dev_storage)
+        if dev_storage and spec.fragment in DEV_REFUSED:
+            raise NotImplementedError(
+                f"the {spec.fragment!r} fragment has no deviation-storage "
+                f"instance: its closed-form equilibrium moments are not "
+                f"shift-invariant in f")
+        source = ("stream_collide" if spec.fragment == "bgk"
+                  else FRAGMENTS[spec.fragment][0])
+        lib = load_multi_library(source)
+        masked = ncm is not None
+        pointers = [None] * 5
+        if masked:
+            # alive until the call returns
+            table = checked_table(f, ncm, nsm, table, feq_field)
+            pointers = [ncm.data_ptr(),
+                        None if nsm is None else nsm.data_ptr(),
+                        None if feq_field is None else feq_field.data_ptr(),
+                        table.kinds.ctypes.data, table.values.ctypes.data]
+        dims = tuple(int(n) for n in launch_dims(f, e))
+        if plan is None:
+            plan = march_plan(f, e, n_sub, masked=masked,
+                              frozen=nsm is not None)
+        scratch = march_scratch(plan, f.device)
+        out = check_out(out, f, f.shape, "out", f)
+        launch = getattr(lib, f"lt_multi_{spec.fragment}_{spec.stencil}_"
+                              f"{suffix}")
+        with tracing.span("enqueue"):
+            rc = launch(f.data_ptr(), out.data_ptr(),
+                        None if scratch is None else scratch.data_ptr(),
+                        *pointers, *dims, int(n_sub), *plan.interior,
+                        plan.blocks, plan.threads, spec.params.ctypes.data,
+                        float(cs), f.device.index,
+                        torch.cuda.current_stream(f.device).cuda_stream)
+        variant = "masked_" if masked else ""
+        check_launch(lib, rc, f"stream_collide ({spec.fragment}, blocked "
+                              f"{variant}x{n_sub} {spec.stencil}_{suffix})")
+        tracing.count(tracing.launch_key("K2", variant, spec.fragment, suffix,
+                                         n_sub))
+        return out
 
 
 # ----------------------------------------------------------------------

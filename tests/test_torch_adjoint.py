@@ -23,7 +23,8 @@ import lettuce_tpu_torch.ops.cuda.stream_collide as sc
 from lettuce_tpu.ops.pallas.adjoint import fused_adjoint
 from lettuce_tpu.ops.pallas.stream_collide import fused_stream_collide
 from lettuce_tpu_torch.ops.cuda.fused_step import fused_step
-from tests.torch_helpers import hand_state, noisy_state, tgv_pair, to_numpy
+from tests.torch_helpers import (hand_state, launch_counts, noisy_state,
+                                 tgv_pair, to_numpy)
 
 TAU_INV = 1.0 / 0.52
 RTOL = {"float64": 1e-12, "float32": 1e-5}
@@ -224,8 +225,7 @@ def test_wrappers_run_plain_on_cpu_tensors():
     args = kernel_args(stencil)
     f = torch.as_tensor(random_state(stencil, (6, 9), seed=19))
     g = torch.as_tensor(random_cotangent(stencil, (6, 9), seed=20))
-    counts = (sc.stream_collide.launches, sc.stream_collide.emit_u_launches,
-              ad.stream_collide_adjoint.launches)
+    counts = launch_counts("K1", "K3")
     want_f, want_u = sc.stream_collide_plain(f, *args, emit_u=True)
     out, u = torch.empty_like(f), torch.empty((2, 6, 9), dtype=f.dtype)
     got_out, got_u = sc.stream_collide(f, *args, out=out, u_out=u)
@@ -237,9 +237,7 @@ def test_wrappers_run_plain_on_cpu_tensors():
     assert ad.stream_collide_adjoint(g, u, *args, out=ct) is ct
     assert torch.equal(ct, want)
     # no kernel launched
-    assert counts == (sc.stream_collide.launches,
-                      sc.stream_collide.emit_u_launches,
-                      ad.stream_collide_adjoint.launches)
+    assert launch_counts("K1", "K3") == counts
 
 
 def test_adjoint_wrapper_refuses_other_devices():

@@ -23,7 +23,8 @@ import lettuce_tpu_torch.ops.cuda.stream_collide as sc
 from lettuce_tpu.ops.pallas.adjoint import fused_adjoint
 from lettuce_tpu.ops.pallas.stream_collide import fused_stream_collide
 from lettuce_tpu_torch.ops.cuda.fused_step import fused_step
-from tests.torch_helpers import DTYPES, TorchTestFlow, to_numpy
+from tests.torch_helpers import (DTYPES, TorchTestFlow, launch_counts,
+                                 to_numpy)
 
 TAU_INV = 1.0 / 0.6
 GRAD_RTOL = {"float64": 1e-12, "float32": 1e-5}
@@ -242,9 +243,7 @@ def test_masked_wrappers_run_plain_on_cpu_tensors():
     f = torch.as_tensor(f)
     masks = torch_masks(ncm, nsm, feq, table, torch.float64)
     args = kernel_args(stencil)
-    counts = (sc.stream_collide.masked_launches,
-              sc.stream_collide.masked_emit_u_launches,
-              ad.stream_collide_adjoint.masked_launches)
+    counts = launch_counts("K1", "K3")
     want_f, want_u = sc.stream_collide_plain(f, *args, **masks, emit_u=True)
     out, u = torch.empty_like(f), torch.empty((3, 5, 6, 7),
                                               dtype=torch.float64)
@@ -254,9 +253,7 @@ def test_masked_wrappers_run_plain_on_cpu_tensors():
                     generator=torch.Generator().manual_seed(1))
     want = ad.stream_collide_adjoint_plain(g, u, *args, **masks)
     assert torch.equal(ad.stream_collide_adjoint(g, u, *args, **masks), want)
-    assert counts == (sc.stream_collide.masked_launches,
-                      sc.stream_collide.masked_emit_u_launches,
-                      ad.stream_collide_adjoint.masked_launches)
+    assert launch_counts("K1", "K3") == counts
 
 
 def test_unknown_codes_are_identity():

@@ -25,7 +25,7 @@ from lettuce_tpu_torch.ops.cuda.fused_step import _FusedStep
 from lettuce_tpu_torch.ops.equilibrium import quadratic_feq
 from tests.test_torch_bounded_kernel import (JAX_KINDS, assert_scaled_close,
                                              bounded_case, torch_masks)
-from tests.torch_helpers import DTYPES
+from tests.torch_helpers import DTYPES, launch_counts
 
 GRAD_RTOL = {"float64": 1e-12, "float32": 1e-5}
 D2 = ("D2Q9", (16, 128))
@@ -273,8 +273,7 @@ def test_wrappers_run_plain_on_cpu_tensors():
     f = torch.as_tensor(f)
     g = torch.as_tensor(np.random.default_rng(61).standard_normal(f.shape))
     spec = forward_spec("mrt", stencil)
-    counts = (dict(sc.stream_collide.fragment_launches),
-              dict(ad.stream_collide_adjoint.fragment_launches))
+    counts = launch_counts("K1", "K3")
     out, u = torch.empty_like(f), torch.empty((3, 5, 6, 7),
                                               dtype=torch.float64)
     assert sc.stream_collide(f, *args_of(stencil), None, collision_spec=spec,
@@ -291,5 +290,4 @@ def test_wrappers_run_plain_on_cpu_tensors():
     h = ad.stream_collide_adjoint(g, None, *args_of(stencil), None,
                                   nsm=frozen, collision_spec=ad.NONE_SPEC)
     assert torch.equal(h, ad._pull(g, stencil.e, frozen))
-    assert counts == (dict(sc.stream_collide.fragment_launches),
-                      dict(ad.stream_collide_adjoint.fragment_launches))
+    assert launch_counts("K1", "K3") == counts

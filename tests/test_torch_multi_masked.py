@@ -38,7 +38,7 @@ from tests.test_torch_hybrid import OUTLETS, obstacle
 from tests.test_torch_multi_step import (CASES, counted_launches,
                                          port_kernel)
 from tests.torch_helpers import (DTYPES, TorchTestFlow, hand_state,
-                                 noisy_state, to_numpy)
+                                 launch_counts, noisy_state, to_numpy)
 
 NSUB = "2"
 
@@ -108,9 +108,9 @@ def test_wrapper_takes_masks_at_any_span():
     want = x
     for _ in range(3):
         want = sc.stream_collide_plain(want, *args, **masks)
-    before = dict(sc.stream_collide.multi_launches)
+    before = launch_counts("K2")
     assert torch.equal(sc.stream_collide(x, *args, **masks, n_sub=3), want)
-    assert dict(sc.stream_collide.multi_launches) == before
+    assert launch_counts("K2") == before
 
 
 # ----------------------------------------------------------------------

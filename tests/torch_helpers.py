@@ -8,6 +8,7 @@ import torch
 
 import lettuce_tpu as lt
 import lettuce_tpu_torch as ltt
+from lettuce_tpu_torch import tracing
 
 # dtype name -> (jax dtype, torch dtype, parity tolerance). float64 agrees
 # to roundoff; float32 to the tolerance tests/test_native.py holds the
@@ -16,6 +17,13 @@ DTYPES = {
     "float64": (jnp.float64, torch.float64, 1e-12),
     "float32": (jnp.float32, torch.float32, 5e-6),
 }
+
+
+def launch_counts(*kernels):
+    """``{key: launches}`` of the kernels ``kernels`` (``"K1"`` ..
+    ``"K4"``) in the port's launch counter."""
+    return {key: n for key, n in tracing.counts.items()
+            if key.split(":")[0] in kernels}
 
 
 def contexts(dtype_name):
