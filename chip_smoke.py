@@ -137,9 +137,10 @@ Phases:
      forward fragment and 8 adjoint launches, the 2-step gradient against
      autograd of the torch step along the kernels' trajectory to 1e-5
      (KBC's float32 gradient is too ill-conditioned to follow the torch
-     step's own), fwd+bwd MLUPS (3 repeats after a
-     warm-up), and per launch the forward and adjoint kernels against
-     their plain versions by CUDA events (plus split mode's pointwise VJP);
+     step's own; both sides take u from K5, as Flow.u does), fwd+bwd
+     MLUPS (3 repeats after a warm-up), and per launch the forward and
+     adjoint kernels against their plain versions by CUDA events (plus
+     split mode's pointwise VJP);
  21. obstacle2d_2048 with the regularized collision (masked emit-u reg,
      masked matvec adjoint, replay) and with KBC (masked kbc, the streaming
      transpose, the pointwise VJP, replay): the 8-step gradient against
@@ -233,7 +234,18 @@ Phases:
      thread), K3c, K1d@16, K1f and K3@16 masked on obstacle2d_2048, K1c
      none/lallemand/dellar masked on it, and BGK masked per stencil and
      16-bit storage at 1, 2 and 4 cells a thread (the obstacles at
-     2048x1024 and 320x160x160), the fastest printed beside the shipped.
+     2048x1024 and 320x160x160), the fastest printed beside the shipped;
+ 37. the velocity moment of Flow.u and its adjoint (K5, csrc/moments.cu):
+     every instance (D1Q3, D2Q9, D3Q15, D3Q19, D3Q27; float32, bfloat16,
+     float16; the 16-byte path, a cell count it does not divide, a
+     misaligned state) against the plain versions, the C entry refusing
+     16-byte accesses on a misaligned pointer; then D3Q19 256^3 and D2Q9
+     2048x1024 in each dtype: against plain, event ms in turns with the
+     plain versions and with the torch expression's forward and autograd
+     backward, torch.profiler's device ms, the bound at 3.35 TB/s and at
+     the saxpy (92 and 104 B a cell in float32), the launches of one
+     Flow.u loss step on each state; a 256^3 Flow.u under autograd
+     against the expression's gradient.
 Phases 26-28 and 34 also print each launch's march plan, phase 26 how
 many float32 and float64 instance-spans are bitwise equal to n_sub K1
 launches.
@@ -335,13 +347,14 @@ def phase0_card():
 
 
 def phase1_build():
-    from lettuce_tpu_torch.ops.cuda import adjoint, build
+    from lettuce_tpu_torch.ops.cuda import adjoint, build, moments
     import lettuce_tpu_torch.ops.cuda.stream_collide as sc
     cached = all(build.library_path(name).exists() for name in build.SOURCES)
     beg = time.perf_counter()
     paths = build.build_libraries()
     sc.load_libraries()
     adjoint.load_libraries()
+    moments.load_library()
     seconds = time.perf_counter() - beg
     print(f"phase 1: kernel libraries "
           f"{', '.join(path.name for path in paths.values())} "
@@ -4968,6 +4981,278 @@ print(json.dumps(ms))
 """
 
 
+MOMENTS_SOURCE = "lettuce_tpu_torch/csrc/moments.cu"
+MOMENTS_REPLACES = "none (lettuce_tpu's Flow.u is jnp)"
+K5_KERNELS = ("velocity_kernel",)
+K5_ADJOINT_KERNELS = ("velocity_adjoint_kernel",)
+
+
+def k5_bytes(q, d, itemsize):
+    """(forward, adjoint) bytes a cell: K5 reads q stored values and
+    writes d of u and rho in float32; its adjoint reads g and u (d stored
+    values each) and rho and writes q."""
+    return (q * itemsize + d * itemsize + 4,
+            2 * d * itemsize + 4 + q * itemsize)
+
+
+def k5_ops(q, d):
+    """(forward, adjoint) operations a cell, counted from csrc/moments.cu
+    (approximate; far below the bytes' time)."""
+    return 2 * q + d, 3 * q + 2 * d + 1
+
+
+def moment_state(stencil, shape, dtype, seed, offset=0):
+    """A state near rest on the card, w_q (1 + 0.05 N(0, 1)) seeded, in
+    ``dtype``; ``offset`` elements into its buffer (a misaligned state)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    w = torch.as_tensor(stencil.w, dtype=torch.float32, device="cuda")
+    n = stencil.q * int(np.prod(shape))
+    noise = torch.randn(n, generator=g, device="cuda")
+    f = (w.repeat_interleave(n // stencil.q) * (1 + 0.05 * noise))
+    buf = torch.empty(n + offset, dtype=dtype, device="cuda")
+    state = buf[offset:].view(stencil.q, *shape)
+    state.copy_(f.view(stencil.q, *shape))
+    return state
+
+
+def k5_plan(f, e):
+    """K5's launch plan for the CUDA state ``f`` of the velocities ``e``."""
+    from lettuce_tpu_torch.ops.cuda import moments
+    return moments.plan_of(f, moments.takes(f, e))
+
+
+def k5_against_plain(stencil, f, seed, what):
+    """K5 and its adjoint on the state ``f`` against the plain versions
+    (the adjoint from the kernel's u and rho, a seeded g): u to ATOL in
+    float32, to one storage ulp plus 2^-23 at 16 bits; rho to 1e-6 of its
+    size; the cotangent to GRAD_RTOL of its largest magnitude in float32,
+    one storage ulp there at 16 bits. Returns the absolute max errors of
+    u, rho and the cotangent, and the readings held to those limits: u's
+    (absolute in float32, ulps at 16 bits) and the cotangent's (relative
+    to its largest magnitude in float32, ulps there at 16 bits)."""
+    from lettuce_tpu_torch.ops.cuda import moments
+    e = stencil.e
+    plan = k5_plan(f, e)
+    u, rho = moments._launch(f, plan, keep_rho=True)
+    u_ref, rho_ref = moments.velocity_plain(f, e)
+    g = torch.randn(u.shape, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(
+                        seed)).to(f.dtype)
+    out = moments._launch_adjoint(g, u, rho, plan)
+    ref = moments.velocity_adjoint_plain(g, u, rho, e)
+    torch.cuda.synchronize()
+    for x in (u, rho, out):
+        check(bool(torch.isfinite(x.float()).all()), f"{what}: not finite")
+    rho_err = (rho - rho_ref).abs().max().item()
+    check(rho_err <= 1e-6 * rho_ref.abs().max().item(),
+          f"{what}: rho {rho_err:.3g} from plain")
+    u_abs = (u.float() - u_ref.float()).abs().max().item()
+    adj_abs, scale = scaled_err(out.float(), ref.float())
+    if f.dtype == torch.float32:
+        u_read, adj_read = u_abs, adj_abs / scale
+        check(u_read <= ATOL[torch.float32], f"{what}: u {u_read:.3g} from "
+                                             f"plain")
+        check(adj_read <= GRAD_RTOL[torch.float32],
+              f"{what}: adjoint {adj_abs:.3g} of {scale:.3g} from plain")
+    else:
+        _, u_read, _ = storage_ulps(u, u_ref)
+        check(u_read <= 1.0, f"{what}: u {u_read:.2f} ulps (with 2^-23) "
+                             f"from plain")
+        adj_read = ulps_at_max(out, ref)[0]
+        check(adj_read <= 1.0, f"{what}: adjoint {adj_read:.2f} ulps at its "
+                               f"largest magnitude from plain")
+    return (u_abs, rho_err, adj_abs), (u_read, adj_read)
+
+
+def flow_u_launches(flow, f):
+    """K5's launch counts in one loss step through Flow.u on the CUDA
+    state ``f`` (of ``flow``'s stencil): mean(u^2) and its backward, the
+    counts reset just before; ``moments_torch`` among them."""
+    from lettuce_tpu_torch import tracing
+    fg = f.detach().requires_grad_(True)
+    reset_launch_counts()
+    torch.mean(flow.view(fg).u().float() ** 2).backward()
+    torch.cuda.synchronize()
+    return {k: n for k, n in tracing.counts.items()
+            if k.startswith("K5:") or k == "moments_torch"}
+
+
+def phase37_velocity_moments(card, saxpy_gbps):
+    """K5 and its adjoint (csrc/moments.cu) against their plain versions,
+    instance by instance, then timed at full size; returns the rows for
+    the kernels line."""
+    import ctypes
+    import lettuce_tpu_torch as lt
+    from lettuce_tpu_torch import tracing
+    from lettuce_tpu_torch.ops.cuda import moments
+    # (a) every instance at small sizes: the 16-byte path, a cell count
+    # it does not divide, a misaligned state (one cell a thread)
+    small = {1: ((4096,), (1001,)), 2: ((64, 96), (31, 33)),
+             3: ((16, 18, 24), (7, 9, 11))}
+    worst = {}
+    seed = 3700
+    for name, make in moments.STENCILS.items():
+        stencil = make()
+        for dtype, suffix in moments.STORAGE.items():
+            before = (tracing.counts[f"K5:u_{suffix}"],
+                      tracing.counts[f"K5:adjoint_u_{suffix}"])
+            runs = 0
+            for shape, offset in ((small[stencil.d][0], 0),
+                                  (small[stencil.d][1], 0),
+                                  (small[stencil.d][0], 1)):
+                seed += 1
+                f = moment_state(stencil, shape, dtype, seed, offset)
+                errs, reads = k5_against_plain(stencil, f, seed,
+                                               f"K5 {name} {suffix} {shape} "
+                                               f"offset {offset}")
+                runs += 1
+                worst[suffix] = tuple(max(a, b) for a, b in zip(
+                    worst.get(suffix, (0.0,) * 5), errs + reads))
+            after = (tracing.counts[f"K5:u_{suffix}"],
+                     tracing.counts[f"K5:adjoint_u_{suffix}"])
+            check(after == (before[0] + runs, before[1] + runs),
+                  f"K5 {name} {suffix}: launches {before} -> {after}")
+    # the C entry refuses 16-byte accesses on a misaligned pointer
+    stencil = lt.D2Q9()
+    f = moment_state(stencil, (64, 96), torch.float32, 1, offset=1)
+    u = torch.empty((2, 64, 96), device="cuda")
+    entry = getattr(moments.load_library(), "lt_velocity_d2q9_f32")
+    rc = entry(f.data_ptr(), u.data_ptr(), None, 64 * 96, 1, 0,
+               torch.cuda.current_stream().cuda_stream)
+    check(rc == 1, f"K5 on a misaligned state with 16-byte accesses "
+                   f"returned {rc}, not cudaErrorInvalidValue")
+    print(f"phase 37: K5 and its adjoint, {5 * 3 * 3} instance runs "
+          f"against plain: worst absolute (u, rho, adjoint) and readings "
+          f"(u, adjoint) "
+          + "; ".join(f"{s} {u:.3g}, {r:.3g}, {a:.3g} ({ur:.3g}, {ar:.3g})"
+                      for s, (u, r, a, ur, ar) in worst.items())
+          + " (readings: float32 u absolute and the adjoint relative to its "
+            "largest magnitude, 16 bits in ulps); a misaligned 16-byte "
+            "launch refused")
+    # (b) full size, each dtype
+    rows = {}
+    for label, stencil, shape in (("d3q19 256^3", lt.D3Q19(), (256,) * 3),
+                                  ("d2q9 2048x1024", lt.D2Q9(),
+                                   (2048, 1024))):
+        cells = int(np.prod(shape))
+        e = stencil.e
+        et = torch.as_tensor(e, dtype=torch.float32, device="cuda")
+        # Flow.u reads only the stencil: a small flow views the big state
+        small_flow = lt.TaylorGreenVortex(
+            lt.Context(device="cuda", dtype=torch.float32, use_native=False),
+            [16] * stencil.d, 100, 0.05, stencil=stencil,
+            initialize_fneq=False)
+        for dtype, suffix in moments.STORAGE.items():
+            seed += 1
+            f = moment_state(stencil, shape, dtype, seed)
+            what = f"K5 {label} {suffix}"
+            errs, reads = k5_against_plain(stencil, f, seed, what)
+            plan = k5_plan(f, e)
+            u, rho = moments._launch(f, plan, keep_rho=True)
+            g = torch.randn_like(u, dtype=torch.float32).to(dtype)
+            fg = f.detach().requires_grad_(True)
+
+            def expression():
+                # Flow.u's torch expression and its autograd backward
+                x = torch.tensordot(et.to(dtype).T, fg, dims=1) / torch.sum(
+                    fg, dim=0, keepdim=True)
+                torch.autograd.grad(x, fg, g)
+
+            kernels = {
+                "forward": lambda: moments._launch(f, plan, keep_rho=True),
+                "adjoint": lambda: moments._launch_adjoint(g, u, rho, plan)}
+            plains = {"forward": lambda: moments.velocity_plain(f, e),
+                      "adjoint": lambda: moments.velocity_adjoint_plain(
+                          g, u, rho, e)}
+            for fn in (*kernels.values(), *plains.values(), expression):
+                fn()
+            first = {k: cuda_ms(fn, 200) for k, fn in kernels.items()}
+            plain = {k: cuda_ms(fn, 5) for k, fn in plains.items()}
+            expr_ms = cuda_ms(expression, 5)
+            second = {k: cuda_ms(fn, 200)
+                      for k, fn in reversed(kernels.items())}
+            plain = {k: (plain[k] + cuda_ms(fn, 5)) / 2
+                     for k, fn in plains.items()}
+            device = {"forward": device_ms_per_launch(kernels["forward"],
+                                                      K5_KERNELS),
+                      "adjoint": device_ms_per_launch(kernels["adjoint"],
+                                                      K5_ADJOINT_KERNELS)}
+            itemsize = torch.finfo(dtype).bits // 8
+            nbytes = dict(zip(("forward", "adjoint"),
+                              k5_bytes(stencil.q, stencil.d, itemsize)))
+            ops = dict(zip(("forward", "adjoint"),
+                           k5_ops(stencil.q, stencil.d)))
+            # the launches of one Flow.u loss step on this state
+            launches = flow_u_launches(small_flow, f)
+            check(launches == {f"K5:u_{suffix}": 1,
+                               f"K5:adjoint_u_{suffix}": 1},
+                  f"{what}: a Flow.u loss step counted {launches}")
+            parts = []
+            for k in kernels:
+                bound_ms = cells * nbytes[k] / HBM_BYTES_PER_S * 1e3
+                saxpy_ms = cells * nbytes[k] / (saxpy_gbps * 1e9) * 1e3
+                dev = device[k]
+                ms = dev if dev is not None else (first[k] + second[k]) / 2
+                parts.append(
+                    f"{k}: event {first[k]:.4f} / {second[k]:.4f} ms, "
+                    f"device {'not measured' if dev is None else f'{dev:.4f}'}"
+                    f" ms, bound {bound_ms:.4f} at 3.35 TB/s, {saxpy_ms:.4f}"
+                    f" at the saxpy ({saxpy_ms / ms:.1%} of it), "
+                    f"{nbytes[k]} B a cell; plain {plain[k]:.4f} ms")
+                key = tracing.launch_key(
+                    "K5", "adjoint_" if k == "adjoint" else "", "u", suffix)
+                rows[f"{label} {suffix}", k] = dict(
+                    cells=cells, bytes=nbytes[k], ops=ops[k], ms=ms,
+                    plain_ms=plain[k],
+                    err=errs[0] if k == "forward" else errs[2],
+                    launches=launches[key])
+            print(f"phase 37: {what}: " + "; ".join(parts)
+                  + f"; expression forward + autograd backward "
+                    f"{expr_ms:.4f} ms; against plain, absolute u "
+                    f"{errs[0]:.3g}, rho {errs[1]:.3g}, adjoint "
+                    f"{errs[2]:.3g}, readings u {reads[0]:.3g}, adjoint "
+                    f"{reads[1]:.3g}; a Flow.u loss step launches "
+                  + ", ".join(f"{k} {n}" for k, n in sorted(launches.items()))
+                  + f" ({card})")
+            del f, u, rho, g, fg
+            torch.cuda.empty_cache()
+    # (c) Flow.u under autograd: one K5 and one adjoint launch, nothing
+    # counted as the expression
+    flow = lt.TaylorGreenVortex(
+        lt.Context(device="cuda", dtype=torch.float32, use_native=False),
+        [256] * 3, 1600, 0.05, stencil=lt.D3Q19(), initialize_fneq=False)
+    f0 = flow.f.clone().requires_grad_(True)
+    reset_launch_counts()
+    loss = torch.mean(flow.view(f0).u() ** 2)
+    loss.backward()
+    torch.cuda.synchronize()
+    counts = {k: n for k, n in tracing.counts.items()
+              if k.startswith("K5:") or k == "moments_torch"}
+    check(counts == {"K5:u_f32": 1, "K5:adjoint_u_f32": 1},
+          f"Flow.u under autograd at 256^3 counted {counts}")
+    ref = (flow.j(f0) / flow.rho(f0)).detach()
+    ref_grad = torch.autograd.grad(torch.mean(
+        (flow.j(f0) / flow.rho(f0)) ** 2), f0)[0]
+    err, scale = scaled_err(f0.grad, ref_grad)
+    check(err <= GRAD_RTOL[torch.float32] * scale,
+          f"Flow.u's gradient {err:.3g} of {scale:.3g} from the "
+          f"expression's")
+    u_err = (flow.u(f0.detach()) - ref).abs().max().item()
+    print(f"phase 37: Flow.u under autograd at 256^3: launches {counts}; "
+          f"u {u_err:.3g} from the expression's, gradient "
+          f"{err / scale:.3g} of its largest magnitude")
+    return rows
+
+
+def k5_entries(rows):
+    """The kernels line's rows of phase 37."""
+    return [kernel_entry(f"velocity_{kind}[{cell}]", MOMENTS_SOURCE,
+                         MOMENTS_REPLACES, row["launches"], row["err"],
+                         row["ms"], row["plain_ms"], row["cells"],
+                         row["bytes"], row["ops"])
+            for (cell, kind), row in rows.items()]
+
+
 def compare_single_step(parent: str):
     """The single-step kernels of the parent commit's tree at ``parent``
     (a directory holding its checkout) and of this one, each timed in a
@@ -5347,6 +5632,7 @@ def main():
     phase35_march_candidates(card, saxpy_gbps)
     phase36_vectors_vs_plain()
     cell_launch = phase36_cell_launch(card, saxpy_gbps)
+    moments_rows = phase37_velocity_moments(card, saxpy_gbps)
     print(f"build {build_s:.2f} s; whole run {time.perf_counter() - beg:.1f} "
           f"s")
     print(card)
@@ -5424,6 +5710,7 @@ def main():
     kernels += half_gradient_entries(worst_half_gradient, half_gradient,
                                      half_blocked)
     kernels += cell_launch_entries(cell_launch)
+    kernels += k5_entries(moments_rows)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

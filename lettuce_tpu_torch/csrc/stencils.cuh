@@ -16,6 +16,19 @@ namespace lt {
 
 constexpr int kBlock = 128;
 
+// Only the velocity moment (moments.cu) takes D1Q3: the stream-collide
+// kernels run 2D and 3D grids.
+struct D1Q3 {
+  static constexpr int D = 1, Q = 3;
+  __host__ __device__ static constexpr int e(int q, int a) {
+    constexpr int t[Q][D] = {{0}, {1}, {-1}};
+    return t[q][a];
+  }
+  __host__ __device__ static constexpr double w(int q) {
+    return q == 0 ? 2.0 / 3.0 : 1.0 / 6.0;
+  }
+};
+
 struct D2Q9 {
   static constexpr int D = 2, Q = 9;
   __host__ __device__ static constexpr int e(int q, int a) {

@@ -17,6 +17,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from . import tracing
 from .stencil import TorchStencil
 from .utils.utility import torch_gradient, torch_jacobi
 
@@ -149,7 +150,20 @@ class Flow(ABC):
     def u(self, f: Optional[torch.Tensor] = None, rho=None,
           acceleration=None) -> torch.Tensor:
         """Velocity, shape [d, *resolution]; with a forcing scheme,
-        ``acceleration`` adds the Guo half-step correction a/(2 rho)."""
+        ``acceleration`` adds the Guo half-step correction a/(2 rho).
+
+        A CUDA state the velocity kernel takes (:func:`.ops.cuda.moments.
+        takes`), with neither ``rho`` nor ``acceleration`` given, runs one
+        K5 launch (its adjoint under autograd); every other call runs the
+        expression j / rho, counted as ``moments_torch`` on the card."""
+        from .ops.cuda import moments  # the ops package imports this module
+        state = self.f if f is None else f
+        if rho is None and acceleration is None:
+            name = moments.takes(state, self.stencil.e)
+            if name is not None:
+                return moments.velocity(state, self.stencil.e, name)
+        if state.is_cuda:
+            tracing.count("moments_torch")
         rho = self.rho(f=f) if rho is None else rho
         v = self.j(f=f) / rho
         if acceleration is None:

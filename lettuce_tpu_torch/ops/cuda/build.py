@@ -57,14 +57,15 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 # instances), their adjoints (K3b, K3d's streaming transpose), and the
 # 16-bit forward instances of BGK and of each fragment source (K1e, K1f,
 # and K1d on a 16-bit state), the blocked forward of BGK and of each
-# fragment source in every storage (K2), the blocked adjoint (K4), and the
-# adjoints of a 16-bit state (K3 and K4 at 16 bits)
+# fragment source in every storage (K2), the blocked adjoint (K4), the
+# adjoints of a 16-bit state (K3 and K4 at 16 bits), and the velocity
+# moment of Flow.u with its adjoint (K5)
 SOURCES = ("stream_collide", "adjoint", "collide_basic", "collide_moments",
            "collide_mrt", "collide_kbc", "adjoint_fragments",
            "half_stream_collide", "half_basic", "half_moments", "half_mrt",
            "half_kbc", "multi_stream_collide", "multi_basic",
            "multi_moments", "multi_mrt", "multi_kbc", "adjoint_multi",
-           "adjoint_half", "adjoint_multi_half")
+           "adjoint_half", "adjoint_multi_half", "moments")
 _BUILD_DIR = (Path(__file__).resolve().parents[3] / "build"
               / "lettuce_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

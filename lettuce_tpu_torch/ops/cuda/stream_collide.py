@@ -67,6 +67,7 @@ import numpy as np
 import torch
 
 from ... import tracing
+from . import moments
 from ..boundary import (HYBRID_OUTLET_TYPES, BounceBackBoundary,
                         EquilibriumBoundaryPU, combined_equilibrium_field)
 from ..collision import (BGKCollision, KBCCollision, MRTCollision,
@@ -174,18 +175,31 @@ def _replace_boundaries(f: torch.Tensor, fpost: torch.Tensor, opposite,
     return fpost
 
 
+def _velocity(f: torch.Tensor, et: torch.Tensor, rho: torch.Tensor,
+              e: np.ndarray) -> torch.Tensor:
+    """u = j / rho of ``f``: through K5 where :meth:`.Flow.u` takes it
+    (:func:`.moments.takes`), as the torch step's collisions compute it,
+    so that split mode's VJP (:func:`.adjoint.prestream_vjp`) linearises
+    at the torch step's own u; elsewhere the expression."""
+    name = moments.takes(f, e)
+    if name is not None:
+        return moments.velocity(f, e, name)
+    return torch.tensordot(et.T, f, dims=1) / rho
+
+
 def collide_plain(f: torch.Tensor, spec, e: np.ndarray, w: np.ndarray,
                   opposite: np.ndarray, cs: float) -> torch.Tensor:
     """The post-collision state of the collision ``spec`` in plain torch:
     per fragment, the formula of lettuce_tpu's jnp operator on the
-    quadratic equilibrium of ``f``."""
+    quadratic equilibrium of ``f``, its u computed as :meth:`.Flow.u`
+    computes it (:func:`_velocity`)."""
     kind = spec[0]
     if kind == "none":
         return f
     et = torch.as_tensor(np.asarray(e), dtype=f.dtype, device=f.device)
     wt = torch.as_tensor(np.asarray(w), dtype=f.dtype, device=f.device)
     rho = torch.sum(f, dim=0, keepdim=True)
-    u = torch.tensordot(et.T, f, dims=1) / rho
+    u = _velocity(f, et, rho, e)
     if kind == "bgk_force":
         _, tau_inv, accel, k_ueq, src_pref = spec
         a = torch.as_tensor(accel, dtype=f.dtype, device=f.device)
@@ -203,7 +217,7 @@ def collide_plain(f: torch.Tensor, spec, e: np.ndarray, w: np.ndarray,
             # the exact image of feq, through f-space
             f_rt = torch.tensordot(Minv, m, dims=1)
             rho_rt = torch.sum(f_rt, dim=0, keepdim=True)
-            u_rt = torch.tensordot(et.T, f_rt, dims=1) / rho_rt
+            u_rt = _velocity(f_rt, et, rho_rt, e)
             meq = torch.tensordot(M, quadratic_feq(et, wt, cs, rho_rt, u_rt),
                                   dims=1)
         else:

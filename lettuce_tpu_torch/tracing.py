@@ -38,8 +38,11 @@ The spans, one per layer boundary:
 The counter :data:`counts` is always on, recording or not: every kernel
 launch counts under :func:`launch_key` (``K1`` the single-step forward,
 ``K2`` the blocked forward, ``K3`` the adjoint, ``K4`` the blocked
-adjoint), ``replay`` every replay, ``library_built`` every ``nvcc`` run
-and ``library_opened`` every library loaded.
+adjoint, ``K5`` the velocity moment of ``Flow.u`` and its adjoint),
+``moments_torch`` every ``Flow.u`` of a CUDA state that runs the torch
+expression instead of K5, ``replay`` every replay, ``library_built``
+every ``nvcc`` run and ``library_opened`` every library loaded. K5's
+launches open no span: the counts say how often ``Flow.u`` takes it.
 """
 
 from __future__ import annotations
@@ -174,12 +177,15 @@ def count(key: str, n: int = 1) -> None:
 
 def launch_key(kernel: str, variant: str, fragment: str, storage: str,
                n_sub: int = None) -> str:
-    """The counter key of a launch of ``kernel`` (``K1``..``K4``):
+    """The counter key of a launch of ``kernel`` (``K1``..``K5``):
     ``<kernel>:<variant><fragment>_<storage>``, and ``_x<n_sub>`` for a
     blocked one; ``variant`` is empty or ends in ``_`` (``masked_``,
-    ``emit_u_``, ``masked_emit_u_``, ``frozen_``), ``storage`` is
-    :func:`.ops.cuda.build.storage_suffix`'s. So ``K1:masked_emit_u_bgk_f32``,
-    ``K1:trt_bf16_dev``, ``K2:masked_bgk_f32_x2``, ``K4:bgk_bf16_x2``."""
+    ``emit_u_``, ``masked_emit_u_``, ``frozen_``, ``adjoint_``),
+    ``storage`` is :func:`.ops.cuda.build.storage_suffix`'s; K5's
+    ``fragment`` is ``u``, the moment it computes. So
+    ``K1:masked_emit_u_bgk_f32``, ``K1:trt_bf16_dev``,
+    ``K2:masked_bgk_f32_x2``, ``K4:bgk_bf16_x2``, ``K5:u_f32``,
+    ``K5:adjoint_u_bf16``."""
     key = f"{kernel}:{variant}{fragment}_{storage}"
     return key if n_sub is None else f"{key}_x{n_sub}"
 

@@ -193,7 +193,9 @@ def test_uniform_launch_key(kernel, variant, n_sub, storage):
     ("K1:trt_bf16_dev", ("K1", "", "trt", "bf16_dev")),
     ("K2:masked_bgk_f32_x2", ("K2", "masked_", "bgk", "f32", 2)),
     ("K3:masked_bgk_f32", ("K3", "masked_", "bgk", "f32")),
-    ("K4:bgk_bf16_x2", ("K4", "", "bgk", "bf16", 2))])
+    ("K4:bgk_bf16_x2", ("K4", "", "bgk", "bf16", 2)),
+    ("K5:u_f32", ("K5", "", "u", "f32")),
+    ("K5:adjoint_u_bf16", ("K5", "adjoint_", "u", "bf16"))])
 def test_launch_key_examples(key, args):
     assert tracing.launch_key(*args) == key
 
