@@ -1,6 +1,10 @@
 """The flows of the benchmark's configurations, one module each
 (``<flow>.py``, named by a configuration's ``flow``): the seeded initial
-state, the program's simulation and the reference step."""
+state, the program's simulation and the reference step. The program's
+collision is a module of its own, ``collisions/<name>.py``, named by the
+configuration's ``collision``: ``program(lt, flow, params)`` returns the
+port's ``Collision`` for the built flow; the harness finds it and hands
+it to the flow's ``program``."""
 
 from __future__ import annotations
 

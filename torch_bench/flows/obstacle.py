@@ -77,9 +77,11 @@ def horizon_steps(config):
     return None
 
 
-def program(lt, config, device, dtype, half_storage=False):
+def program(lt, config, device, dtype, half_storage=False, *, collision):
     """The program's simulation of this flow: its ``Obstacle`` with the
-    configuration's outlet in place of the anti-bounce-back one."""
+    configuration's outlet in place of the anti-bounce-back one, and the
+    collision that ``collision(flow)`` builds (the configuration's, found
+    by name)."""
     outlet = OUTLETS[config["outlet"]]
 
     class Channel(lt.Obstacle):
@@ -95,5 +97,4 @@ def program(lt, config, device, dtype, half_storage=False):
                    domain_length_x=nx / diameter(config), char_length=1,
                    stencil=getattr(lt, config["stencil"])())
     flow.mask = solid(config)
-    collision = lt.BGKCollision(tau=flow.units.relaxation_parameter_lu)
-    return lt.Simulation(flow, collision, [], half_storage=half_storage)
+    return lt.Simulation(flow, collision(flow), [], half_storage=half_storage)

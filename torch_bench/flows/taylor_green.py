@@ -56,12 +56,12 @@ def horizon_steps(config):
     return round(config["horizon_time"] / lattice(config)["dt"])
 
 
-def program(lt, config, device, dtype, half_storage=False):
-    """The program's simulation of this flow."""
+def program(lt, config, device, dtype, half_storage=False, *, collision):
+    """The program's simulation of this flow, with the collision that
+    ``collision(flow)`` builds (the configuration's, found by name)."""
     context = lt.Context(device=device, dtype=dtype, use_native=True)
     flow = lt.TaylorGreenVortex(
         context, list(config["resolution"]), config["reynolds_number"],
         config["mach_number"], stencil=getattr(lt, config["stencil"])(),
         initialize_fneq=config["initialize_fneq"])
-    collision = lt.BGKCollision(tau=flow.units.relaxation_parameter_lu)
-    return lt.Simulation(flow, collision, [], half_storage=half_storage)
+    return lt.Simulation(flow, collision(flow), [], half_storage=half_storage)

@@ -6,13 +6,30 @@ configuration and a traffic mix. Everything else is found by name:
 * ``configs/<config>.json``: the flow's numbers; its ``flow`` names the
   module ``flows/<flow>.py`` that makes the seeded initial state, builds
   the program's simulation and gives the reference step;
+* the configuration's ``collision``, a name (``"bgk"``) or an object
+  ``{"name": ..., <parameters>}``, names two modules:
+  ``flows/collisions/<name>.py``, whose ``program(lt, flow, params)``
+  returns the port's ``Collision``, and
+  ``reference/collisions/<name>.py``, whose ``collide(f, st, tau,
+  params)`` is the reference's, in plain torch; a missing one stops the
+  run (nothing falls back to BGK);
 * ``traffic/<mix>.json``: how the window drives the program; its ``kind``
   is ``rollout`` (a closed loop of ``Simulation.__call__``) or ``adam``
-  (a closed loop of Adam iterations through ``make_segment_fn``);
-* ``metrics/<metric>.py``: one reader per metric, ``read(record)``;
+  (a closed loop of Adam iterations through ``make_segment_fn``); an
+  ``n_sub`` asks for the program's temporal blocking at that span
+  (``LETTUCE_NSUB``, set only while the program is built), and a program
+  that runs another span stops the run;
+* ``metrics/<metric>.py``: one reader per metric, ``read(record)``; a
+  reader that sets ``SPANS = True`` has a traced run record the program's
+  own spans over the window (``lettuce_tpu_torch.tracing.recording()``),
+  and every traced record carries the deltas of the program's launch
+  counters over the window;
 * ``kernels/*.json``: the kernel families, their profiler names, bytes
   and operations per lattice update;
 * ``limits/<cell>.json``: the limit of each number the check compares.
+
+All of them are found under the benchmark's folder of the ``root`` that
+holds ``BENCHMARK.json``.
 
 One run: build the program and the cell's inputs from the seed, warm up
 the cell's own shapes, measure for ``seconds``, compare what the window
@@ -24,15 +41,19 @@ into the program's layers; the run then reports the per-layer metrics.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import importlib.util
 import json
 import math
 import os
 import random
+import re
 import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -47,6 +68,10 @@ ROOT = HERE.parent
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 DTYPES = {"float32": torch.float32, "float64": torch.float64,
           "bfloat16": torch.bfloat16, "float16": torch.float16}
+NAME = re.compile(r"[A-Za-z0-9_][A-Za-z0-9_.-]*")
+# the JAX stack and the JAX package, by whole top-level name: the process
+# that prints a result holds none of them
+FORBIDDEN = ("jax", "jaxlib", "flax", "lettuce_tpu")
 
 
 # ----------------------------------------------------------------------
@@ -74,36 +99,72 @@ def _applies(metric: dict, cell: str, reported: set) -> bool:
 
 def load_cell(name: str, root: Path = ROOT) -> SimpleNamespace:
     """The cell ``name`` of ``root/BENCHMARK.json`` with its configuration,
-    traffic, limits, kernel families and metric entries."""
+    traffic, limits, kernel families and metric entries; ``home`` is the
+    benchmark's folder under ``root``, where every piece is found."""
     spec = _json(root / "BENCHMARK.json")
     work = {w["name"]: w for w in spec["workloads"]}.get(name)
     if work is None:
         raise SystemExit(f"no workload {name!r} in BENCHMARK.json")
     entry = {c["name"]: c for c in spec["configs"]}[work["config"]]
-    limits = HERE / "limits" / f"{name}.json"
+    home = root / HERE.name
+    limits = home / "limits" / f"{name}.json"
     end_to_end = [m for m in spec["end_to_end"] if _applies(m, name, set())]
     reported = {m["name"] for m in end_to_end}
     return SimpleNamespace(
-        name=name, chips=work["chips"], config=_json(root / entry["file"]),
-        traffic=_json(HERE / "traffic" / f"{work['traffic']}.json"),
+        name=name, chips=work["chips"], home=home,
+        config=_json(root / entry["file"]),
+        traffic=_json(home / "traffic" / f"{work['traffic']}.json"),
         limits=_json(limits) if limits.exists() else {},
-        families=[_json(p) for p in sorted((HERE / "kernels").glob("*.json"))],
-        peaks=_json(HERE / "peaks.json"),
+        families=[_json(p) for p in sorted((home / "kernels").glob("*.json"))],
+        peaks=_json(home / "peaks.json"),
         end_to_end=end_to_end,
         per_layer=[m for m in spec["per_layer"]
                    if _applies(m, name, reported)])
 
 
-def read_metrics(entries, record) -> dict:
+def reader(name: str, home: Path = HERE):
+    """The reader module of the metric ``name`` (``metrics/<name>.py``)."""
+    return _module(home / "metrics" / f"{name}.py",
+                   f"torch_bench_metric_{name}")
+
+
+def read_metrics(entries, record, home: Path = HERE) -> dict:
     """``{name: {"value", "unit"}}`` of each metric whose reader
     (``metrics/<name>.py``) finds something to read."""
     out = {}
     for m in entries:
-        value = _module(HERE / "metrics" / f"{m['name']}.py",
-                        f"torch_bench_metric_{m['name']}").read(record)
+        value = reader(m["name"], home).read(record)
         if value is not None:
             out[m["name"]] = {"value": value, "unit": m["unit"]}
     return out
+
+
+def asks_for_spans(cell) -> bool:
+    """Whether a per-layer reader of ``cell`` reads the program's spans
+    (its module sets ``SPANS = True``)."""
+    return any(getattr(reader(m["name"], cell.home), "SPANS", False)
+               for m in cell.per_layer)
+
+
+def collision_of(config) -> tuple:
+    """``(name, params)`` of a configuration's ``collision``: a name, or an
+    object ``{"name": ..., <parameters>}``."""
+    collision = config["collision"]
+    if isinstance(collision, str):
+        return collision, {}
+    params = dict(collision)
+    return params.pop("name"), params
+
+
+def collision_module(home: Path, side: str, name: str):
+    """The module of the collision ``name`` on one side: ``flows`` (the
+    program's) or ``reference``; raises SystemExit, naming the module,
+    when there is none."""
+    path = home / side / "collisions" / f"{name}.py"
+    if not NAME.fullmatch(name) or not path.is_file():
+        raise SystemExit(f"collision {name!r}: no module "
+                         f"{HERE.name}/{side}/collisions/{name}.py")
+    return _module(path, f"torch_bench_{side}_collision_{name}")
 
 
 # ----------------------------------------------------------------------
@@ -191,15 +252,93 @@ class _Span:
         return False
 
 
+class ProgramWindow:
+    """What the program's own tracing saw over the window: the deltas of
+    its launch counters (``tracing.counts``, always on), and with
+    ``spans`` its spans, recorded inside ``tracing.recording()`` from the
+    window's start to its end. Off (``enabled`` False, an untraced run) it
+    does nothing."""
+
+    def __init__(self, enabled: bool, spans: bool):
+        self.enabled, self.recorded = enabled, enabled and spans
+        self.spans, self.counts, self.window = [], Counter(), None
+        self._recording = self._record = self._before = None
+
+    def open(self):
+        if not self.enabled:
+            return
+        from lettuce_tpu_torch import tracing
+        self._before = Counter(tracing.counts)
+        if self.recorded:
+            self._recording = tracing.recording()
+            self._record = self._recording.__enter__()
+        self.window = [time.perf_counter_ns(), None]
+
+    def close(self):
+        """End the window (once; a window never opened stays unread)."""
+        if self.window is None or self.window[1] is not None:
+            return
+        self.window[1] = time.perf_counter_ns()
+        from lettuce_tpu_torch import tracing
+        if self._recording is not None:
+            self._recording.__exit__(None, None, None)
+            self.spans = self._record.spans
+        self.counts = Counter(tracing.counts) - self._before
+
+    def reading(self, stretch, steps):
+        """The readers' ``record.program``: ``spans`` (``(name, parent,
+        start_ns, end_ns)``, empty unless recorded), ``window`` and
+        ``stretch`` (``(start_ns, end_ns)`` of the window and of the
+        profiled stretch, or None), ``counts`` and the window's ``steps``;
+        None when off."""
+        if self.window is None or self.window[1] is None:
+            return None
+        return SimpleNamespace(spans=self.spans, window=tuple(self.window),
+                               stretch=stretch, counts=self.counts,
+                               steps=steps)
+
+
+@contextlib.contextmanager
+def blocking_span(n_sub):
+    """``LETTUCE_NSUB`` set to ``n_sub`` inside the ``with`` block (the
+    program reads it while a ``Simulation`` is built), then put back as it
+    was; with ``n_sub`` None nothing is set."""
+    if n_sub is None:
+        yield
+        return
+    before = os.environ.get("LETTUCE_NSUB")
+    os.environ["LETTUCE_NSUB"] = str(int(n_sub))
+    try:
+        yield
+    finally:
+        if before is None:
+            os.environ.pop("LETTUCE_NSUB", None)
+        else:
+            os.environ["LETTUCE_NSUB"] = before
+
+
+def refuse_other_span(sim, n_sub):
+    """Raise SystemExit when the traffic asks for ``n_sub`` steps a launch
+    and the program's step path runs another span: a blocked cell is
+    never measured on the single-step kernel."""
+    if n_sub is not None and not sim.step_path.endswith(f" x{n_sub}"):
+        raise SystemExit(
+            f"the traffic asks for temporal blocking at span {n_sub} "
+            f"(n_sub) and the program runs {sim.step_path!r} (its reasons, "
+            f"if it refused, are printed above)")
+
+
 class Profiled:
     """One ``torch.profiler`` session over a stretch of the window: started
     at the first boundary past ``at`` of the window, over ``length``
-    calls or iterations."""
+    calls or iterations. ``stretch_ns`` marks it on the program's clock
+    (``time.perf_counter_ns``)."""
 
     def __init__(self, spans: Spans, at: float, length: int):
         self.spans, self.at, self.left = spans, at, length
         self.prof = self.label = None
         self.done = False
+        self.stretch_ns = None
 
     @property
     def active(self) -> bool:
@@ -217,6 +356,7 @@ class Profiled:
         self.spans.profiling = True
         self.label = torch.profiler.record_function("tb:window")
         self.label.__enter__()
+        self.stretch_ns = [time.perf_counter_ns(), None]
 
     def after(self):
         if self.prof is None or self.done:
@@ -229,34 +369,52 @@ class Profiled:
         self.prof.__exit__(None, None, None)
         self.spans.profiling = False
         self.done = True
+        self.stretch_ns[1] = time.perf_counter_ns()
 
-    def events(self):
-        """(device operations ``(name, start, end)``: kernels, copies and
-        fills, harness spans ``(label, start, end)``, the stretch ``(start,
-        end)``), in seconds on the profiler's clock, read from its exported
-        trace (which tells a kernel from an annotation); None without a
-        session."""
-        if self.prof is None:
-            return None
+    def stretch(self):
+        """``(start_ns, end_ns)`` of the profiled stretch, or None."""
+        done = self.stretch_ns is not None and self.stretch_ns[1] is not None
+        return tuple(self.stretch_ns) if done else None
+
+    def export(self) -> list:
+        """The session's trace events, from the one export it allows."""
         with tempfile.TemporaryDirectory() as tmp:
             path = Path(tmp) / "trace.json"
             self.prof.export_chrome_trace(str(path))
-            events = _json(path)["traceEvents"]
-        device, spans, stretch = [], [], None
-        for e in events:
-            if e.get("ph") != "X":
-                continue
-            name, category = e.get("name", ""), e.get("cat", "")
-            start = float(e["ts"]) / 1e6
-            end = start + float(e.get("dur", 0)) / 1e6
-            if category in DEVICE_CATEGORIES:
-                device.append((name, start, end))
-            elif category == "user_annotation" and name.startswith("tb:"):
-                if name == "tb:window":
-                    stretch = (start, end)
-                else:
-                    spans.append((name[3:], start, end))
-        return device, spans, stretch
+            return _json(path)["traceEvents"]
+
+    def events(self):
+        """:func:`parse_events` of the session's trace; None without a
+        session."""
+        if self.prof is None:
+            return None
+        return parse_events(self.export())
+
+
+def parse_events(events):
+    """(device operations ``(name, start, end)``: kernels, copies and fills,
+    host spans ``(label, start, end)``: the harness's ``tb:`` labels
+    without their prefix and the program's ``lt:`` labels with it, the
+    stretch ``(start, end)``), in seconds on the profiler's clock, from an
+    exported trace's events (which tell a kernel from an annotation)."""
+    device, spans, stretch = [], [], None
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        name, category = e.get("name", ""), e.get("cat", "")
+        start = float(e["ts"]) / 1e6
+        end = start + float(e.get("dur", 0)) / 1e6
+        if category in DEVICE_CATEGORIES:
+            device.append((name, start, end))
+        elif category != "user_annotation":
+            continue
+        elif name == "tb:window":
+            stretch = (start, end)
+        elif name.startswith("tb:"):
+            spans.append((name[3:], start, end))
+        elif name.startswith("lt:"):
+            spans.append((name, start, end))
+    return device, spans, stretch
 
 
 def trace_record(profiled: Profiled, cell, sizes: dict, updates: int):
@@ -356,6 +514,7 @@ def rollout(run):
         spans.seconds.clear()
         run.synchronize()
         run.reset_peak()
+        run.program.open()
         t0 = time.perf_counter()
         run.window_start = t0
         calls, held = 0, None
@@ -389,6 +548,7 @@ def rollout(run):
         t1 = time.perf_counter()
         run.peak = run.read_peak()
     finally:
+        run.program.close()
         simulation_module.stream_collide = launch
     del held
     _print_pace("call", t0, ends)
@@ -447,21 +607,25 @@ def adam(run):
     spans.seconds.clear()
     run.synchronize()
     run.reset_peak()
+    run.program.open()
     t0 = time.perf_counter()
     run.window_start = t0
     iterations = 0
     last = losses[-1]
     ends = []
-    while True:
-        profiled.before(time.perf_counter() - t0, seconds)
-        last = iteration(timed_backward=not profiled.active)
-        iterations += 1
-        ends.append(time.perf_counter())
-        profiled.after()
-        if time.perf_counter() - t0 >= seconds and not profiled.active:
-            break
-    t1 = time.perf_counter()
-    run.peak = run.read_peak()
+    try:
+        while True:
+            profiled.before(time.perf_counter() - t0, seconds)
+            last = iteration(timed_backward=not profiled.active)
+            iterations += 1
+            ends.append(time.perf_counter())
+            profiled.after()
+            if time.perf_counter() - t0 >= seconds and not profiled.active:
+                break
+        t1 = time.perf_counter()
+        run.peak = run.read_peak()
+    finally:
+        run.program.close()
     _print_pace("iteration", t0, ends)
     run.attempted = iterations
     run.window_s = t1 - t0
@@ -488,13 +652,14 @@ def _max_gap(got: torch.Tensor, want: torch.Tensor) -> float:
 
 
 def check_rollout(run) -> dict:
-    """The sampled call replayed by the reference from its input:
-    ``state_gap``, the largest population gap over the largest population."""
+    """The sampled call replayed by the reference from its input, one step
+    at a time with the configuration's collision: ``state_gap``, the
+    largest population gap over the largest population."""
     saved = run.saved
     st, tau, channel = run.flow.reference(run.config, run.device)
     with torch.no_grad():
         f = saved.f_in.to(run.device, torch.float32)
-        f = lbm.run(f, saved.steps, st, tau, channel)
+        f = lbm.run(f, saved.steps, st, tau, channel, collide=run.collide)
         got = saved.f_out.to(run.device)
         return {"state_gap": _max_gap(got, f)}
 
@@ -514,7 +679,7 @@ def check_adam(run) -> dict:
     for t in range(1, traffic["check_steps"] + 1):
         x = p.detach().requires_grad_(True)
         out = lbm.run(x, traffic["segment_steps"], st, tau, channel,
-                      checkpointed=True)
+                      checkpointed=True, collide=run.collide)
         loss = torch.mean((lbm.velocity(out, st) - target) ** 2)
         loss.backward()
         losses.append(loss.item())
@@ -563,8 +728,11 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
     cell = load_cell(name, root)
     cell.config.update(config or {})
     cell.traffic.update(traffic or {})
-    flow = _module(HERE / "flows" / f"{cell.config['flow']}.py",
+    flow = _module(cell.home / "flows" / f"{cell.config['flow']}.py",
                    f"torch_bench_flow_{cell.config['flow']}")
+    collision, params = collision_of(cell.config)
+    program_side = collision_module(cell.home, "flows", collision)
+    reference_side = collision_module(cell.home, "reference", collision)
     wide = DTYPES[cell.config["dtype"]]
     dtype = wide if dtype is None else DTYPES[dtype]
     cuda = device != "cpu"
@@ -576,7 +744,9 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
                     else lambda: None),
         read_peak=(torch.cuda.max_memory_allocated if cuda
                    else lambda: 0),
-        segment_fn=lambda sim, n: sim.make_segment_fn(n))
+        segment_fn=lambda sim, n: sim.make_segment_fn(n),
+        collide=functools.partial(reference_side.collide, params=params),
+        program=ProgramWindow(trace, trace and asks_for_spans(cell)))
 
     def inputs(as_dtype):
         generator = _generator(seed, device)
@@ -589,7 +759,11 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
         return f0, target
 
     run.inputs = inputs
-    sim = flow.program(lt, cell.config, device, dtype, half_storage)
+    with blocking_span(cell.traffic.get("n_sub")):
+        sim = flow.program(
+            lt, cell.config, device, dtype, half_storage,
+            collision=lambda built: program_side.program(lt, built, params))
+    refuse_other_span(sim, cell.traffic.get("n_sub"))
     if half_storage and not sim.half_storage_engaged:
         raise SystemExit("half storage was asked for and the program "
                          "refused it")
@@ -621,9 +795,10 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
         kind=cell.traffic["kind"], cells=cells, steps=run.steps,
         window_s=run.window_s, setup_s=setup_s, peak_bytes=peak,
         spans=run.spans.seconds, trace=traced,
-        segment_steps=cell.traffic.get("segment_steps"))
+        segment_steps=cell.traffic.get("segment_steps"),
+        program=run.program.reading(run.profiled.stretch(), run.steps))
     metrics = read_metrics(cell.per_layer if trace else cell.end_to_end,
-                           record)
+                           record, cell.home)
 
     layout = layout_matches(sim, cell.config)
     run.sim = sim = None
@@ -656,16 +831,29 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
     return result
 
 
+def forbidden_modules() -> list:
+    """The names of :data:`FORBIDDEN` that are loaded (``sys.modules``,
+    compared by whole top-level names)."""
+    return sorted({name.split(".")[0] for name in sys.modules}
+                  & set(FORBIDDEN))
+
+
 def main(args) -> int:
     """The command: prints the card, the run's lines, the compared numbers
     on standard error and the result as the last line of standard
-    output."""
+    output; exits 1 with no result when the run loaded JAX or the JAX
+    package."""
     started = time.perf_counter() - process_age()
     cell = load_cell(args.workload)
     for line in card_lines(cell.chips):
         print(line)
     result = run_cell(args.workload, args.seed, args.seconds,
                       bool(args.trace), started=started)
+    found = forbidden_modules()
+    if found:
+        print(f"the run loaded {', '.join(found)}: the benchmark measures "
+              f"lettuce_tpu_torch alone; no result", file=sys.stderr)
+        return 1
     for name, c in result["checks"].items():
         print(f"{name} {c['value']!r} limit {c['limit']!r}", file=sys.stderr)
     sys.stderr.flush()

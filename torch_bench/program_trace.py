@@ -7,15 +7,21 @@ Run from the root of a checkout::
     python3 torch_bench/program_trace.py --workload obstacle2d_2048.grad8 \
         --seed <n> --seconds <s>
 
-The run is ``run.py --trace 1``'s (``harness.run_cell``), inside
-``lettuce_tpu_torch.tracing.recording()``, switched on before the program
-is built. Its profiled stretch keeps the program's ``lt:`` labels beside
-the harness's ``tb:`` spans, so the ``breakdown``'s idle gaps fall under
-the innermost of either (an ``lt:`` label keeps its prefix). The readings
-take the program's spans over the window outside the profiled stretch, so
-the profiler's cost stays out, and its counters over the whole window:
+The run is ``run.py --trace 1``'s (``harness.run_cell``), with the
+harness's recording of the program's spans over the window
+(``harness.ProgramWindow``) on for any cell, and the set-up inside a
+``lettuce_tpu_torch.tracing.recording()`` of its own, switched on before
+the program is built. The profiled stretch keeps the program's ``lt:``
+labels beside the harness's ``tb:`` spans, as every traced run does, so
+the ``breakdown``'s idle gaps fall under the innermost of either (an
+``lt:`` label keeps its prefix). The readings take the program's spans
+over the window outside the profiled stretch, so the profiler's cost
+stays out, and its counters over the whole window. Where the benchmark
+has a reader of the same quantity, the reading is that reader's, so the
+tool and the benchmark never disagree:
 
-* ``replay_ms``: replay span time per step;
+* ``replay_ms``: replay span time per step
+  (``metrics/replay_ms.grad_bounded.py``);
 * ``replay_ops``: device operations (kernels, copies, fills) whose runtime
   launch call ran inside an ``lt:replay`` label, per replay, in the
   profiled stretch;
@@ -23,8 +29,8 @@ the profiler's cost stays out, and its counters over the whole window:
 * ``step_self_us``: self time of ``step`` (outside ``launch`` and
   ``replay``) per step;
 * ``adjoint_us``: adjoint span time, its launch included, per step;
-* ``launches_per_step``: kernel launches (``K1:`` .. ``K4:`` counts) per
-  step over the window;
+* ``launches_per_step``: kernel launches (``K1:`` .. ``K5:`` counts) per
+  step over the window (``metrics/launches_per_step.grad_bounded.py``);
 * ``load_s``: seconds of the ``load`` spans (the libraries open once, in
   the set-up).
 
@@ -39,9 +45,7 @@ import argparse
 import json
 import os
 import sys
-import tempfile
 import time
-from collections import Counter
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -51,16 +55,16 @@ os.environ["TORCH_EXTENSIONS_DIR"] = str(ROOT / "build" / "torch_bench" /
                                          "torch_extensions")
 sys.path.insert(0, str(ROOT))
 
-KERNELS = ("K1:", "K2:", "K3:", "K4:")
 # the categories of a profiler trace's host calls that launch device work
 RUNTIME_CATEGORIES = ("cuda_runtime", "cuda_driver")
 
 
 # ----------------------------------------------------------------------
-# the readings, over a namespace ``program``: ``spans`` (the recorded
-# (name, parent, start_ns, end_ns)), ``window`` and ``stretch`` ((start_ns,
-# end_ns) of the measured window and of the profiled stretch, or None),
-# ``counts`` (the counters' deltas over the window), ``steps`` (the window's
+# the readings, over a namespace ``program``: the harness's record of the
+# program (``harness.ProgramWindow.reading``: ``spans``, the recorded
+# (name, parent, start_ns, end_ns); ``window`` and ``stretch``, (start_ns,
+# end_ns) of the measured window and of the profiled stretch, or None;
+# ``counts``, the counters' deltas over the window; ``steps``, the window's
 # steps) and ``replay_ops`` ((operations, replays) in the stretch, or None)
 # ----------------------------------------------------------------------
 def _tracing():
@@ -71,16 +75,13 @@ def _tracing():
 def window_spans(program) -> list:
     """``(name, duration_ns, self_ns)`` of each span inside the window and
     outside the profiled stretch."""
-    lo, hi = program.window
-    cut = program.stretch
+    from torch_bench import trace
     own = _tracing().self_times(program.spans)
     out = []
-    for (name, _, start, end), self_ns in zip(program.spans, own):
-        if start < lo or end > hi:
-            continue
-        if cut is not None and start < cut[1] and end > cut[0]:
-            continue
-        out.append((name, end - start, self_ns))
+    for i in trace.window_spans(program.spans, program.window,
+                                program.stretch):
+        name, _, start, end = program.spans[i]
+        out.append((name, end - start, own[i]))
     return out
 
 
@@ -93,10 +94,18 @@ def _sums(program, name):
     return calls, total, own
 
 
-def replay_ms(program):
-    steps = _sums(program, "step")[0]
-    calls, total, _ = _sums(program, "replay")
-    return 1e-6 * total / steps if steps and calls else None
+def _benchmark_reading(metric):
+    """The reading of the benchmark's reader of ``metric``."""
+    def reading(program):
+        from torch_bench import harness
+        return harness.reader(metric).read(argparse.Namespace(
+            program=program))
+    reading.__name__ = metric.split(".")[0]
+    return reading
+
+
+replay_ms = _benchmark_reading("replay_ms.grad_bounded")
+launches_per_step = _benchmark_reading("launches_per_step.grad_bounded")
 
 
 def replay_ops(program):
@@ -120,12 +129,6 @@ def adjoint_us(program):
     steps = _sums(program, "step")[0]
     calls, total, _ = _sums(program, "adjoint")
     return 1e-3 * total / steps if steps and calls else None
-
-
-def launches_per_step(program):
-    launches = sum(n for key, n in program.counts.items()
-                   if key.startswith(KERNELS))
-    return launches / program.steps if program.steps else None
 
 
 def load_s(program):
@@ -167,68 +170,33 @@ def labelled_ops(events, label="lt:replay"):
     return ops, len(boxes)
 
 
-def _traced_profiled(harness, marks, record):
-    """``harness.Profiled`` that marks the window and the stretch on the
-    program's clock and reads the program's ``lt:`` labels too."""
+def _traced_profiled(harness, marks):
+    """``harness.Profiled`` that also counts, from the one export a
+    profiler session allows, the operations under ``lt:replay``
+    (``marks["replay_ops"]``)."""
 
     class Profiled(harness.Profiled):
-        def __init__(self, *args, **kwargs):
-            super().__init__(*args, **kwargs)
-            marks["window"] = [time.perf_counter_ns(), None]
-            marks["counts"] = Counter(record.counts)
-
-        def before(self, elapsed, seconds):
-            idle = self.prof is None
-            super().before(elapsed, seconds)
-            if idle and self.prof is not None:
-                marks["stretch"] = [time.perf_counter_ns(), None]
-
-        def after(self):
-            done = self.done
-            super().after()
-            if self.done and not done:
-                marks["stretch"][1] = time.perf_counter_ns()
-
-        def events(self):
-            """``harness.Profiled.events``'s reading, the program's
-            ``lt:`` labels (prefix kept) among the spans, from the one
-            export a profiler session allows."""
-            _close_window(marks, record)
-            if self.prof is None:
-                return None
-            with tempfile.TemporaryDirectory() as tmp:
-                path = Path(tmp) / "trace.json"
-                self.prof.export_chrome_trace(str(path))
-                events = json.loads(path.read_text())["traceEvents"]
+        def export(self):
+            events = super().export()
             marks["replay_ops"] = labelled_ops(events)
-            device, spans, stretch = [], [], None
-            for e in events:
-                if e.get("ph") != "X":
-                    continue
-                name, category = e.get("name", ""), e.get("cat", "")
-                start = float(e["ts"]) / 1e6
-                end = start + float(e.get("dur", 0)) / 1e6
-                if category in harness.DEVICE_CATEGORIES:
-                    device.append((name, start, end))
-                elif category != "user_annotation":
-                    continue
-                elif name == "tb:window":
-                    stretch = (start, end)
-                elif name.startswith("tb:"):
-                    spans.append((name[3:], start, end))
-                elif name.startswith("lt:"):
-                    spans.append((name, start, end))
-            return device, spans, stretch
+            return events
 
     return Profiled
 
 
-def _close_window(marks, record):
-    """Mark the window's end and take the counters' deltas over it, once:
-    at the profiled trace's reading, or after the run without one."""
-    if marks["window"][1] is None:
-        marks["window"][1] = time.perf_counter_ns()
-        marks["counts"] = Counter(record.counts) - marks["counts"]
+def _recorded_window(harness, marks):
+    """``harness.ProgramWindow`` that records the program's spans in any
+    run, traced or not, and keeps its reading (``marks["program"]``)."""
+
+    class ProgramWindow(harness.ProgramWindow):
+        def __init__(self, enabled, spans):
+            super().__init__(True, True)
+
+        def reading(self, stretch, steps):
+            marks["program"] = super().reading(stretch, steps)
+            return marks["program"]
+
+    return ProgramWindow
 
 
 def span_cost_ns(calls: int = 200_000) -> dict:
@@ -263,24 +231,27 @@ def run(workload: str, seed: int, seconds: float, started: float = None,
     from torch_bench import harness
     tracing = _tracing()
     cost = span_cost_ns()
-    marks = {"window": None, "stretch": None, "counts": Counter(),
-             "replay_ops": None}
-    real = harness.Profiled
-    with tracing.recording() as record:
-        harness.Profiled = _traced_profiled(harness, marks, record)
+    marks = {"replay_ops": None, "program": None}
+    real = harness.Profiled, harness.ProgramWindow
+    with tracing.recording() as setup:
+        harness.Profiled = _traced_profiled(harness, marks)
+        harness.ProgramWindow = _recorded_window(harness, marks)
         try:
             result = harness.run_cell(workload, seed, seconds, trace,
                                       started=started, **cell)
         finally:
-            harness.Profiled = real
-        _close_window(marks, record)
-    traffic = {**harness.load_cell(workload).traffic,
-               **cell.get("traffic", {})}
+            harness.Profiled, harness.ProgramWindow = real
+    window = marks["program"]
+    # the set-up's spans (the window's ran in the harness's recording),
+    # then the window's, their parents shifted past the set-up's
+    before = setup.spans
+    spans = before + [(name, None if parent is None else parent + len(before),
+                       start, end)
+                      for name, parent, start, end in window.spans]
     program = argparse.Namespace(
-        spans=record.spans, window=tuple(marks["window"]),
-        stretch=tuple(marks["stretch"]) if marks["stretch"] else None,
-        counts=marks["counts"], replay_ops=marks["replay_ops"],
-        steps=result["attempted"] * traffic.get("segment_steps", 0) or None)
+        spans=spans, window=window.window, stretch=window.stretch,
+        counts=window.counts, steps=window.steps,
+        replay_ops=marks["replay_ops"])
     summary = {}
     for name, duration, own in window_spans(program):
         calls, total, self_ms = summary.get(name, (0, 0.0, 0.0))
@@ -290,7 +261,7 @@ def run(workload: str, seed: int, seconds: float, started: float = None,
     result["program"] = {
         "readings": {k: v for k, v in readings.items() if v is not None},
         "spans": {k: list(v) for k, v in sorted(summary.items())},
-        "counts": dict(sorted(marks["counts"].items())),
+        "counts": dict(sorted(window.counts.items())),
         "replay_ops": marks["replay_ops"], "span_cost_ns": cost}
     return result
 

@@ -7,14 +7,15 @@ comparison checks the program's velocity table against these before it
 compares any state.
 
 One step is collide, then boundaries, then stream, as lettuce's plain step
-(``compose_step``): BGK with the quadratic equilibrium where the cell is
-fluid; on a bounded channel the outlet on the last plane along x (a
-pressure outlet, or anti-bounce-back), full-way bounce back on the solid
-cells and the velocity inlet's equilibrium on the first plane; then
-periodic streaming, in which the outlet plane keeps the populations it
-replaced. Every
-operation is differentiable by autograd, so the same step is the gradient
-cells' reference.
+(``compose_step``): the configuration's collision where the cell is fluid
+(BGK with the quadratic equilibrium by default; any other is a module
+``reference/collisions/<name>.py`` that the harness finds by name and
+passes as ``collide``); on a bounded channel the outlet on the last plane
+along x (a pressure outlet, or anti-bounce-back), full-way bounce back on
+the solid cells and the velocity inlet's equilibrium on the first plane;
+then periodic streaming, in which the outlet plane keeps the populations
+it replaced. Every operation is differentiable by autograd, so the same
+step is the gradient cells' reference.
 """
 
 from __future__ import annotations
@@ -35,6 +36,13 @@ STENCILS = {
                [0, -1, 1], [1, 0, 1], [-1, 0, -1], [1, 0, -1], [-1, 0, 1],
                [1, 1, 0], [-1, -1, 0], [1, -1, 0], [-1, 1, 0]],
               [1 / 3] + [1 / 18] * 6 + [1 / 36] * 12),
+    "D3Q27": ([[0, 0, 0], [1, 0, 0], [-1, 0, 0], [0, 1, 0], [0, -1, 0],
+               [0, 0, 1], [0, 0, -1], [0, 1, 1], [0, -1, -1], [0, 1, -1],
+               [0, -1, 1], [1, 0, 1], [-1, 0, -1], [1, 0, -1], [-1, 0, 1],
+               [1, 1, 0], [-1, -1, 0], [1, -1, 0], [-1, 1, 0],
+               [1, 1, 1], [-1, -1, -1], [1, 1, -1], [-1, -1, 1],
+               [1, -1, 1], [-1, 1, -1], [1, -1, -1], [-1, 1, 1]],
+              [8 / 27] + [2 / 27] * 6 + [1 / 54] * 12 + [1 / 216] * 8),
 }
 CS2 = 1.0 / 3.0  # the squared lattice speed of sound
 
@@ -149,9 +157,10 @@ def _pressure(f: torch.Tensor, st: Stencil) -> torch.Tensor:
 
 
 def step(f: torch.Tensor, st: Stencil, tau: float,
-         channel: Channel = None) -> torch.Tensor:
-    """One collide-and-stream step of a periodic grid, or of ``channel``."""
-    post = bgk(f, st, tau)
+         channel: Channel = None, collide=bgk) -> torch.Tensor:
+    """One collide-and-stream step of a periodic grid, or of ``channel``,
+    with the collision ``collide(f, st, tau)``."""
+    post = collide(f, st, tau)
     if channel is None:
         return stream(post, st)
     solid = channel.solid
@@ -183,15 +192,17 @@ def step(f: torch.Tensor, st: Stencil, tau: float,
 
 
 def run(f: torch.Tensor, steps: int, st: Stencil, tau: float,
-        channel: Channel = None, checkpointed: bool = False
+        channel: Channel = None, checkpointed: bool = False, collide=bgk
         ) -> torch.Tensor:
-    """``steps`` steps; ``checkpointed`` recomputes each step in the
-    backward instead of keeping its intermediates."""
+    """``steps`` steps with the collision ``collide``; ``checkpointed``
+    recomputes each step in the backward instead of keeping its
+    intermediates."""
     for _ in range(steps):
         if checkpointed:
-            f = checkpoint(step, f, st, tau, channel, use_reentrant=False)
+            f = checkpoint(step, f, st, tau, channel, collide,
+                           use_reentrant=False)
         else:
-            f = step(f, st, tau, channel)
+            f = step(f, st, tau, channel, collide)
     return f
 
 

@@ -1,10 +1,14 @@
 """The check that decides ``correct``, driven on the CPU at a size a test
 run holds: the harness's whole run but the look for a card, the program
-on its plain torch step. The program as the configuration states it
-passes the cell's limits; its bfloat16 control fails them; and so does
+on its plain torch step (a blocked cell on the kernel path's plain
+wrappers, which take its span). The program as the configuration states
+it passes the cell's limits; its bfloat16 control fails them; and so does
 each fault planted underneath the timed path."""
 
 import ast
+import sys
+import types
+from argparse import Namespace
 from pathlib import Path
 
 import pytest
@@ -14,8 +18,18 @@ from torch_bench.faults import FAULTS
 
 HERE = Path(__file__).resolve().parents[1]
 SMALL = {"tgv3d_d3q19_256": [16, 16, 16], "obstacle2d_2048": [64, 32]}
-CELLS = ["tgv3d_d3q19_256.fwd", "tgv3d_d3q19_256.grad8",
-         "obstacle2d_2048.grad8"]
+CELLS = ["tgv3d_d3q19_256.fwd", "tgv3d_d3q19_256.fwd_x2",
+         "tgv3d_d3q19_256.grad8", "obstacle2d_2048.grad8"]
+
+
+@pytest.fixture(autouse=True)
+def blocked_on_the_kernel_path(request):
+    """A cell whose traffic asks for a span runs on the kernel path's
+    wiring, the only path that blocks; the others on the torch step."""
+    cell = request.node.callspec.params.get("cell") if hasattr(
+        request.node, "callspec") else None
+    if cell and "n_sub" in harness.load_cell(cell).traffic:
+        request.getfixturevalue("kernel_path")
 
 
 def small_run(cell, seed=2 ** 31 + 7, **kwargs):
@@ -77,3 +91,21 @@ def test_harness_imports_no_jax_click_or_lettuce_tpu():
                 assert name.split(".")[0] not in {
                     "jax", "click", "lettuce_tpu", "benchmarks", "bench"}, (
                         path, name)
+
+
+def test_a_run_that_loaded_jax_prints_no_result(monkeypatch, capsys):
+    monkeypatch.setattr(harness, "card_lines", lambda chips: [])
+    monkeypatch.setattr(harness, "process_age", lambda: 0.0)
+    monkeypatch.setattr(harness, "run_cell", lambda *a, **k: {"checks": {}})
+    args = Namespace(workload="tgv3d_d3q19_256.fwd", seed=1, seconds=1,
+                     trace=0)
+    assert harness.forbidden_modules() == []
+    assert harness.main(args) == 0
+    assert capsys.readouterr().out.strip().endswith("}")
+    monkeypatch.setitem(sys.modules, "jax.numpy", types.ModuleType("x"))
+    monkeypatch.setitem(sys.modules, "lettuce_tpu", types.ModuleType("y"))
+    monkeypatch.setitem(sys.modules, "jaxtyping", types.ModuleType("z"))
+    assert harness.forbidden_modules() == ["jax", "lettuce_tpu"]
+    assert harness.main(args) == 1
+    out, err = capsys.readouterr()
+    assert out == "" and "jax, lettuce_tpu" in err

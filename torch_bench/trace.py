@@ -10,7 +10,8 @@ import re
 
 __all__ = ["union", "busy_seconds", "idle_gaps", "label_gaps",
            "template_name", "family_of", "bytes_per_update",
-           "ops_per_update", "roofline_share", "window_mlups"]
+           "ops_per_update", "roofline_share", "window_mlups",
+           "window_spans"]
 
 
 def union(intervals):
@@ -155,3 +156,19 @@ def window_mlups(cells: int, steps: int, seconds: float) -> float:
     """Million lattice updates a second: every cell, every step, over the
     whole window."""
     return cells * steps / seconds / 1e6
+
+
+def window_spans(spans, window, stretch=None) -> list:
+    """The indices of the program's spans ``(name, parent, start_ns,
+    end_ns)`` that lie inside ``window`` (``(start_ns, end_ns)``) and do not
+    overlap ``stretch`` (the profiled stretch, whose profiler cost they
+    would carry; None: no stretch)."""
+    lo, hi = window
+    inside = []
+    for i, (_, _, start, end) in enumerate(spans):
+        if start < lo or end > hi:
+            continue
+        if stretch is not None and start < stretch[1] and end > stretch[0]:
+            continue
+        inside.append(i)
+    return inside
