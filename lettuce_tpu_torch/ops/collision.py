@@ -12,6 +12,7 @@ whether an instance can run there.
 
 from __future__ import annotations
 
+import functools
 import warnings
 from abc import ABC, abstractmethod
 from typing import Optional
@@ -104,6 +105,24 @@ def mrt_relax(m, meq, relaxation_parameters: torch.Tensor):
     return m - s_inv.reshape((-1,) + (1,) * (m.ndim - 1)) * (m - meq)
 
 
+@functools.lru_cache(maxsize=64)
+def _constant_table(shape: tuple, values: tuple, dtype: torch.dtype,
+                    device: torch.device) -> torch.Tensor:
+    return torch.tensor(values, dtype=torch.float64).reshape(shape).to(
+        dtype=dtype, device=device)
+
+
+def constant_table(array, dtype: torch.dtype, device) -> torch.Tensor:
+    """``array`` (a stencil's velocities or weights, a moment matrix) as a
+    ``dtype`` tensor on ``device``, made once and then shared: a copy from
+    the host's pageable memory waits for the device's stream, so making it
+    at every call would stall the device once per table in every step of
+    split mode's VJP. Callers never write into it."""
+    a = np.asarray(array, dtype=np.float64)
+    return _constant_table(a.shape, tuple(a.ravel().tolist()), dtype,
+                           torch.device(device))
+
+
 def kbc_moment_matrix(e) -> np.ndarray:
     """Raw moments e_x^i e_y^j (e_z^k), i, j, k in 0..2: ``[3, 3, q]`` in
     2D, ``[3, 3, 3, q]`` in 3D."""
@@ -162,7 +181,7 @@ def kbc_relax(f, feq, e, tau):
     whose higher-order part vanishes (0/0) and a gamma below 1e-15 get
     gamma = 2."""
     d = np.asarray(e).shape[1]
-    M = torch.as_tensor(kbc_moment_matrix(e), dtype=f.dtype, device=f.device)
+    M = constant_table(kbc_moment_matrix(e), f.dtype, f.device)
     beta = 1.0 / (2 * tau)
     s_seq = _kbc_s_seq_3d if d == 3 else _kbc_s_seq_2d
     delta_s = s_seq(*_kbc_moments(M, d, f))

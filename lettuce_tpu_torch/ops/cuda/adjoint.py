@@ -91,8 +91,8 @@ from .build import (DTYPES, HALF_DTYPES, KERNEL_STENCIL_NAMES,
                     kernel_stencil_name, launch_dims, open_library,
                     storage_suffix)
 from .stream_collide import (FRAGMENTS, check_nsm, checked_table,
-                             march_plan, march_scratch, pack_spec,
-                             prestream_plain,
+                             fragment_of, march_plan, march_scratch,
+                             pack_spec, prestream_plain,
                              stream_collide_plain)
 
 __all__ = ["stream_collide_adjoint", "stream_collide_adjoint_plain",
@@ -346,19 +346,20 @@ def prestream_vjp(f: torch.Tensor, h: torch.Tensor, *, e, w, opposite,
     here, under autograd, and its graph is freed on return, so a rollout
     never holds more than one step's graph. A 16-bit state runs the map's
     VJP on float32 copies (``f``, ``h`` and the field), as the 16-bit
-    kernels compute, and rounds the result once to its dtype."""
-    if f.dtype in HALF_DTYPES:
-        return prestream_vjp(
-            f.float(), h.float(), e=e, w=w, opposite=opposite, cs=cs,
-            collision_spec=collision_spec, ncm=ncm, table=table,
-            feq_field=None if feq_field is None else feq_field.float()
-        ).to(f.dtype)
-    with torch.enable_grad():
-        x = f.detach().requires_grad_(True)
-        fpost = prestream_plain(x, collision_spec, e, w, opposite, cs, ncm,
-                                table, feq_field)
-        (ct,) = torch.autograd.grad(fpost, x, h)
-    return ct
+    kernels compute, and rounds the result once to its dtype. Each call
+    is one ``vjp`` span and counts once under ``vjp:<fragment>``."""
+    with tracing.span("vjp"):
+        tracing.count(f"vjp:{fragment_of(collision_spec)}")
+        dtype = f.dtype
+        if dtype in HALF_DTYPES:
+            f, h = f.float(), h.float()
+            feq_field = None if feq_field is None else feq_field.float()
+        with torch.enable_grad():
+            x = f.detach().requires_grad_(True)
+            fpost = prestream_plain(x, collision_spec, e, w, opposite, cs,
+                                    ncm, table, feq_field)
+            (ct,) = torch.autograd.grad(fpost, x, h)
+        return ct.to(dtype)
 
 
 # ----------------------------------------------------------------------

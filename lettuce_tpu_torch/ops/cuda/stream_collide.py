@@ -73,8 +73,8 @@ from ..boundary import (HYBRID_OUTLET_TYPES, BounceBackBoundary,
 from ..collision import (BGKCollision, KBCCollision, MRTCollision,
                          NoCollision, RegularizedCollision,
                          SmagorinskyCollision, TRTCollision, bgk_relax,
-                         kbc_relax, mrt_relax, regularize, smagorinsky_relax,
-                         trt_relax)
+                         constant_table, kbc_relax, mrt_relax, regularize,
+                         smagorinsky_relax, trt_relax)
 from ..equilibrium import QuadraticEquilibrium, quadratic_feq
 from ..force import Guo, ShanChen, guo_source
 from ..streaming import stream
@@ -196,8 +196,8 @@ def collide_plain(f: torch.Tensor, spec, e: np.ndarray, w: np.ndarray,
     kind = spec[0]
     if kind == "none":
         return f
-    et = torch.as_tensor(np.asarray(e), dtype=f.dtype, device=f.device)
-    wt = torch.as_tensor(np.asarray(w), dtype=f.dtype, device=f.device)
+    et = constant_table(e, f.dtype, f.device)
+    wt = constant_table(w, f.dtype, f.device)
     rho = torch.sum(f, dim=0, keepdim=True)
     u = _velocity(f, et, rho, e)
     if kind == "bgk_force":

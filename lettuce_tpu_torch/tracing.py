@@ -32,6 +32,9 @@ The spans, one per layer boundary:
 * ``enqueue``: the ctypes call into the C entry, inside ``launch``;
 * ``adjoint``: a step's backward (``_FusedStep``, ``_FusedMultiStep``),
   its adjoint launch included;
+* ``vjp``: split mode's VJP of the pointwise pre-streaming map
+  (``adjoint.prestream_vjp``: the map's recompute and its
+  ``autograd.grad``), inside ``adjoint`` on autograd's thread;
 * ``load``: ``build.open_library``: hashing the sources, any ``nvcc``
   build, loading the library.
 
@@ -40,7 +43,8 @@ launch counts under :func:`launch_key` (``K1`` the single-step forward,
 ``K2`` the blocked forward, ``K3`` the adjoint, ``K4`` the blocked
 adjoint, ``K5`` the velocity moment of ``Flow.u`` and its adjoint),
 ``moments_torch`` every ``Flow.u`` of a CUDA state that runs the torch
-expression instead of K5, ``replay`` every replay, ``library_built``
+expression instead of K5, ``vjp:<fragment>`` every split-mode VJP (once a
+step, a 16-bit state too), ``replay`` every replay, ``library_built``
 every ``nvcc`` run and ``library_opened`` every library loaded. K5's
 launches open no span: the counts say how often ``Flow.u`` takes it.
 """

@@ -1,8 +1,9 @@
 """The port's host tracing (``lettuce_tpu_torch/tracing.py``) on the CPU:
 off by default at one test per span site, the spans a traced gradient
 segment records through the kernel path's wiring (its wrappers run their
-plain versions on CPU tensors), their parents and self times, the
-profiler's ``lt:`` labels, and the uniform launch counter keys."""
+plain versions on CPU tensors), their parents and self times, split
+mode's ``vjp`` span and counter, the profiler's ``lt:`` labels, and the
+uniform launch counter keys."""
 
 import threading
 import time
@@ -124,6 +125,55 @@ def test_traced_segment_spans_and_self_times(sim):
     assert calls == 4 and 0 <= self_ns <= total
     if hybrid:
         assert self_ns == total - summary["replay"][1]
+
+
+def kbc_taylor_green(stencil, resolution, dtype):
+    """A KBC simulation, split mode on the kernel path's wiring."""
+    ctx = ltt.Context(device="cpu", dtype=dtype, use_native=False)
+    flow = ltt.TaylorGreenVortex(ctx, resolution, 1600, 0.05,
+                                 stencil=getattr(ltt, stencil)())
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the CPU context's warning
+        sim = ltt.Simulation(
+            flow, ltt.KBCCollision(flow.units.relaxation_parameter_lu), [])
+    sim._use_kernel()
+    assert sim.adjoint_mode == "split"
+    return sim
+
+
+@pytest.mark.parametrize("stencil,resolution,dtype", [
+    ("D2Q9", [16, 16], torch.float64), ("D3Q27", [6, 6, 6], torch.float64),
+    ("D2Q9", [16, 16], torch.bfloat16)], ids=["D2Q9", "D3Q27", "D2Q9-bf16"])
+def test_split_mode_backward_holds_one_vjp_span_a_step(stencil, resolution,
+                                                       dtype):
+    """Four steps' backward: four ``adjoint`` spans, each the parent of
+    exactly one ``vjp`` span, and ``vjp:kbc`` counted once a step (a
+    16-bit state's VJP on float32 copies counts once too)."""
+    sim = kbc_taylor_green(stencil, resolution, dtype)
+    before = tracing.counts["vjp:kbc"]
+    with tracing.recording() as record:
+        loss_and_grad(sim)
+    spans = record.spans
+    adjoints = [i for i, (name, _, _, _) in enumerate(spans)
+                if name == "adjoint"]
+    vjps = [(parent, start, end) for name, parent, start, end in spans
+            if name == "vjp"]
+    assert len(adjoints) == 4 and len(vjps) == 4
+    assert sorted(parent for parent, _, _ in vjps) == adjoints
+    for parent, start, end in vjps:
+        assert spans[parent][2] <= start <= end <= spans[parent][3]
+    assert record.counts["vjp:kbc"] == 4
+    assert tracing.counts["vjp:kbc"] - before == 4
+    assert not [k for k in record.counts if k.startswith("vjp:")
+                and k != "vjp:kbc"]
+
+
+def test_full_mode_backward_records_no_vjp(sim):
+    assert sim.adjoint_mode == "full"
+    with tracing.recording() as record:
+        loss_and_grad(sim)
+    assert "vjp" not in {name for name, _, _, _ in record.spans}
+    assert not [k for k in record.counts if k.startswith("vjp:")]
 
 
 def test_self_time_less_children():
