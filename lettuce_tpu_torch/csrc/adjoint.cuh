@@ -164,6 +164,54 @@ struct CellSink {
   }
 };
 
+// S0 += w (tp + tm), S1 += w e_q (tp - tm), S2 += w e_q e_q (tp + tm): the
+// weighted moments of t over the pair (q, opposite(q)), one weight
+// multiply for the pair.
+template <class S, class T, int q>
+__device__ __forceinline__ void add_pair_moments(
+    T tp, T tm, T& s0, T (&s1)[S::D], T (&s2)[S::D * (S::D + 1) / 2]) {
+  const T wq = T(S::w(q));
+  const T ws = wq * (tp + tm);
+  const T wd = wq * (tp - tm);
+  s0 = s0 + ws;
+  add_pair_diff<S, T, q>(wd, s1);
+  add_s2<S, T, q>(ws, s2);
+}
+
+// A' = A - u . B and B of the transposed equilibrium Jacobian from the
+// weighted moments S0, S1, S2 of t and u: sum_p t_p d feq_p / d f_q =
+// A' + e_q . B.
+template <class S, class T>
+__device__ __forceinline__ void equilibrium_ab(
+    T s0, const T (&s1)[S::D], const T (&s2)[S::D * (S::D + 1) / 2],
+    const T (&u)[S::D], const EquilibriumConsts<T>& c, T& ap,
+    T (&bv)[S::D]) {
+  constexpr int D = S::D;
+  // T_a = sum_b u_b S2_ab, then A, B and A' = A - u . B
+  T ta[D];
+  T u2 = T(0), us1 = T(0), uus2 = T(0);
+#pragma unroll
+  for (int a = 0; a < D; ++a) {
+    T acc = T(0);
+#pragma unroll
+    for (int b = 0; b < D; ++b)
+      acc = acc + u[b] * s2[a <= b ? sym<S>(a, b) : sym<S>(b, a)];
+    ta[a] = acc;
+    u2 = u2 + u[a] * u[a];
+    us1 = us1 + u[a] * s1[a];
+  }
+#pragma unroll
+  for (int a = 0; a < D; ++a) uus2 = uus2 + u[a] * ta[a];
+  const T A = s0 * (T(1) - u2 * c.half_inv_cs2) + us1 * c.inv_cs2 +
+              uus2 * c.half_inv_cs4;
+  ap = A;
+#pragma unroll
+  for (int a = 0; a < D; ++a) {
+    bv[a] = ((-u[a] * s0 + s1[a]) + ta[a] * c.inv_cs2) * c.inv_cs2;
+    ap = ap - u[a] * bv[a];
+  }
+}
+
 // ct = (h - t) + (A' + e . B) [+ X] for t = M^T h, each value handed to
 // sink.put<q>. tpair(K_, tp, tm) gives t on pair K_ (an integral_constant)
 // and trest() t on the rest direction; each may read h only on its own
@@ -189,12 +237,7 @@ __device__ __forceinline__ void equilibrium_transpose(
     constexpr int p = opposite<S>(q);
     T tp, tm;
     tpair(K_, tp, tm);
-    const T wq = T(S::w(q));
-    const T ws = wq * (tp + tm);
-    const T wd = wq * (tp - tm);
-    s0 = s0 + ws;
-    add_pair_diff<S, T, q>(wd, s1);
-    add_s2<S, T, q>(ws, s2);
+    add_pair_moments<S, T, q>(tp, tm, s0, s1, s2);
     h[q] = h[q] - tp;
     h[p] = h[p] - tm;
   });
@@ -202,30 +245,8 @@ __device__ __forceinline__ void equilibrium_transpose(
   s0 = s0 + T(S::w(0)) * t0;
   h[0] = h[0] - t0;
 
-  // T_a = sum_b u_b S2_ab, then A, B and A' = A - u . B
-  T ta[D];
-  T u2 = T(0), us1 = T(0), uus2 = T(0);
-#pragma unroll
-  for (int a = 0; a < D; ++a) {
-    T acc = T(0);
-#pragma unroll
-    for (int b = 0; b < D; ++b)
-      acc = acc + u[b] * s2[a <= b ? sym<S>(a, b) : sym<S>(b, a)];
-    ta[a] = acc;
-    u2 = u2 + u[a] * u[a];
-    us1 = us1 + u[a] * s1[a];
-  }
-#pragma unroll
-  for (int a = 0; a < D; ++a) uus2 = uus2 + u[a] * ta[a];
-  const T A = s0 * (T(1) - u2 * c.half_inv_cs2) + us1 * c.inv_cs2 +
-              uus2 * c.half_inv_cs4;
-  T bv[D];
-  T ap = A;
-#pragma unroll
-  for (int a = 0; a < D; ++a) {
-    bv[a] = ((-u[a] * s0 + s1[a]) + ta[a] * c.inv_cs2) * c.inv_cs2;
-    ap = ap - u[a] * bv[a];
-  }
+  T ap, bv[D];
+  equilibrium_ab<S, T>(s0, s1, s2, u, c, ap, bv);
 
   if constexpr (Extra) {
     sink.template put<0>(h[0] + (ap + xrest()));

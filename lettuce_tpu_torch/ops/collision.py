@@ -26,7 +26,7 @@ __all__ = ["Collision", "BGKCollision", "NoCollision", "TRTCollision",
            "MRTCollision", "RegularizedCollision", "KBCCollision",
            "KBCCollision2D", "KBCCollision3D", "SmagorinskyCollision",
            "bgk_relax", "trt_relax", "shear_tensor", "regularize",
-           "smagorinsky_relax", "mrt_relax", "kbc_relax"]
+           "smagorinsky_relax", "mrt_relax", "kbc_parts", "kbc_relax"]
 
 
 class Collision(ABC):
@@ -174,12 +174,14 @@ def _kbc_s_seq_2d(m, rho):
     return torch.stack([s0, s1, s2, s1, s2, s5, -s5, s5, -s5])
 
 
-def kbc_relax(f, feq, e, tau):
-    """Entropic KBC collision (Karlin, Boesch, Chikatamarla) on D2Q9 or
-    D3Q27: the shear part relaxes with beta = 1/(2 tau), the higher-order
-    part with the stabiliser gamma from the entropy condition. A cell
-    whose higher-order part vanishes (0/0) and a gamma below 1e-15 get
-    gamma = 2."""
+def kbc_parts(f, feq, e, tau):
+    """The pieces of the entropic KBC collision (Karlin, Boesch,
+    Chikatamarla) on D2Q9 or D3Q27 at the state ``f`` and its equilibrium
+    ``feq``: ``(beta, delta_s, delta_h, sum_s, sum_h, gamma, guarded)``,
+    the shear part relaxing with beta = 1/(2 tau), the higher-order part
+    delta_h with the stabiliser gamma from the entropy condition, and
+    where a cell's higher-order part vanishes (0/0) or gamma is below
+    1e-15, gamma = 2 (``guarded``)."""
     d = np.asarray(e).shape[1]
     M = constant_table(kbc_moment_matrix(e), f.dtype, f.device)
     beta = 1.0 / (2 * tau)
@@ -193,9 +195,16 @@ def kbc_relax(f, feq, e, tau):
     degenerate = sum_h == 0
     ratio = sum_s / torch.where(degenerate, torch.ones_like(sum_h), sum_h)
     gamma_stab = 1.0 / beta - (2 - 1.0 / beta) * ratio
-    two = torch.full_like(gamma_stab, 2.0)
-    gamma_stab = torch.where(degenerate, two, gamma_stab)
-    gamma_stab = torch.where(gamma_stab < 1e-15, two, gamma_stab)
+    guarded = degenerate | (gamma_stab < 1e-15)
+    gamma_stab = torch.where(guarded, torch.full_like(gamma_stab, 2.0),
+                             gamma_stab)
+    return beta, delta_s, delta_h, sum_s, sum_h, gamma_stab, guarded
+
+
+def kbc_relax(f, feq, e, tau):
+    """Entropic KBC collision (Karlin, Boesch, Chikatamarla) on D2Q9 or
+    D3Q27 (:func:`kbc_parts`): f - beta (2 delta_s + gamma delta_h)."""
+    beta, delta_s, delta_h, _, _, gamma_stab, _ = kbc_parts(f, feq, e, tau)
     return f - beta * (2 * delta_s + gamma_stab * delta_h)
 
 

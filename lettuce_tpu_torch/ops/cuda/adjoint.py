@@ -6,8 +6,9 @@ The kernels replace ``lettuce_tpu/ops/pallas/adjoint.py::_adjoint_kernel``
 in float32 and float64, for D2Q9, D3Q15, D3Q19 and D3Q27, periodic and
 masked: ``csrc/adjoint.cu`` for the ``("bgk", tau_inv)`` spec (K3a, K3c)
 and ``csrc/adjoint_fragments.cu`` for the other adjoint specs
-(:data:`ADJOINT_FRAGMENTS`, K3b). The adjoint spec of a forward collision
-is packed with it (:func:`.stream_collide.adjoint_collision_spec`,
+(:data:`ADJOINT_FRAGMENTS`, K3b; KBC's, K3 kbc, on D2Q9 and D3Q27
+only). The adjoint spec of a forward collision is packed with it
+(:func:`.stream_collide.adjoint_collision_spec`,
 :class:`.stream_collide.PackedSpec`). Given the cotangent ``g`` of a
 step's output and the forward's residual (the pre-collision velocity u
 the emit-u forward wrote, or the step's input f), a kernel returns the
@@ -21,6 +22,7 @@ cotangent of the step's input, the exact vector-Jacobian product::
                 cp = 1 / (2 tau_plus), cm = 1 / (2 tau_minus),
         matvec  t = C^T h (the folded MRT, the regularized),
         smag    t = s h, s = 1 / tau_eff per cell,
+        kbc     t = feq_bar, the cotangent of KBC's equilibrium (below),
     S0 = sum_q w_q t_q,  S1_a = sum_q w_q e_qa t_q,
     S2_ab = sum_q w_q e_qa e_qb t_q,
     A = S0 (1 - u.u / (2 cs^2)) + u.S1 / cs^2 + u.S2.u / (2 cs^4),
@@ -37,7 +39,24 @@ Pi_ab = sum_q e_qa e_qb d_q, P = |Pi|^2 and R = P / (4 cs^4 rho^2),
 X_q = D s^2 (dtau/dR) (e_q.Pi.e_q - cs^2 tr Pi - 2 e_q.Pi u + u.Pi.u -
 P / rho) / (2 cs^4 rho^2); it reads the state f, not u.
 
-Split mode (KBC, the closed-form MRT bases, forced BGK: no closed-form
+KBC's reverse recomputes the forward (csrc/kbc.cuh) from the state f:
+dh = f - feq - ds, the stabiliser gamma = 1/beta - c S_s / S_h (c = 2 -
+1/beta, S_s = sum ds dh / feq, S_h = sum dh^2 / feq, gamma = 2 where
+guarded), then with gamma_bar = -beta h.dh (0 where guarded), S_s_bar =
+-c gamma_bar / S_h, S_h_bar = -S_s_bar S_s / S_h::
+
+    dh_bar  = -beta gamma h + S_s_bar ds / feq + 2 S_h_bar dh / feq,
+    ds_bar  = -2 beta h + S_s_bar dh / feq - dh_bar,
+    feq_bar = -dh_bar - (S_s_bar ds + S_h_bar dh) dh / feq^2,
+    ct_q    = h_q + dh_bar_q + (A' + e_q.B)(t = feq_bar)
+              + (e_q - u).R.(e_q - u) - cs^2 tr R,
+
+with R = sum_q K_q ds_bar_q, where ds_q = K_q : Q is linear in the
+non-equilibrium second moment Q = sum e e f - rho u u - rho cs^2 I
+(:func:`_kbc_shear_map`). lettuce_tpu differentiates KBC in split mode; its
+gradient here is the same function in one kernel.
+
+Split mode (the closed-form MRT bases, forced BGK: no closed-form
 Jacobian) runs the ``none`` kernel with the no-streaming re-route but no
 boundary routing (the streaming transpose S^T), then
 :func:`prestream_vjp`, the VJP of the pointwise pre-streaming map
@@ -47,7 +66,7 @@ boundary routing (the streaming transpose S^T), then
 The kernels are bound by device memory: D3Q19 in float32 reads 19 + 3
 fields and writes 19, 164 B per lattice update with the u residual, 228 B
 with the f residual, 152 B for ``none`` (plus the 1-byte code when
-masked).
+masked); KBC on D3Q27 324 B.
 
 The blocked adjoint (K4, ``csrc/adjoint_multi.cu``) replaces
 ``lettuce_tpu/ops/pallas/adjoint.py::_adjoint_multi_kernel``: the exact VJP
@@ -62,14 +81,14 @@ D3Q19 float32 lattice update.
 
 A bfloat16 or float16 state differentiates on the same kernels at 16-bit
 storage (``csrc/adjoint_half.cu``, K3 at 16 bits, every spec;
-``csrc/adjoint_multi_half.cu``, K4 at 16 bits): the cotangent (and
-Smagorinsky's f residual) is stored in the state's dtype, the u residual
-in float32, every sum runs in float32 and each stored value rounds once,
-as lettuce_tpu's adjoint kernel computes in float32 (:167-174). D3Q19
-moves 88 B per lattice update with the u residual, 114 B with the f
-residual. The blocked adjoint keeps its rings in float32 between levels and
-rounds once per launch, where lettuce_tpu's computes in the storage dtype
-(ROADMAP F11). The plain versions widen to float32, compute and round
+``csrc/adjoint_multi_half.cu``, K4 at 16 bits): the cotangent (and the f
+residual of Smagorinsky and KBC) is stored in the state's dtype, the u
+residual in float32, every sum runs in float32 and each stored value
+rounds once, as lettuce_tpu's adjoint kernel computes in float32
+(:167-174). D3Q19 moves 88 B per lattice update with the u residual, 114
+B with the f residual. The blocked adjoint keeps its rings in float32
+between levels and rounds once per launch, where lettuce_tpu's computes
+in the storage dtype (ROADMAP F11). The plain versions widen to float32, compute and round
 once. Deviation storage has no gradient.
 
 :func:`stream_collide_adjoint` and :func:`stream_collide_adjoint_multi`
@@ -86,13 +105,15 @@ import numpy as np
 import torch
 
 from ... import tracing
+from ..collision import constant_table, kbc_parts
+from ..equilibrium import quadratic_feq
 from .build import (DTYPES, HALF_DTYPES, KERNEL_STENCIL_NAMES,
                     check_launch, check_out, compute_dtype,
                     kernel_stencil_name, launch_dims, open_library,
                     storage_suffix)
-from .stream_collide import (FRAGMENTS, check_nsm, checked_table,
-                             fragment_of, march_plan, march_scratch,
-                             pack_spec, prestream_plain,
+from .stream_collide import (FRAGMENTS, _velocity, check_nsm,
+                             checked_table, fragment_of, march_plan,
+                             march_scratch, pack_spec, prestream_plain,
                              stream_collide_plain)
 
 __all__ = ["stream_collide_adjoint", "stream_collide_adjoint_plain",
@@ -104,7 +125,8 @@ __all__ = ["stream_collide_adjoint", "stream_collide_adjoint_plain",
            "ADJOINT_FRAGMENTS", "ADJOINT_MULTI_FRAGMENTS", "NONE_SPEC"]
 
 # the adjoint specs of csrc/adjoint_fragments.cu, each on every stencil
-ADJOINT_FRAGMENTS = ("none", "trt", "matvec", "smag")
+# but kbc, which is on its forward's (FRAGMENTS)
+ADJOINT_FRAGMENTS = ("none", "trt", "matvec", "smag", "kbc")
 # the adjoint specs of csrc/adjoint_half.cu (K3 at 16 bits), each on every
 # stencil in bfloat16 and float16
 HALF_ADJOINT_FRAGMENTS = ("bgk", *ADJOINT_FRAGMENTS)
@@ -190,6 +212,55 @@ def _smagorinsky_transpose(h, f, et, wt, cs, tau0, constant):
     return _equilibrium_transpose(h, s * h, u, et, wt, cs) + x
 
 
+def _kbc_shear_map(e) -> np.ndarray:
+    """``K [q, d, d]``, symmetric in its last two axes: KBC's shear part
+    ds_q = K_q : Q of the non-equilibrium second moment Q (csrc/kbc.cuh's
+    tracers): -I on the rest direction, e e^T / 2 along an axis, the
+    off-diagonal of e e^T / 8 on an edge diagonal, 0 on a corner."""
+    e = np.asarray(e, dtype=np.float64)
+    K = np.zeros((e.shape[0], e.shape[1], e.shape[1]))
+    for q, c in enumerate(e):
+        n = int(np.count_nonzero(c))
+        if n == 0:
+            K[q] = -np.eye(e.shape[1])
+        elif n == 1:
+            K[q] = 0.5 * np.outer(c, c)
+        elif n == 2:
+            K[q] = 0.125 * (np.outer(c, c) - np.diag(c * c))
+    return K
+
+
+def _kbc_transpose(h, f, e, et, wt, cs, tau):
+    """J^T h for the KBC collision at the state f, with no autograd: the
+    forward recomputed by the plain step's own code
+    (:func:`.collision.kbc_parts` on the equilibrium
+    :func:`.stream_collide.collide_plain` builds), so that its
+    ill-conditioned pieces (dh = f - feq - ds, the stabiliser's 1/S_h)
+    round as the plain step's do, then the reverse of the module
+    docstring, as ``KbcAdjoint`` computes it."""
+    rho = torch.sum(f, dim=0, keepdim=True)
+    u = _velocity(f, et, rho, e)
+    feq = quadratic_feq(et, wt, cs, rho, u)
+    beta, ds, dh, sum_s, sum_h, gamma, guarded = kbc_parts(f, feq, e, tau)
+    c = 2.0 - 1.0 / beta
+    safe = torch.where(guarded, torch.ones_like(sum_h), sum_h)
+    r = 1.0 / feq
+    ss_bar = (c * beta * torch.sum(h * dh, dim=0, keepdim=True)
+              / safe).masked_fill(guarded, 0.0)
+    sh_bar = -ss_bar * sum_s / safe
+    dh_bar = -beta * gamma * h + ss_bar * ds * r + 2 * sh_bar * dh * r
+    ds_bar = -2 * beta * h + ss_bar * dh * r - dh_bar
+    feq_bar = -dh_bar - (ss_bar * ds + sh_bar * dh) * dh * r * r
+    # ds = K : Q, dQ_ab / df_q = (e_q - u)_a (e_q - u)_b - cs^2 delta_ab
+    shear = constant_table(_kbc_shear_map(e), f.dtype, f.device)
+    R = torch.tensordot(shear.permute(1, 2, 0), ds_bar, dims=1)  # [d, d, ...]
+    v = et.reshape(et.shape + (1,) * (f.dim() - 1)) - u[None]   # [q, d, ...]
+    x = (torch.einsum("qa...,ab...,qb...->q...", v, R, v)
+         - (cs * cs) * torch.diagonal(R, dim1=0, dim2=1).sum(-1))
+    return _equilibrium_transpose(h + dh_bar + feq_bar, feq_bar, u, et, wt,
+                                  cs) + x
+
+
 def stream_collide_adjoint_plain(g: torch.Tensor, res: torch.Tensor,
                                  e: np.ndarray, w: np.ndarray,
                                  opposite: np.ndarray, cs: float,
@@ -203,10 +274,10 @@ def stream_collide_adjoint_plain(g: torch.Tensor, res: torch.Tensor,
     by ``torch.roll`` along -e (re-routed where ``nsm`` froze
     populations), the transposed collision Jacobian of the module
     docstring at the residual ``res`` (u ``[d, *grid]`` for bgk, trt and
-    matvec, the state f for smag, unused for none), and the boundary codes
-    of ``table`` where ``ncm`` holds them. ``feq_field`` is unused (an
-    equilibrium replacement is constant in f); it is taken so that one
-    parameter set serves the forward and the adjoint.
+    matvec, the state f for smag and kbc, unused for none), and the
+    boundary codes of ``table`` where ``ncm`` holds them. ``feq_field`` is
+    unused (an equilibrium replacement is constant in f); it is taken so
+    that one parameter set serves the forward and the adjoint.
 
     A 16-bit ``g`` (and f residual) is widened to float32 and the result
     rounded once to ``g``'s dtype, as the 16-bit kernels compute; the u
@@ -233,6 +304,8 @@ def _adjoint_plain(g, res, e, w, opposite, cs, tau_inv, ncm, nsm, table,
     elif kind == "smag":
         ct = _smagorinsky_transpose(h, res, et, wt, cs, adjoint[1],
                                     adjoint[2])
+    elif kind == "kbc":
+        ct = _kbc_transpose(h, res, e, et, wt, cs, adjoint[1])
     else:
         if kind == "bgk":
             t = adjoint[1] * h
@@ -287,9 +360,9 @@ def adjoint_multi_refusal(spec, dtype: torch.dtype):
     ``spec`` on a ``dtype`` state, or None when it can."""
     if spec.fragment not in ADJOINT_MULTI_FRAGMENTS:
         return (f"the {spec.fragment!r} collision has no blocked adjoint "
-                f"(it takes {', '.join(ADJOINT_MULTI_FRAGMENTS)}: "
-                f"Smagorinsky's Jacobian reads every sub-step's state, the "
-                f"others run split mode)")
+                f"(it takes {', '.join(ADJOINT_MULTI_FRAGMENTS)}: the "
+                f"Jacobians of Smagorinsky and KBC read every sub-step's "
+                f"state, the others run split mode)")
     if dtype not in DTYPES and dtype not in HALF_DTYPES:
         return (f"the blocked adjoint runs float32, float64, bfloat16 and "
                 f"float16 states, not {dtype}")
@@ -386,6 +459,13 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
+def _adjoint_stencils(fragment: str) -> tuple:
+    """The stencil instances of an adjoint spec's entries: its forward's
+    for kbc, every stencil for the others."""
+    return FRAGMENTS[fragment][1] if fragment == "kbc" \
+        else KERNEL_STENCIL_NAMES
+
+
 @functools.cache
 def load_fragment_library() -> ctypes.CDLL:
     """Build (if needed) and load the library of the other adjoint specs
@@ -396,7 +476,7 @@ def load_fragment_library() -> ctypes.CDLL:
     tail = ([ctypes.c_int64] * 3
             + [pointer, ctypes.c_double, ctypes.c_int, pointer])
     for fragment in ADJOINT_FRAGMENTS:
-        for name in KERNEL_STENCIL_NAMES:
+        for name in _adjoint_stencils(fragment):
             for suffix, _ in DTYPES.values():
                 fn = getattr(lib, f"lt_adjoint_{fragment}_{name}_{suffix}")
                 fn.argtypes = [pointer] * 3 + tail
@@ -421,7 +501,7 @@ def load_half_library() -> ctypes.CDLL:
     tail = ([ctypes.c_int64] * 3
             + [pointer, ctypes.c_double, ctypes.c_int, pointer])
     for fragment in HALF_ADJOINT_FRAGMENTS:
-        for name in KERNEL_STENCIL_NAMES:
+        for name in _adjoint_stencils(fragment):
             for dtype in HALF_DTYPES:
                 suffix = storage_suffix(dtype)
                 for variant, n_pointers in (("", 3), ("masked_", 6)):
@@ -492,7 +572,7 @@ def stream_collide_adjoint(g: torch.Tensor, res: torch.Tensor,
     (``[q, *grid]``) of its output and the forward's residual ``res``: the
     pre-collision velocity u (``[d, *grid]``) for BGK, TRT and the
     ``matvec`` specs, in float32 for a 16-bit ``g``), the step's input f
-    for Smagorinsky (in g's dtype), None for the identity.
+    for Smagorinsky and KBC (in g's dtype), None for the identity.
     ``collision_spec`` is the forward's (BGK with ``tau_inv``
     when None); its adjoint spec selects the kernel, and a split-mode spec
     raises ValueError (split mode is ``fused_step``'s: this function with

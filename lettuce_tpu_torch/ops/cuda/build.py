@@ -207,8 +207,21 @@ def check_launch(lib: ctypes.CDLL, rc: int, what: str) -> None:
 # ----------------------------------------------------------------------
 def kernel_stencil_name(e, w, opposite) -> str:
     """The compiled instance whose tables equal (e, w, opposite); raises
-    ValueError if there is none."""
+    ValueError if there is none. Every launch asks, a few times, so the
+    answer is kept per value of the tables."""
     e, w, opposite = np.asarray(e), np.asarray(w), np.asarray(opposite)
+    return _stencil_name_of((e.dtype, e.shape, e.tobytes()),
+                            (w.dtype, w.shape, w.tobytes()),
+                            (opposite.dtype, opposite.shape,
+                             opposite.tobytes()))
+
+
+@functools.lru_cache(maxsize=16)
+def _stencil_name_of(e_key: tuple, w_key: tuple, opposite_key: tuple
+                     ) -> str:
+    """:func:`kernel_stencil_name` of the tables (dtype, shape, bytes)."""
+    e, w, opposite = (np.frombuffer(data, dtype).reshape(shape)
+                      for dtype, shape, data in (e_key, w_key, opposite_key))
     for name, stencil in _KERNEL_STENCILS.items():
         if (e.shape == stencil.e.shape and np.array_equal(e, stencil.e)
                 and np.array_equal(w, stencil.w)

@@ -13,9 +13,10 @@ PackedSpec`) says what the forward saves and how the backward runs:
   pre-collision velocity u (d fields instead of the q of the state); the
   backward runs the spec's adjoint kernel on it;
 * full mode, f residual (Smagorinsky, whose Jacobian needs rho and the
-  deviations): the forward runs the primal kernel and saves its input;
+  deviations, and KBC, whose adjoint recomputes its forward): the
+  forward runs the primal kernel and saves its input;
 * full mode, no residual (the identity);
-* split mode (KBC, the closed-form MRT bases, forced BGK): the forward
+* split mode (the closed-form MRT bases, forced BGK): the forward
   runs the primal kernel and saves its input; the backward runs the
   ``none`` adjoint kernel with the no-streaming re-route and no boundary
   routing (the streaming transpose), then the VJP of the pointwise

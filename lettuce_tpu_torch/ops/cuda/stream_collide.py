@@ -458,9 +458,11 @@ def adjoint_collision_spec(spec, e, w, cs) -> tuple:
     folded MRT ``from_feq``, C = M^-1 diag(1/tau) M, and the regularized,
     C = I - (1 - 1/tau) P with the static projection
     P_ij = w_i ((e_i.e_j)^2 - cs^2 |e_j|^2) / (2 cs^4)); BGK, TRT,
-    Smagorinsky and the identity keep their spec; every other collision
-    (forced BGK, KBC, the closed-form MRT bases) gives ``("split",)``: no
-    closed-form Jacobian, so its gradient runs split mode."""
+    Smagorinsky, KBC and the identity keep their spec (KBC's adjoint is a
+    kernel of the port's own: lettuce_tpu runs it in split mode); every
+    other collision (forced BGK, the closed-form MRT bases) gives
+    ``("split",)``: no closed-form Jacobian, so its gradient runs split
+    mode."""
     kind = spec[0]
     if kind == "mrt" and spec[4] == "from_feq":
         return ("matvec", tuple(map(tuple, _mrt_matrix(spec).T)))
@@ -473,7 +475,7 @@ def adjoint_collision_spec(spec, e, w, cs) -> tuple:
              * (w[:, None] / (2.0 * cs2 * cs2)))
         C = np.eye(len(w)) - (1.0 - 1.0 / float(spec[1])) * P
         return ("matvec", tuple(map(tuple, C.T)))
-    if kind in ("bgk", "trt", "smag", "none"):
+    if kind in ("bgk", "trt", "smag", "kbc", "none"):
         return tuple(spec)
     return ("split",)
 
@@ -499,7 +501,8 @@ class PackedSpec(tuple):
         self.adjoint_params = adjoint_params
         self.mode = "split" if adjoint[0] == "split" else "full"
         self.residual = {"bgk": "u", "trt": "u", "matvec": "u", "smag": "f",
-                         "none": None, "split": "f"}[adjoint[0]]
+                         "kbc": "f", "none": None,
+                         "split": "f"}[adjoint[0]]
         return self
 
 
@@ -510,7 +513,7 @@ def _pack_adjoint(spec, e, w, opposite, cs) -> tuple:
         params = np.concatenate(_fold_pairs(
             np.asarray(adjoint[1]), opposite,
             "the transposed relaxation matrix"))
-    else:  # bgk, trt, smag: the spec's scalars; none and split: none
+    else:  # bgk, trt, smag, kbc: the spec's scalars; none and split: none
         params = adjoint[1:] or (0.0,)
     return adjoint, np.ascontiguousarray(params, dtype=np.float64)
 

@@ -174,7 +174,7 @@ def test_packed_adjoint_spec(name, stencil_name):
     want = {"bgk": ("bgk", "full", "u"), "trt": ("trt", "full", "u"),
             "reg": ("matvec", "full", "u"), "mrt": ("matvec", "full", "u"),
             "smag": ("smag", "full", "f"), "none": ("none", "full", None),
-            "kbc": ("split", "split", "f"), "guo": ("split", "split", "f")}
+            "kbc": ("kbc", "full", "f"), "guo": ("split", "split", "f")}
     assert (spec.adjoint[0], spec.mode, spec.residual) == want[name]
     if spec.adjoint[0] != "matvec":
         np.testing.assert_array_equal(spec.adjoint_params,
@@ -261,7 +261,7 @@ def test_split_spec_has_no_closed_form_adjoint():
     g = torch.zeros((9, 4, 4), dtype=torch.float64)
     with pytest.raises(ValueError, match="split mode"):
         ad.stream_collide_adjoint(g, g, *args_of(stencil), None,
-                                  collision_spec=forward_spec("kbc", stencil))
+                                  collision_spec=forward_spec("guo", stencil))
 
 
 def test_wrappers_run_plain_on_cpu_tensors():

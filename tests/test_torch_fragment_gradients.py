@@ -1,7 +1,7 @@
 """Rollout gradients of every collision fragment through lettuce_tpu_torch's
 kernel path on the CPU, against ``jax.grad`` through lettuce_tpu's jnp
 step: full mode (TRT, the folded MRT, the regularized collision,
-Smagorinsky, the identity) and split mode (KBC, a closed-form MRT basis,
+Smagorinsky, KBC, the identity) and split mode (a closed-form MRT basis,
 Guo-forced BGK), periodic and masked, and a bounded flow with an outlet
 through the window replay; ``gradcheck`` of the Function for every spec;
 then the simulation's routing: every kernel-path collision's
@@ -22,6 +22,8 @@ import torch
 
 import lettuce_tpu as lt
 import lettuce_tpu_torch as ltt
+from lettuce_tpu.ops.pallas.adjoint import \
+    adjoint_collision_spec as jax_adjoint_collision_spec
 from lettuce_tpu_torch.ops.cuda.fused_step import fused_step
 from tests.conftest import TestFlow
 from tests.test_torch_bounded_kernel import bounded_case, torch_masks
@@ -93,12 +95,12 @@ CASES = {
                        pkg.SmagorinskyCollision(0.8), "full", "float64",
                        1e-11),
     "kbc-2d": (_tgv(D2, "D2Q9"), lambda pkg, flow: pkg.KBCCollision(
-        _units_tau(flow)), "split", "float64", 1e-12),
+        _units_tau(flow)), "full", "float64", 1e-12),
     "kbc-3d": (_tgv([8, 8, 128], "D3Q27"), lambda pkg, flow:
-               pkg.KBCCollision(_units_tau(flow)), "split", "float64",
+               pkg.KBCCollision(_units_tau(flow)), "full", "float64",
                1e-11),
     "kbc-masked": (_walled(D2, "D2Q9"), lambda pkg, flow:
-                   pkg.KBCCollision(0.8), "split", "float64", 1e-11),
+                   pkg.KBCCollision(0.8), "full", "float64", 1e-11),
     "guo": (_tgv(D2, "D2Q9"), lambda pkg, flow: pkg.BGKCollision(
         0.8, force=pkg.Guo(flow, 0.8, [1e-4, 0.0])), "split", "float64",
         1e-12),
@@ -157,11 +159,14 @@ def test_rollout_gradient_matches_jax_grad(case):
 # ----------------------------------------------------------------------
 # a bounded flow with an outlet: kernel + window replay
 # ----------------------------------------------------------------------
-@pytest.mark.parametrize("name,mode", [("trt", "full"), ("kbc", "split")])
-def test_hybrid_gradient_matches_jax_grad(name, mode):
+@pytest.mark.parametrize("name,reference_mode", [("trt", "full"),
+                                                 ("kbc", "split")])
+def test_hybrid_gradient_matches_jax_grad(name, reference_mode):
     """tests/test_torch_hybrid.py's obstacle (equilibrium inlet,
-    anti-bounce-back outlet through the replay, cylinder) with TRT (full
-    mode) and KBC (split mode), 3 steps."""
+    anti-bounce-back outlet through the replay, cylinder) with TRT and
+    KBC, 3 steps. lettuce_tpu differentiates TRT in full mode and KBC in
+    split mode (``reference_mode``: its adjoint spec raises for KBC); the
+    port runs both in full mode, KBC through its own adjoint."""
     def make_collision(pkg, flow):
         tau = _units_tau(flow)
         if name == "trt":
@@ -172,7 +177,15 @@ def test_hybrid_gradient_matches_jax_grad(name, mode):
         lambda pkg, ctx: obstacle(pkg, ctx, OUTLETS["anti_bounce_back"]),
         make_collision, "float64", noise=1e-2 if name == "kbc" else 1e-4)
     assert tsim.step_path == "cuda+hybrid x1"
-    assert tsim.adjoint_mode == mode
+    assert tsim.adjoint_mode == "full"
+    params = dict(tsim._kernel_params,
+                  collision_spec=tuple(tsim._kernel_params["collision_spec"]))
+    try:
+        jax_adjoint_collision_spec(params)
+        mode = "full"
+    except NotImplementedError:
+        mode = "split"
+    assert mode == reference_mode
     assert_scaled_close(got, want, 1e-12 if name == "trt" else 1e-11)
 
 
@@ -181,7 +194,7 @@ def test_hybrid_gradient_matches_jax_grad(name, mode):
 # ----------------------------------------------------------------------
 GRADCHECK = {"trt": ("D2Q9", "full"), "reg": ("D3Q27", "full"),
              "mrt": ("D3Q19", "full"), "smag": ("D2Q9", "full"),
-             "none": ("D2Q9", "full"), "kbc": ("D2Q9", "split"),
+             "none": ("D2Q9", "full"), "kbc": ("D2Q9", "full"),
              "guo": ("D2Q9", "split")}
 
 

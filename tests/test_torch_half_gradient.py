@@ -305,7 +305,8 @@ def test_16_bit_split_mode_matches_pallas(name, state):
         stencil=ltt.D2Q9(), initialize_fneq=False)
     tsim = ltt.Simulation(tflow, SPLIT[name](ltt, tflow), [])
     tsim._use_kernel()
-    assert tsim.adjoint_mode == "split"
+    # KBC has an adjoint kernel of its own: full mode on the port
+    assert tsim.adjoint_mode == ("full" if name == "kbc" else "split")
     x0 = x.clone().requires_grad_(True)
     (got,) = torch.autograd.grad(tsim.make_step_fn()(x0), x0, g)
     assert got.dtype == torch_dtype

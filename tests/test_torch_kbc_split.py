@@ -105,12 +105,12 @@ def test_one_step_equals_the_reference(stencil, resolution, dtype, route):
 def test_split_mode_gradient_equals_autograd_through_the_reference(
         stencil, resolution):
     """Three steps through ``make_segment_fn`` on the kernel path's wiring
-    (the ``none`` adjoint, then the pointwise VJP) against autograd
+    (KBC's own adjoint, in full mode since it has one) against autograd
     through the reference's rollout, in float64: roundoff apart (about
     1e-15 measured), so 1e-10 allows the longer chain of sums."""
     sim = kbc_simulation(stencil, resolution, torch.float64)
     sim._use_kernel()
-    assert sim.adjoint_mode == "split"
+    assert sim.adjoint_mode == "full"
     f0 = noisy_state(stencil, resolution, torch.float64)
     cotangent = torch.randn(f0.shape, dtype=torch.float64,
                             generator=torch.Generator().manual_seed(5))
@@ -194,7 +194,7 @@ def small_cell(variant, monkeypatch):
 
 def test_the_cell_is_correct_on_the_split_route(kernel_path, monkeypatch):
     result, seen = small_cell("program", monkeypatch)
-    assert seen == [("cuda x1", "split", "KBCCollision")]
+    assert seen == [("cuda x1", "full", "KBCCollision")]
     assert set(result["checks"]) == {"loss_gap", "grad_gap", "change_gap",
                                      "state_gap", "finite"}
     assert result["correct"], result["checks"]
@@ -281,3 +281,32 @@ def test_the_none_adjoint_has_a_family_of_its_own():
     assert trace.bytes_per_update(none, q27) == 216
     assert trace.ops_per_update(none, q27) == 0
     assert trace.bytes_per_update(bgk, q19) == 164
+
+
+KBC_ADJOINT = ("void lt::adjoint_kernel<lt::KbcAdjoint<lt::D3Q27, float>, "
+               "lt::Same<float> >(float const*, float const*, float*, long, "
+               "long, long, lt::KbcAdjoint<lt::D3Q27, float>::Params)")
+
+
+def test_the_kbc_adjoint_has_a_family_of_its_own():
+    """KBC's adjoint counts the 324 B of its cotangent, its saved step
+    input and its output at q = 27, in its own family, not K3a's (whose
+    pattern every adjoint_kernel instance matches) or the ``none``
+    adjoint's; its operations stay under the bytes' time, so its share of
+    the roofline cannot pass 100 %. BGK's adjoint keeps K3a's 164 B."""
+    families = harness.load_cell(CELL).families
+    kbc = trace.family_of(KBC_ADJOINT, families)
+    bgk = trace.family_of(BGK_ADJOINT, families)
+    none = trace.family_of(NONE_ADJOINT, families)
+    assert (kbc["name"], bgk["name"], none["name"]) == ("K3_kbc", "K3a",
+                                                        "K3_none")
+    q27 = {"q": 27, "d": 3, "s": 4, "c": 4, "m": 1}
+    assert trace.bytes_per_update(kbc, q27) == 324
+    assert 0 < trace.ops_per_update(kbc, q27) <= 64 * 27
+    peaks = {"kernel_prefix": "lt::", "hbm_bytes_per_s": 3.35e12,
+             "fp32_ops_per_s": 67e12}
+    cells = 128 ** 3
+    share, unknown = trace.roofline_share(
+        [(KBC_ADJOINT, 0.203e-3)], families, q27, cells, peaks)
+    assert unknown == [] and 0.99 < share < 1.01  # the bytes' bound
+    assert trace.bytes_per_update(bgk, dict(q27, q=19)) == 164

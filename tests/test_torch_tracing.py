@@ -127,15 +127,18 @@ def test_traced_segment_spans_and_self_times(sim):
         assert self_ns == total - summary["replay"][1]
 
 
-def kbc_taylor_green(stencil, resolution, dtype):
-    """A KBC simulation, split mode on the kernel path's wiring."""
+def split_taylor_green(stencil, resolution, dtype):
+    """A Guo-forced BGK simulation, split mode on the kernel path's
+    wiring."""
     ctx = ltt.Context(device="cpu", dtype=dtype, use_native=False)
     flow = ltt.TaylorGreenVortex(ctx, resolution, 1600, 0.05,
                                  stencil=getattr(ltt, stencil)())
+    tau = flow.units.relaxation_parameter_lu
+    accel = [1e-5] + [0.0] * (len(resolution) - 1)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")  # the CPU context's warning
         sim = ltt.Simulation(
-            flow, ltt.KBCCollision(flow.units.relaxation_parameter_lu), [])
+            flow, ltt.BGKCollision(tau, force=ltt.Guo(flow, tau, accel)), [])
     sim._use_kernel()
     assert sim.adjoint_mode == "split"
     return sim
@@ -147,10 +150,10 @@ def kbc_taylor_green(stencil, resolution, dtype):
 def test_split_mode_backward_holds_one_vjp_span_a_step(stencil, resolution,
                                                        dtype):
     """Four steps' backward: four ``adjoint`` spans, each the parent of
-    exactly one ``vjp`` span, and ``vjp:kbc`` counted once a step (a
+    exactly one ``vjp`` span, and ``vjp:bgk_force`` counted once a step (a
     16-bit state's VJP on float32 copies counts once too)."""
-    sim = kbc_taylor_green(stencil, resolution, dtype)
-    before = tracing.counts["vjp:kbc"]
+    sim = split_taylor_green(stencil, resolution, dtype)
+    before = tracing.counts["vjp:bgk_force"]
     with tracing.recording() as record:
         loss_and_grad(sim)
     spans = record.spans
@@ -162,10 +165,10 @@ def test_split_mode_backward_holds_one_vjp_span_a_step(stencil, resolution,
     assert sorted(parent for parent, _, _ in vjps) == adjoints
     for parent, start, end in vjps:
         assert spans[parent][2] <= start <= end <= spans[parent][3]
-    assert record.counts["vjp:kbc"] == 4
-    assert tracing.counts["vjp:kbc"] - before == 4
+    assert record.counts["vjp:bgk_force"] == 4
+    assert tracing.counts["vjp:bgk_force"] - before == 4
     assert not [k for k in record.counts if k.startswith("vjp:")
-                and k != "vjp:kbc"]
+                and k != "vjp:bgk_force"]
 
 
 def test_full_mode_backward_records_no_vjp(sim):
